@@ -1,0 +1,247 @@
+"""The port's operators against the JAX package's, on the CPU.
+
+Each kernel's plain PyTorch version (what a CPU tensor runs) is held
+against the JAX function as the JAX package's own tests run it (Pallas in
+interpret mode); the CUDA kernels themselves are held against their plain
+versions in tests/test_torch_kernels.py, on the card. Inputs come from a
+numpy seed and go to both frameworks as numpy arrays.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from uncrtaints_tpu_torch import ops as tops
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))  # a writable copy (JAX arrays are read-only)
+
+
+def _np(t):
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+# ------------------------------------------------------------------ K1 --
+
+@pytest.mark.parametrize("dtype,tol", [
+    # fp32: both accumulate the same fp32 products over T; only the order
+    # of the three adds may differ
+    ("float32", 1e-6),
+    # bf16: one final rounding each, plus the JAX kernel's
+    # rounding of fp32 inputs; 2e-2 as the JAX package's bf16 test
+    ("bfloat16", 2e-2),
+])
+def test_att_group_plain_matches_jax_kernel(rng, dtype, tol):
+    from uncrtaints_tpu.ops.pallas_aggregate import att_group_aggregate
+    B, T, H, W, C, heads = 2, 3, 8, 8, 128, 16
+    x = rng.standard_normal((B, T, H, W, C)).astype(np.float32)
+    a = rng.random((B, T, H, W, heads)).astype(np.float32)
+    jx, ja = jnp.asarray(x).astype(dtype), jnp.asarray(a).astype(dtype)
+    ref = att_group_aggregate(jx, ja, interpret=True)
+    got = tops.att_group_aggregate(_t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype)),
+                                   _t(np.asarray(ja.astype(jnp.float32))).to(getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (B, H, W, C)
+    np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32), rtol=tol, atol=tol)
+
+
+def test_att_group_wrapper_rejects_bad_input():
+    x = torch.zeros(1, 2, 4, 4, 12)
+    with pytest.raises(ValueError, match="multiple of heads"):
+        tops.att_group_aggregate(x, torch.zeros(1, 2, 4, 4, 5))
+    with pytest.raises(TypeError):
+        tops.att_group_aggregate(x, torch.zeros(1, 2, 4, 4, 4, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        tops.att_group_aggregate(x.half(), torch.zeros(1, 2, 4, 4, 4).half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.att_group_aggregate(x.transpose(2, 3), torch.zeros(1, 2, 4, 4, 4))
+    with pytest.raises(ValueError):
+        tops.att_group_aggregate(x, torch.zeros(1, 3, 4, 4, 4))
+    launches = tops.att_group_aggregate.launches
+    tops.att_group_aggregate(x, torch.zeros(1, 2, 4, 4, 4))  # CPU: plain version
+    assert tops.att_group_aggregate.launches == launches
+
+
+# ------------------------------------------------------------------ K3 --
+
+def _group_stats(x, G):
+    N = x.shape[0]
+    xg = x.astype(np.float32).reshape(N, -1, G, x.shape[-1] // G)
+    m = xg.mean(axis=(1, 3))
+    return m, 1.0 / np.sqrt(xg.var(axis=(1, 3)) + 1e-5)
+
+
+def _k3_case(rng, case):
+    """The configurations of tests/test_pallas_kernels.py (norm -> GELU ->
+    GEMM with statistics; GELU + SE + affine + GELU epilogue) and the
+    fused-MBConv pw1 configuration (affine prologue, no GELU, affine + GELU
+    epilogue)."""
+    N, P, C, C2, G = {"stats": (2, 1024, 128, 256, 4),
+                      "epilogue": (2, 512, 128, 128, 1),
+                      "pw1": (2, 512, 128, 256, 1)}[case]
+    bf = lambda a: np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+    x = bf(rng.standard_normal((N, P, C)).astype(np.float32))
+    w = bf(rng.standard_normal((C, C2)).astype(np.float32) * 0.05)
+    scale = rng.standard_normal(C).astype(np.float32)
+    bias = rng.standard_normal(C).astype(np.float32)
+    kw = dict(groups_in=G, groups_out=4 if case == "stats" else 1)
+    if case == "stats":
+        mean, coef = _group_stats(x, G)
+        kw.update(do_gelu=True, do_stats=True)
+    else:
+        mean, coef = np.zeros((N, 1), np.float32), np.ones((N, 1), np.float32)
+        oaff = (rng.standard_normal(C2).astype(np.float32),
+                rng.standard_normal(C2).astype(np.float32))
+        kw.update(out_affine=oaff, out_gelu=True, do_stats=False,
+                  do_gelu=case == "epilogue")
+        if case == "epilogue":
+            kw["se"] = rng.random((N, C)).astype(np.float32)
+    return x, mean, coef, scale, bias, w, kw
+
+
+@pytest.mark.parametrize("case", ["stats", "epilogue", "pw1"])
+def test_norm_gelu_matmul_plain_matches_jax_kernel(rng, case):
+    from uncrtaints_tpu.ops.pallas_mbconv import norm_gelu_matmul
+    x, mean, coef, scale, bias, w, kw = _k3_case(rng, case)
+    jkw = dict(kw)
+    if "out_affine" in kw:
+        jkw["out_affine"] = tuple(jnp.asarray(a) for a in kw["out_affine"])
+    if "se" in kw:
+        jkw["se"] = jnp.asarray(kw["se"])
+    ref, r1, r2 = norm_gelu_matmul(
+        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(mean), jnp.asarray(coef),
+        jnp.asarray(scale), jnp.asarray(bias), jnp.asarray(w).astype(jnp.bfloat16),
+        tile=512, interpret=True, **jkw)
+    tkw = {k: (tuple(_t(a) for a in v) if k == "out_affine" else
+               _t(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    out, s1, s2 = tops.norm_gelu_matmul(
+        _t(x).bfloat16(), _t(mean), _t(coef), _t(scale), _t(bias),
+        _t(w).bfloat16(), **tkw)
+    assert out.dtype == torch.bfloat16 and out.shape == tuple(ref.shape)
+    ref = np.asarray(ref, np.float32)
+    # the JAX package's tolerances for this kernel (test_pallas_kernels.py):
+    # bf16 output, the TPU kernel's A&S erf against the exact erf here
+    assert np.abs(_np(out) - ref).max() <= 0.05 * np.abs(ref).max()
+    if kw["do_stats"]:
+        np.testing.assert_allclose(_np(s1), np.asarray(r1), rtol=2e-3, atol=2.0)
+        np.testing.assert_allclose(_np(s2), np.asarray(r2), rtol=2e-3)
+    else:
+        assert not s1.any() and not s2.any()
+
+
+def test_norm_gelu_matmul_wrapper_rejects_bad_input():
+    x = torch.zeros(2, 128, 32, dtype=torch.bfloat16)
+    m, c = torch.zeros(2, 4), torch.ones(2, 4)
+    s, b = torch.ones(32), torch.zeros(32)
+    with pytest.raises(TypeError):
+        tops.norm_gelu_matmul(x, m, c, s, b, torch.zeros(32, 16))  # w fp32
+    with pytest.raises(ValueError):
+        tops.norm_gelu_matmul(x, m, c, s, b, torch.zeros(16, 16, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="not whole"):
+        tops.norm_gelu_matmul(x, m, c, s, b, torch.zeros(32, 18, dtype=torch.bfloat16))
+
+
+# ------------------------------------------------------- plain torch ops --
+
+@pytest.mark.parametrize("hw,out", [((16, 16), (4, 4)), ((10, 7), (4, 3))])
+def test_adaptive_max_pool2d(rng, hw, out):
+    from uncrtaints_tpu.ops.pooling import adaptive_max_pool2d
+    x = rng.standard_normal((2, 3, *hw, 5)).astype(np.float32)
+    ref = adaptive_max_pool2d(jnp.asarray(x), out)
+    got = tops.adaptive_max_pool2d(_t(x), out)
+    np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("hw,out", [((32, 32), (256, 256)), ((5, 7), (12, 20))])
+def test_upsample_bilinear(rng, hw, out):
+    from uncrtaints_tpu.ops.resize import upsample_bilinear
+    x = rng.standard_normal((2, 3, *hw, 4)).astype(np.float32)
+    ref = upsample_bilinear(jnp.asarray(x), out, hw_axes=(2, 3))
+    got = tops.upsample_bilinear(_t(x), out)
+    np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+def test_avg_pool2d(rng):
+    from uncrtaints_tpu.ops.resize import avg_pool2d
+    x = rng.standard_normal((2, 3, 8, 8, 4)).astype(np.float32)
+    ref = avg_pool2d(jnp.asarray(x), 4, hw_axes=(2, 3))
+    np.testing.assert_allclose(_np(tops.avg_pool2d(_t(x), 4)), np.asarray(ref),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_ssim(rng):
+    from uncrtaints_tpu.ops.ssim import ssim
+    a = rng.random((2, 24, 20, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.standard_normal(a.shape).astype(np.float32), 0, 1)
+    for avg in (True, False):
+        np.testing.assert_allclose(
+            _np(tops.ssim(_t(a), _t(b), size_average=avg)),
+            np.asarray(ssim(jnp.asarray(a), jnp.asarray(b), size_average=avg)),
+            rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_var", [True, False])
+def test_img_metrics_batch(rng, with_var):
+    from uncrtaints_tpu.metrics.image import img_metrics_batch as jmetrics
+    from uncrtaints_tpu_torch.metrics import img_metrics_batch
+    t = rng.random((2, 1, 24, 24, 13)).astype(np.float32)
+    p = np.clip(t + 0.05 * rng.standard_normal(t.shape).astype(np.float32), 0, 1)
+    v = rng.random(t.shape).astype(np.float32) if with_var else None
+    ref = jmetrics(jnp.asarray(t), jnp.asarray(p),
+                   var=None if v is None else jnp.asarray(v))
+    got = img_metrics_batch(_t(t), _t(p), var=None if v is None else _t(v))
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert got[k].shape == (2,)
+        np.testing.assert_allclose(_np(got[k]), np.asarray(ref[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("loss,covmode", [("MGNLL", "diag"), ("MGNLL", "iso"),
+                                          ("GNLL", "uni"), ("l1", "diag"),
+                                          ("l2", "diag")])
+def test_losses(rng, loss, covmode):
+    from uncrtaints_tpu.config import Config
+    from uncrtaints_tpu.losses import calc_loss as jcalc, get_loss as jget
+    from uncrtaints_tpu_torch.losses import calc_loss, get_loss
+    cfg = Config(loss=loss, covmode=covmode)
+    pred = rng.standard_normal((2, 1, 6, 5, 13)).astype(np.float32)
+    targ = rng.standard_normal(pred.shape).astype(np.float32)
+    nv = 1 if covmode == "iso" else 13
+    # some variances below eps, some negative: the clamp is exercised
+    var = (rng.random((2, 1, 6, 5, nv)) - 0.1).astype(np.float32)
+    jl, jv = jcalc(jget(cfg), cfg, jnp.asarray(pred), jnp.asarray(targ),
+                   var=jnp.asarray(var))
+    tl, tv = calc_loss(get_loss(cfg), cfg, _t(pred), _t(targ), var=_t(var))
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), rtol=1e-5)
+    if jv is None:
+        assert tv is None
+    else:
+        np.testing.assert_allclose(_np(tv), np.asarray(jv), rtol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["default", "resnet"])
+def test_preprocess_device(rng, method):
+    from uncrtaints_tpu.data import preprocess as jp
+    from uncrtaints_tpu_torch.data import process_MS_device, process_SAR_device
+    ms = (rng.random((2, 4, 4, 13)) * 12000 - 500).astype(np.float32)
+    ms[0, 0, 0, 0] = np.nan
+    sar = (rng.random((2, 4, 4, 2)) * -40 + 5).astype(np.float32)
+    np.testing.assert_allclose(_np(process_MS_device(_t(ms), method)),
+                               np.asarray(jp.process_MS_device(jnp.asarray(ms), method)),
+                               rtol=1e-6)
+    np.testing.assert_allclose(_np(process_SAR_device(_t(sar), method)),
+                               np.asarray(jp.process_SAR_device(jnp.asarray(sar), method)),
+                               rtol=1e-6)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from uncrtaints_tpu_torch import _build
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()

@@ -1,0 +1,67 @@
+// Helpers shared by the port's kernels: dtype codes, 16-byte vector loads
+// and stores with fp32 conversion, and the exact (erf) GELU.
+#pragma once
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+// dtype codes passed from the Python wrappers
+enum UncrDtype : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+// round to nearest even, as torch's .to(torch.bfloat16)
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// VEC consecutive elements -> fp32. When VEC * sizeof(T) is a multiple of
+// 16 bytes (and p is 16-byte aligned, which the callers check) the elements
+// move as 128-bit words; otherwise one by one.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_f32(const T* __restrict__ p, float* out) {
+  if constexpr ((VEC * sizeof(T)) % 16 == 0) {
+    constexpr int PER = 16 / sizeof(T);
+#pragma unroll
+    for (int q = 0; q < VEC / PER; ++q) {
+      uint4 u = reinterpret_cast<const uint4*>(p)[q];
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) out[q * PER + j] = to_f32(e[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) out[j] = to_f32(p[j]);
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_from_f32(T* __restrict__ p, const float* v) {
+  if constexpr ((VEC * sizeof(T)) % 16 == 0) {
+    constexpr int PER = 16 / sizeof(T);
+#pragma unroll
+    for (int q = 0; q < VEC / PER; ++q) {
+      uint4 u;
+      T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) e[j] = from_f32<T>(v[q * PER + j]);
+      reinterpret_cast<uint4*>(p)[q] = u;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) p[j] = from_f32<T>(v[j]);
+  }
+}
+
+// exact GELU in the operation order of torch's and jax.nn.gelu's erf form
+__device__ __forceinline__ float gelu_exact(float v) {
+  return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+__host__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
