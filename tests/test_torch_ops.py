@@ -64,6 +64,178 @@ def test_att_group_wrapper_rejects_bad_input():
     assert tops.att_group_aggregate.launches == launches
 
 
+# -------------------------------------------------------------- K1-bwd --
+
+def _bf16_np(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _ulp_bf16(ref):
+    """One bf16 ulp at each element of ref (fp32 array of bf16 values)."""
+    e = np.floor(np.log2(np.maximum(np.abs(ref), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7)
+
+
+@pytest.mark.parametrize("shape,tile", [
+    ((2, 3, 8, 8, 128, 16), 16),   # several row tiles
+    ((1, 2, 5, 7, 20, 4), None),   # ragged: rows 35, C 20, 5 channels a head
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_att_group_bwd_plain_matches_jax_kernel(rng, shape, tile, dtype):
+    from uncrtaints_tpu.ops.pallas_aggregate import _bwd_call
+    B, T, H, W, C, heads = shape
+    x = rng.standard_normal((B, T, H, W, C)).astype(np.float32)
+    a = rng.random((B, T, H, W, heads)).astype(np.float32)
+    g = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    if dtype == "bfloat16":
+        x, a, g = _bf16_np(x), _bf16_np(a), _bf16_np(g)
+    jd = getattr(jnp, dtype)
+    rdx, rda = _bwd_call(jnp.asarray(x).astype(jd), jnp.asarray(a).astype(jd),
+                         jnp.asarray(g).astype(jd), tile, True)
+    td = getattr(torch, dtype)
+    dx, da = tops.att_group_aggregate_bwd(_t(x).to(td), _t(a).to(td), _t(g).to(td))
+    assert dx.dtype == td and da.dtype == td
+    rdx, rda = np.asarray(rdx, np.float32), np.asarray(rda, np.float32)
+    if dtype == "float32":
+        # dx: the same fp32 product; dattn: a head's sum in another order
+        np.testing.assert_array_equal(_np(dx), rdx)
+        np.testing.assert_allclose(_np(da), rda, rtol=0, atol=1e-6)
+    else:
+        # one rounding to bf16 each: at most one bf16 ulp apart
+        np.testing.assert_array_equal(_np(dx), rdx)
+        assert (np.abs(_np(da) - rda) <= _ulp_bf16(rda)).all()
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 8, 8, 128, 16), (1, 2, 5, 7, 20, 4)])
+def test_att_group_autograd_matches_jax_grad(rng, shape):
+    """The port's autograd gradients (Function -> plain backward) against
+    jax.grad through the JAX kernel's custom VJP (interpret mode), as
+    tests/test_pallas_aggregate.py holds the VJP."""
+    import jax
+    from uncrtaints_tpu.ops.pallas_aggregate import att_group_aggregate
+    B, T, H, W, C, heads = shape
+    x = rng.standard_normal((B, T, H, W, C)).astype(np.float32)
+    a = rng.random((B, T, H, W, heads)).astype(np.float32)
+    cot = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    loss = lambda x_, a_: (att_group_aggregate(x_, a_, None, True) * cot).sum()
+    rdx, rda = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(a))
+    tx, ta = _t(x).requires_grad_(), _t(a).requires_grad_()
+    (tops.att_group_aggregate(tx, ta) * _t(cot)).sum().backward()
+    np.testing.assert_allclose(_np(tx.grad), np.asarray(rdx), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(_np(ta.grad), np.asarray(rda), rtol=0, atol=1e-6)
+
+
+def test_att_group_no_grad_skips_function():
+    x = torch.zeros(1, 2, 4, 4, 8, requires_grad=True)
+    a = torch.zeros(1, 2, 4, 4, 2)
+    assert tops.att_group_aggregate(x, a).grad_fn is not None
+    with torch.no_grad():
+        assert tops.att_group_aggregate(x, a).grad_fn is None
+    with pytest.raises(ValueError, match="g must be"):
+        tops.att_group_aggregate_bwd(x.detach(), a, torch.zeros(1, 4, 4, 4))
+
+
+# ------------------------------------------------------------------ K5 --
+
+@pytest.mark.parametrize("pads", [((1, 1), (1, 1)),   # SAME
+                                  ((0, 0), (0, 0)),   # VALID
+                                  ((2, 2), (2, 2))],  # FULL (the input gradient)
+                         ids=["same", "valid", "full"])
+@pytest.mark.parametrize("C", [128, 20])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dw_stencil_plain_matches_jax_kernel(rng, pads, C, dtype):
+    from uncrtaints_tpu.ops.pallas_dwconv import dw_stencil
+    x = rng.standard_normal((2, 12, 10, C)).astype(np.float32)
+    w = rng.standard_normal((3, 3, 1, C)).astype(np.float32)   # HWIO
+    if dtype == "bfloat16":
+        x, w = _bf16_np(x), _bf16_np(w)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(dw_stencil(jnp.asarray(x).astype(jd), jnp.asarray(w).astype(jd),
+                                pads, tile_h=4, interpret=True), np.float32)
+    wt = _t(np.transpose(w, (3, 2, 0, 1))).to(td).contiguous()   # [C,1,kh,kw]
+    got = tops.dw_stencil(_t(x).to(td), wt, pads)
+    assert got.dtype == td and got.shape == ref.shape
+    if dtype == "float32":
+        # the same fp32 taps in the same order; XLA may contract a
+        # multiply-add of the JAX side into an FMA, which differs in the
+        # last bits: 1e-6 of the largest value
+        np.testing.assert_allclose(_np(got), ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+    else:
+        assert (np.abs(_np(got) - ref) <= _ulp_bf16(ref)).all()
+
+
+@pytest.mark.parametrize("kh,kw", [(1, 3), (3, 1)])
+def test_dw_stencil_plain_strip_kernels(rng, kh, kw):
+    from uncrtaints_tpu.ops.pallas_dwconv import dw_stencil
+    x = rng.standard_normal((1, 9, 11, 32)).astype(np.float32)
+    w = rng.standard_normal((kh, kw, 1, 32)).astype(np.float32)
+    pads = ((0, 0), (0, 0))
+    ref = dw_stencil(jnp.asarray(x), jnp.asarray(w), pads, interpret=True)
+    got = tops.dw_stencil(_t(x), _t(np.transpose(w, (3, 2, 0, 1))).contiguous(), pads)
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(_np(got), ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+
+
+def test_dw_stencil_wrapper_rejects_bad_input():
+    x = torch.zeros(1, 6, 6, 8)
+    w = torch.zeros(8, 1, 3, 3)
+    with pytest.raises(ValueError, match=r"\[C,1,kh,kw\]"):
+        tops.dw_stencil(x, torch.zeros(4, 1, 3, 3), ((1, 1), (1, 1)))
+    with pytest.raises(TypeError):
+        tops.dw_stencil(x, w.bfloat16(), ((1, 1), (1, 1)))
+    with pytest.raises(ValueError, match="negative"):
+        tops.dw_stencil(x, w, ((-1, 1), (1, 1)))
+    with pytest.raises(ValueError, match="no output"):
+        tops.dw_stencil(torch.zeros(1, 1, 6, 8), w, ((0, 0), (0, 0)))
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.dw_stencil(x.transpose(1, 2), w, ((1, 1), (1, 1)))
+    n = tops.dw_stencil.launches
+    tops.dw_stencil(x, w, ((1, 1), (1, 1)))   # CPU: the plain version
+    assert tops.dw_stencil.launches == n
+
+
+# ------------------------------------------------------------------ K2 --
+
+@pytest.mark.parametrize("kh,kw,pads", [
+    (3, 3, ((1, 1), (1, 1))),   # SAME
+    (3, 3, ((0, 0), (0, 0))),   # VALID (the train step's reflect-padded input)
+    (1, 3, ((0, 0), (0, 0))),   # the border-strip kernels of the JAX package
+    (3, 1, ((0, 0), (0, 0))),
+], ids=["3x3_same", "3x3_valid", "1x3", "3x1"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dw_kernel_grad_plain_matches_jax_kernel(rng, kh, kw, pads, dtype):
+    from uncrtaints_tpu.ops.pallas_dwgrad import dw_kernel_grad
+    N, H, W, C = 2, 16, 12, 32
+    (pt, pb), (pl, pr) = pads
+    Ho, Wo = H + pt + pb - kh + 1, W + pl + pr - kw + 1
+    x = rng.standard_normal((N, H, W, C)).astype(np.float32)
+    g = rng.standard_normal((N, Ho, Wo, C)).astype(np.float32)
+    if dtype == "bfloat16":
+        x, g = _bf16_np(x), _bf16_np(g)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(dw_kernel_grad(jnp.asarray(x).astype(jd), jnp.asarray(g).astype(jd),
+                                    pads, kh, kw, tile_h=4, interpret=True))
+    got = tops.dw_kernel_grad(_t(x).to(td), _t(g).to(td), pads, kh, kw)
+    assert got.dtype == torch.float32 and got.shape == (C, 1, kh, kw)
+    ref = np.transpose(ref, (3, 2, 0, 1))                     # -> [C,1,kh,kw]
+    # fp32 sums of N*Ho*Wo products in another order: relative to sum|x*g|
+    xp = np.pad(x, [(0, 0), (pt, pb), (pl, pr), (0, 0)])
+    scale = np.stack([np.abs(xp[:, dy:dy + Ho, dx:dx + Wo] * g).sum(axis=(0, 1, 2))
+                      for dy in range(kh) for dx in range(kw)], -1).reshape(C, 1, kh, kw)
+    assert (np.abs(_np(got) - ref) / scale).max() <= 1e-5
+
+
+def test_dw_kernel_grad_wrapper_rejects_bad_input():
+    x = torch.zeros(1, 6, 6, 8)
+    with pytest.raises(ValueError, match="g must be"):
+        tops.dw_kernel_grad(x, torch.zeros(1, 6, 6, 8), ((0, 0), (0, 0)), 3, 3)
+    with pytest.raises(TypeError):
+        tops.dw_kernel_grad(x, torch.zeros(1, 4, 4, 8).bfloat16(), ((0, 0), (0, 0)), 3, 3)
+    n = tops.dw_kernel_grad.launches
+    gw = tops.dw_kernel_grad(x, torch.ones(1, 4, 4, 8), ((0, 0), (0, 0)), 3, 3)
+    assert gw.shape == (8, 1, 3, 3) and tops.dw_kernel_grad.launches == n
+
+
 # ------------------------------------------------------------------ K3 --
 
 def _group_stats(x, G):

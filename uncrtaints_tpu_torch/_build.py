@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface and include no PyTorch
-header, so one ``nvcc`` call compiles all of them into a shared library in
-seconds. The library is built at first use into ``build/kernels/<hash>/`` at
-the root of the checkout, keyed by a hash of the sources and the flags (an
-edited source is rebuilt, a stale library is never loaded), and loaded with
-``ctypes``.
+header. Each ``.cu`` file is compiled by its own ``nvcc`` process, all of
+them started together, and one more ``nvcc`` call links the objects into a
+shared library; the build takes about as long as the slowest source. The
+library is built at first use into ``build/kernels/<hash>/`` at the root of
+the checkout, keyed by a hash of the sources and the flags (an edited source
+is rebuilt, a stale library is never loaded), and loaded with ``ctypes``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises when that is not ``cudaSuccess``. A launch the CUDA
@@ -23,6 +24,8 @@ import subprocess
 from pathlib import Path
 from typing import Optional, Sequence
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 _LIB_NAME = "libuncr_kernels.so"
@@ -30,7 +33,10 @@ _LIB_NAME = "libuncr_kernels.so"
 # sm_90a: the Hopper target; the trailing "a" admits wgmma/setmaxnreg for
 # the later PRs that use them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+
+# the dtype codes of csrc/common.cuh (UncrDtype)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -69,12 +75,26 @@ def build() -> Path:
     if so.exists():
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
+    nvcc, pid = _nvcc(), os.getpid()
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{pid}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, _, proc in jobs:  # wait for every job, so none outlives us
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (rc={proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out_dir / f"{_LIB_NAME}.{pid}.tmp"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}): "
+        raise RuntimeError(f"nvcc link failed (rc={proc.returncode}): "
                            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so

@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels: dtype codes, 16-byte vector loads
-// and stores with fp32 conversion, and the exact (erf) GELU.
+// and stores with fp32 conversion, raw vectors, the depthwise geometry, and
+// the exact (erf) GELU.
 #pragma once
 
 #include <cstdint>
@@ -57,6 +58,44 @@ __device__ __forceinline__ void store_from_f32(T* __restrict__ p, const float* v
   }
 }
 
+// VEC consecutive elements kept in their storage type (half the registers of
+// an fp32 copy for bf16). VEC * sizeof(T) is 2, 4, 8 or 16 bytes, so a load
+// or store of a whole RawVec is one instruction when p is aligned to its
+// size (the callers check).
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) RawVec {
+  T v[VEC];
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ RawVec<T, VEC> load_raw(const T* __restrict__ p) {
+  return *reinterpret_cast<const RawVec<T, VEC>*>(p);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ RawVec<T, VEC> zero_raw() {
+  RawVec<T, VEC> r;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) r.v[j] = from_f32<T>(0.0f);
+  return r;
+}
+
+// Geometry of a stride-1 depthwise correlation over NHWC maps: input
+// [N,H,W,C], output [N,Ho,Wo,C], top/left zero pads pt/pl.
+struct DwGeo {
+  int N, H, W, C, Ho, Wo, pt, pl;
+};
+
+// the VEC channels at (n, r, s, ch) of the input, zeros outside it (the
+// zero padding as a bounds check, no padded copy)
+template <typename T, int VEC>
+__device__ __forceinline__ RawVec<T, VEC> dw_load_or_zero(const T* __restrict__ x,
+                                                          const DwGeo& g, int n, int r, int s,
+                                                          int ch) {
+  if (r < 0 || r >= g.H || s < 0 || s >= g.W) return zero_raw<T, VEC>();
+  return load_raw<T, VEC>(x + ((static_cast<long long>(n) * g.H + r) * g.W + s) * g.C + ch);
+}
+
 // exact GELU in the operation order of torch's and jax.nn.gelu's erf form
 __device__ __forceinline__ float gelu_exact(float v) {
   return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
@@ -64,4 +103,8 @@ __device__ __forceinline__ float gelu_exact(float v) {
 
 __host__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+__host__ __forceinline__ bool aligned_to(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1u)) == 0;
 }

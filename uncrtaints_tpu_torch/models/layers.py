@@ -2,9 +2,10 @@
 time folding, activations and the reference weight initialisation.
 
 Port of the math of uncrtaints_tpu/models/layers.py (Conv2d, Norm2d,
-ConvLayer, ConvBlock, smart_apply, gelu, softplus_t20, the initialisers);
-its TPU lowering choices (strip reflect, custom VJPs, UNCR_* dispatch) are
-not carried over.
+ConvLayer, ConvBlock, smart_apply, gelu, softplus_t20, the initialisers,
+and the depthwise-conv VJP of _dw_conv_valid); its TPU lowering choices
+(strip reflect, the other custom VJPs, UNCR_* dispatch) are not carried
+over.
 
 Layout: every module takes and returns feature maps in the JAX package's
 NHWC layout ([N,H,W,C], or [B,T,H,W,C] under :func:`smart_apply`). A
@@ -22,6 +23,9 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from uncrtaints_tpu_torch.ops.dwconv import Pads, dw_stencil
+from uncrtaints_tpu_torch.ops.dwgrad import dw_kernel_grad
 
 _PAD_MODES = ("reflect", "replicate", "circular")  # F.pad modes
 
@@ -63,12 +67,51 @@ class Conv1d(nn.Conv1d):
             nn.init.normal_(self.bias, generator=generator)
 
 
+class DepthwiseConv2d(torch.autograd.Function):
+    """Depthwise stride-1 zero-padded correlation of NHWC x with w
+    [C,1,kh,kw], differentiable through hand-written kernels (the math of
+    the JAX package's _dw_conv_valid VJP, layers.py:349-389):
+
+    - forward: K5 (:func:`dw_stencil`) with ``pads``;
+    - gx: K5 on the output gradient with the flipped kernel and the
+      complementary pads (kh-1-top, kh-1-bottom), (kw-1-left, kw-1-right):
+      the FULL pads for a VALID forward;
+    - gw: K2 (:func:`dw_kernel_grad`), fp32, cast to w's dtype.
+
+    CPU tensors run the kernels' plain versions."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, pads: Pads):
+        ctx.pads = pads
+        ctx.save_for_backward(x, w)
+        return dw_stencil(x, w, pads)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        (pt, pb), (pl, pr) = ctx.pads
+        kh, kw = w.shape[-2:]
+        g = g.contiguous()
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = dw_stencil(g, w.flip((-2, -1)).contiguous(),
+                            ((kh - 1 - pt, kh - 1 - pb), (kw - 1 - pl, kw - 1 - pr)))
+        if ctx.needs_input_grad[1]:
+            gw = dw_kernel_grad(x, g, ctx.pads, kh, kw).to(w.dtype)
+        return gx, gw, None
+
+
 class Conv2d(nn.Module):
     """2-D convolution over NHWC maps with ``nn.Conv2d``'s padding modes.
 
     ``input_affine=(coef, offs)`` computes conv(x * coef + offs) by folding
     the per-input-channel affine into the weight and bias, which is exact
-    for 1x1 convolutions and for non-zero padding modes."""
+    for 1x1 convolutions and for non-zero padding modes.
+
+    A depthwise stride-1 convolution that is differentiated (grad enabled,
+    an input requires grad) runs through :class:`DepthwiseConv2d`, i.e. the
+    hand-written kernels K5 and K2; otherwise (eval) it stays
+    ``F.conv2d``, as the JAX eval primal keeps ``lax.conv``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  stride: int = 1, pad: int = 1, padding_mode: str = "reflect",
@@ -115,8 +158,15 @@ class Conv2d(nn.Module):
             x = F.pad(x.unsqueeze(1), (0, 0, pad, pad, pad, pad),
                       mode=self.padding_mode).squeeze(1)
             pad = 0
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride, padding=pad,
-                     groups=self.groups).permute(0, 2, 3, 1)
+        depthwise = (self.stride == 1 and self.groups > 1
+                     and w.shape[0] == self.groups == x.shape[-1])
+        if (depthwise and torch.is_grad_enabled()
+                and (x.requires_grad or w.requires_grad)):
+            y = DepthwiseConv2d.apply(x.contiguous(), w.contiguous(),
+                                      ((pad, pad), (pad, pad)))
+        else:
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
+                         padding=pad, groups=self.groups).permute(0, 2, 3, 1)
         if b is not None:  # added after the conv, in its dtype (JAX's order)
             y = y + b.to(y.dtype)
         return y

@@ -85,7 +85,10 @@ class UNCRTAINTS(nn.Module):
                                   padding_mode=padding_mode)
 
     def forward(self, x: torch.Tensor,
-                batch_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                batch_positions: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``dropout_generator`` draws the aggregator's attention dropout
+        mask in training (needed when the attention is upsampled)."""
         pad_mask = (x == self.pad_value).all(dim=(2, 3, 4))  # [B, T]
         out = self.in_conv(x)
         for blk in self.in_block:
@@ -95,7 +98,8 @@ class UNCRTAINTS(nn.Module):
             down = smart_apply(lambda a: adaptive_max_pool2d(a, (ar, ar)), out)
             att = self.temporal_encoder(down, batch_positions=batch_positions,
                                         pad_mask=pad_mask)
-            out = self.temporal_aggregator(out, pad_mask=pad_mask, attn_mask=att)
+            out = self.temporal_aggregator(out, pad_mask=pad_mask, attn_mask=att,
+                                           generator=dropout_generator)
         else:
             out = out[:, 0]
         for blk in self.out_block:

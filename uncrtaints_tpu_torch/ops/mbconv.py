@@ -16,7 +16,6 @@ import torch.nn.functional as F
 
 from uncrtaints_tpu_torch import _build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_M = 128  # rows per CUDA block; a block must not straddle two frames
 
 
@@ -77,13 +76,16 @@ def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
     A CUDA tensor launches the CUDA kernel, which needs P % 128 == 0,
     C % 32 == 0 and C2 % 16 == 0 (anything else raises); a CPU tensor runs
     :func:`norm_gelu_matmul_plain`. ``norm_gelu_matmul.launches`` counts
-    the kernel launches."""
+    the kernel launches. The kernel has no backward (the JAX kernel has no
+    VJP either; it serves the eval step only), so on the card it raises
+    when grad is enabled and an input requires grad, rather than return a
+    result detached from the graph."""
     if x.dim() != 3 or w.dim() != 2 or w.shape[0] != x.shape[2]:
         raise ValueError(f"norm_gelu_matmul: x [N,P,C] and w [C,C2] expected, "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
     N, P, C = x.shape
     C2 = w.shape[1]
-    if x.dtype not in _DTYPE_CODES or w.dtype != torch.bfloat16:
+    if x.dtype not in _build.DTYPE_CODES or w.dtype != torch.bfloat16:
         raise TypeError(f"norm_gelu_matmul: x must be fp32 or bf16 and w bf16, "
                         f"got {x.dtype}, {w.dtype}")
     if C % groups_in or C2 % groups_out:
@@ -98,6 +100,14 @@ def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
             out_gelu=out_gelu, do_stats=do_stats)
     if x.device.type != "cuda":
         raise ValueError(f"norm_gelu_matmul: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, mean, coef, scale, bias, w, se,
+                      *(out_affine if out_affine is not None else ()))):
+        raise RuntimeError(
+            "norm_gelu_matmul: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() or torch.inference_mode() (the fused MBConv body "
+            "is for eval), or with inputs that do not require grad")
     if P % BLOCK_M or C % 32 or C2 % 16:
         raise ValueError(f"norm_gelu_matmul kernel needs P % {BLOCK_M} == 0, "
                          f"C % 32 == 0 and C2 % 16 == 0; got P={P}, C={C}, "
@@ -135,7 +145,7 @@ def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
         vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, vp, ci,
         ctypes.c_longlong, ci, ci, vp, vp, vp, vp, ci, vp])
     with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), _DTYPE_CODES[x.dtype], mean.data_ptr(),
+        err = fn(x.data_ptr(), _build.DTYPE_CODES[x.dtype], mean.data_ptr(),
                  coef.data_ptr(), groups_in, scale.data_ptr(), bias.data_ptr(),
                  w.data_ptr(), ptr(se), ptr(oscale), ptr(obias), int(do_gelu),
                  int(out_gelu), out.data_ptr(), N, P, C, C2, ptr(psum),
