@@ -1,24 +1,38 @@
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, scene-inference and training paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          (from the root of a checkout, one card)
 
-Phase 1 builds the hand-written CUDA kernels of ``uncrtaints_tpu_torch``
+Phase 1 builds the six hand-written CUDA kernels of ``uncrtaints_tpu_torch``
 from ``csrc/`` (one nvcc per source, in parallel) and holds each against its
-plain PyTorch version on the card, at the shapes the two paths give it and
-at a ragged shape, and times both (CUDA events, median of 25 runs); the
-depthwise stencil K5 is also timed against cuDNN's depthwise convolution.
+plain PyTorch version on the card, at the shapes the paths give it and at a
+ragged shape, and times both (CUDA events, median of 25 runs). Where one
+library call or composition computes the same function it is timed beside
+the kernel as a yardstick the port never calls: ``torch.einsum`` (K1, and two
+of them for K1-bwd), cuDNN's depthwise convolution (K5) and its weight
+gradient (K2), the bare bf16 ``torch.matmul`` (K3), and gelu -> reflect pad ->
+cuDNN depthwise conv (K4). Each kernel's
+bound is the larger of its bytes over 3.35 TB/s and its operations over the
+card's peak for their type.
 Phase 2 runs the port's eval step (forward, MGNLL, scale_by rescale, image
 metrics) of the paper recipe in bf16 on 3 synthetic batches of B=4, T=3,
 256x256 with seeded random weights, and checks that every forward went
-through the kernels (1 K1 and 10 K3 launches, no backward kernel) and that
-the outputs are finite.
+through the kernels (1 K1, 10 K3 and 5 K4 launches, no backward kernel) and
+that the outputs are finite.
 Phase 3 compares the fused eval path with the standard one on the card,
-and the card with the CPU (the kernels' plain versions) on a small input.
+and the card with the CPU (the kernels' plain versions) on a small input,
+for the paper recipe's architecture and for the residual + ``use_v`` +
+``separate_out`` variant.
+The scene phase runs ``predict_scene`` of the paper recipe on a synthetic
+T=3, 1024x1024 scene (tile 256, overlap 64, batches of 4: 25 windows in 7
+forwards), checks shapes, finiteness, a positive variance and the launches
+(7 K1, 70 K3, 35 K4, no train kernel), holds a single-window scene against
+the eval step and the tiled result against the standard (unfused) path,
+and prints windows/s.
 Phase 4 runs the port's train step (forward, MGNLL, backward, Adam, the
-rescale) of the paper recipe in bf16: 6 steps of B=4, T=3, 256x256 over the
+rescale) of the paper recipe in bf16: 4 steps of B=4, T=3, 256x256 over the
 3 batches with an explicit dropout generator. It checks the launches per
-step (K1 1, K1-bwd 1, K5 12, K2 6), finite losses, a finite non-zero
+step (K1 1, K1-bwd 1, K5 12, K2 6, no K3 or K4), finite losses, a finite non-zero
 gradient for every parameter on the first step, and that the parameters
 moved; it prints the step time and the peak device memory.
 Phase 5 compares one fp32 train step on the card with the same step on
@@ -40,7 +54,7 @@ import torch
 
 SEED = 0
 TIMING_RUNS = 25
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4
 # the paths' shapes: the paper batch, and the kernels as the paths call them
 B, T, PATCH = 4, 3, 256
 K1_SHAPES = [(B, T, PATCH, PATCH, 128, 16), (2, 3, 7, 9, 20, 4)]  # + ragged
@@ -59,6 +73,15 @@ DW_CASES = {  # name: (N, H, W, C, (kh, kw), pads, dtype)
                                       torch.bfloat16),
     "ragged [3,37,70,20] 3x1 fp32": (3, 37, 70, 20, (3, 1), ((1, 1), (0, 0)), torch.float32),
 }
+K4_CASES = {  # name: (N, H, W, C, groups, dtype); groups 1 = the batch-norm form
+    "path [4,256,256,256] G=1": (B, PATCH, PATCH, HIDDEN, 1, torch.bfloat16),
+    "group [4,256,256,256] G=4": (B, PATCH, PATCH, HIDDEN, 4, torch.bfloat16),
+    "fp32 [2,64,64,128] G=4": (2, 64, 64, 128, 4, torch.float32),
+    "ragged [3,37,70,24] G=3": (3, 37, 70, 24, 3, torch.bfloat16),
+}
+# the card's published peaks (H100 SXM): device memory, dense bf16 tensor
+# cores, fp32 outside the tensor cores
+PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
 K3_CASES = {  # name: (N, P, C, C2, groups, se, stats, do_gelu)
     "pw1 [4,65536,128]->256": (B, PATCH * PATCH, 128, 256, 1, False, False, False),
     "pw2 [4,65536,256]->128": (B, PATCH * PATCH, 256, 128, 1, True, False, True),
@@ -89,7 +112,21 @@ def time_ms(fn, runs=TIMING_RUNS, warmup=3):
     return statistics.median(times)
 
 
+def bound(n_bytes, n_ops, peak_ops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``n_bytes`` (each input read once, each output written once) or to do
+    ``n_ops`` operations at ``peak_ops``, whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase1_kernels(dev):
+    """Returns {kernel name: dict(max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, library_ms)} at the main path's shape of each kernel."""
     from uncrtaints_tpu_torch import _build
     from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv
 
@@ -100,6 +137,9 @@ def phase1_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(SEED)
     randn = lambda *s: torch.randn(*s, generator=g, device=dev)
     out = {}
+    result = lambda err, ms, plain_ms, bound_ms, bound_by, library_ms: dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms)
 
     # ---- K1: main path [4,3,256,256,128] heads 16, and a ragged shape
     k1_err, k1_ms = 0.0, {}
@@ -121,12 +161,23 @@ def phase1_kernels(dev):
             if shape == K1_SHAPES[0]:
                 kms = time_ms(lambda: aggregate.att_group_aggregate(x, a))
                 pms = time_ms(lambda: aggregate.att_group_aggregate_plain(x, a))
-                k1_ms[dtype] = (kms, pms)
-                line += f", kernel {kms:.4f} ms, plain {pms:.4f} ms"
+                # the one library call of the same function: an einsum over
+                # t with the channels split into (head, channel of the head)
+                xv = x.view(B, T, H, W, heads, C // heads)
+                lib = lambda: torch.einsum("bthwn,bthwnc->bhwnc", a, xv)
+                lms = time_ms(lib)
+                lerr = float((lib().reshape(ref.shape).float() - ref.float()).abs().max())
+                check(lerr <= 4 * tol, f"K1 {dtype}: the einsum computes another function")
+                # one multiply-add per (b, t, pixel, channel), fp32
+                k1_ms[dtype] = (kms, pms, *bound(nbytes(x, a, got), 2 * x.numel(), PEAK_FP32),
+                                lms)
+                line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
+                         f"{k1_ms[dtype][2]:.4f} ms, torch.einsum {lms:.4f} ms "
+                         f"(max_abs_err {lerr:.3g})")
             print(line)
             check(err <= tol, f"K1 {dtype} {shape} disagrees with its plain version")
             k1_err = max(k1_err, err)
-    out["att_group_aggregate"] = (k1_err, *k1_ms[torch.bfloat16])
+    out["att_group_aggregate"] = result(k1_err, *k1_ms[torch.bfloat16])
 
     # ---- K3: the two decoder GEMMs of the fused MBConv (N=4 frames of
     # 256x256), a statistics case, and a ragged shape
@@ -146,7 +197,7 @@ def phase1_kernels(dev):
                   do_stats=stats)
         return args, kw
 
-    k3_err, k3_ms, k3_pms = 0.0, 0.0, 0.0
+    k3_err, k3_ms, k3_pms, k3_bound, k3_lib = 0.0, 0.0, 0.0, 0.0, 0.0
     for name, case in K3_CASES.items():
         args, kw = k3_case(*case)
         got = mbconv.norm_gelu_matmul(*args, **kw)
@@ -170,12 +221,86 @@ def phase1_kernels(dev):
         if name.startswith("pw"):
             kms = time_ms(lambda: mbconv.norm_gelu_matmul(*args, **kw))
             pms = time_ms(lambda: mbconv.norm_gelu_matmul_plain(*args, **kw))
-            k3_ms, k3_pms = k3_ms + kms, k3_pms + pms
-            line += f", kernel {kms:.4f} ms, plain {pms:.4f} ms"
+            # the bare bf16 GEMM of the same shape: the floor a library
+            # reaches without the prologue and the epilogue
+            x2, w2 = args[0].view(-1, args[0].shape[-1]), args[5]
+            lms = time_ms(lambda: torch.matmul(x2, w2))
+            bms, by = bound(nbytes(*args, got[0], kw["out_affine"][0], kw["out_affine"][1]),
+                            2 * x2.shape[0] * x2.shape[1] * w2.shape[1], PEAK_BF16)
+            check(by == "bytes", "K3 is bound by bytes at the path shapes")
+            k3_ms, k3_pms, k3_bound, k3_lib = k3_ms + kms, k3_pms + pms, k3_bound + bms, k3_lib + lms
+            line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms, "
+                     f"torch.matmul alone {lms:.4f} ms")
         print(line)
         check(not bad, f"K3 {name} disagrees with its plain version")
         k3_err = max(k3_err, err)
-    out["norm_gelu_matmul"] = (k3_err, k3_ms, k3_pms)
+    # the two decoder GEMMs together: a fused block runs one of each
+    out["norm_gelu_matmul"] = result(k3_err, k3_ms, k3_pms, k3_bound, "bytes", k3_lib)
+
+    # ---- K4: the decoder's fused norm -> GELU -> reflect depthwise 3x3
+    # (N=4 maps of 256x256x256, the batch-norm form), a group-norm form with
+    # its statistics, fp32, and a ragged shape whose every border reflects
+    def k4_case(N, H, W, C, G, dtype):
+        x = randn(N, H, W, C).to(dtype)
+        if G == 1:
+            mean, coef = torch.zeros(N, 1, device=dev), torch.ones(N, 1, device=dev)
+        else:
+            xg = x.float().view(N, H * W, G, C // G)
+            mean = xg.mean(dim=(1, 3))
+            coef = torch.rsqrt(xg.var(dim=(1, 3), correction=0) + 1e-5)
+        return (x, mean, coef, randn(C), randn(C), randn(3, 3, C) * 0.3), dict(
+            groups_in=G, groups_out=G)
+
+    k4_err = 0.0
+    for name, case in K4_CASES.items():
+        args, kw = k4_case(*case)
+        got = mbconv.norm_gelu_dwconv3x3(*args, **kw)
+        torch.cuda.synchronize()
+        again = mbconv.norm_gelu_dwconv3x3(*args, **kw)
+        ref = mbconv.norm_gelu_dwconv3x3_plain(*args, **kw)
+        err = float((got[0].float() - ref[0].float()).abs().max())
+        top = float(ref[0].float().abs().max())
+        # the kernel keeps the plain version's fp32 roundings; what may
+        # differ is erff against torch's erf and then the final cast: one
+        # bf16 ulp of the largest output, or 1e-5 of it in fp32
+        tol = (1e-5 if case[-1] == torch.float32 else 2 ** -7) * top
+        N, G, C = case[0], kw["groups_out"], case[3]
+        abs_sum = ref[0].float().abs().view(N, -1, G, C // G).sum(dim=(1, 3))
+        e1 = float(((got[1] - ref[1]).abs() / abs_sum).max())
+        e2 = float(((got[2] - ref[2]).abs() / ref[2]).max())
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        # fp32 sums of up to 4M terms in another order: 1e-5 relative
+        line = (f"K4 norm_gelu_dwconv3x3 {name}: max_abs_err={err:.3g} (tol {tol:.3g}), "
+                f"stats rel_err sum={e1:.3g} sumsq={e2:.3g} (tol 1e-5), two runs "
+                f"bit-identical {same}")
+        if name.startswith("path"):
+            x, _, _, sc, bi, w = args
+            kms = time_ms(lambda: mbconv.norm_gelu_dwconv3x3(*args, **kw))
+            pms = time_ms(lambda: mbconv.norm_gelu_dwconv3x3_plain(*args, **kw))
+            # what the fused body ran before K4: the norm affine and GELU in
+            # bf16, a reflect pad that keeps NHWC, cuDNN's depthwise conv
+            wc = w.permute(2, 0, 1)[:, None].contiguous().to(x.dtype)
+            scb, bib = sc.to(x.dtype), bi.to(x.dtype)
+
+            def composition():
+                h = torch.nn.functional.gelu(x * scb + bib)
+                hp = torch.nn.functional.pad(h.unsqueeze(1), (0, 0, 1, 1, 1, 1),
+                                             mode="reflect").squeeze(1)
+                return torch.nn.functional.conv2d(hp.permute(0, 3, 1, 2), wc, groups=C)
+
+            lms = time_ms(composition)
+            # per element: 9 multiply-adds, the prologue, the GELU's own
+            # arithmetic around erf, the statistics
+            bms, by = bound(nbytes(*args, got[0]), 29 * x.numel(), PEAK_FP32)
+            out["norm_gelu_dwconv3x3"] = result(0.0, kms, pms, bms, by, lms)
+            line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                     f"gelu + reflect pad + cuDNN depthwise {lms:.4f} ms")
+        print(line)
+        check(err <= tol, f"K4 {name} disagrees with its plain version")
+        check(e1 <= 1e-5 and e2 <= 1e-5, f"K4 {name}: statistics disagree")
+        check(same, f"K4 {name} is not deterministic")
+        k4_err = max(k4_err, err)
+    out["norm_gelu_dwconv3x3"]["max_abs_err"] = k4_err
 
     # ---- K1-bwd: the aggregator's backward at the main path shape, ragged
     kb_err = 0.0
@@ -199,12 +324,28 @@ def phase1_kernels(dev):
             if shape == K1_SHAPES[0] and dtype == torch.bfloat16:
                 kms = time_ms(lambda: aggregate.att_group_aggregate_bwd(x, a, gy))
                 pms = time_ms(lambda: aggregate.att_group_aggregate_bwd_plain(x, a, gy))
-                kb_ms = (kms, pms)
-                line += f", kernel {kms:.4f} ms, plain {pms:.4f} ms"
+                # the library's way to the same two results: one einsum each
+                xv = x.view(B_, T_, H, W, heads, C // heads)
+                gv = gy.view(B_, H, W, heads, C // heads)
+
+                def lib():
+                    return (torch.einsum("bthwn,bhwnc->bthwnc", a, gv),
+                            torch.einsum("bthwnc,bhwnc->bthwn", xv, gv))
+
+                lms = time_ms(lib)
+                ldx, lda = lib()
+                lerr = max(float((ldx.reshape(rdx.shape).float() - rdx.float()).abs().max()),
+                           float((lda.float() - rda.float()).abs().max()))
+                check(lerr <= 4 * tol, "K1-bwd: the einsums compute another function")
+                # per (b, t, pixel, channel): dx = a * gy and one term of da
+                kb_ms = (kms, pms, *bound(nbytes(x, a, gy, dx, da), 4 * x.numel(), PEAK_FP32),
+                         lms)
+                line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {kb_ms[2]:.4f} ms, "
+                         f"two torch.einsum {lms:.4f} ms (max_abs_err {lerr:.3g})")
             print(line)
             check(err <= tol, f"K1-bwd {dtype} {shape} disagrees with its plain version")
             kb_err = max(kb_err, err)
-    out["att_group_aggregate_bwd"] = (kb_err, *kb_ms)
+    out["att_group_aggregate_bwd"] = result(kb_err, *kb_ms)
 
     # ---- K5 (forward and input-gradient shapes) and K2 (weight gradient)
     k5_err, k2_err = 0.0, 0.0
@@ -226,9 +367,11 @@ def phase1_kernels(dev):
             kms = time_ms(lambda: dwconv.dw_stencil(x, w, pads))
             pms = time_ms(lambda: dwconv.dw_stencil_plain(x, w, pads))
             cms = time_ms(lambda: torch.nn.functional.conv2d(xc, w, padding=pad, groups=C))
-            line += f", kernel {kms:.4f} ms, plain {pms:.4f} ms, cuDNN {cms:.4f} ms"
+            bms, by = bound(nbytes(x, w, got), 2 * kh * kw * got.numel(), PEAK_FP32)
+            line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms, "
+                     f"cuDNN {cms:.4f} ms")
             if name.startswith("fwd enc"):
-                out["dw_stencil"] = [0.0, kms, pms]
+                out["dw_stencil"] = result(0.0, kms, pms, bms, by, cms)
         print(line)
         check(err <= tol, f"K5 {name} disagrees with its plain version")
         k5_err = max(k5_err, err)
@@ -250,14 +393,21 @@ def phase1_kernels(dev):
         if dtype == torch.bfloat16:
             kms = time_ms(lambda: dwgrad.dw_kernel_grad(x, gy, pads, kh, kw))
             pms = time_ms(lambda: dwgrad.dw_kernel_grad_plain(x, gy, pads, kh, kw))
-            line += f", kernel {kms:.4f} ms, plain {pms:.4f} ms"
+            # cuDNN's weight gradient of the same depthwise convolution
+            xc, gc, pad = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2), pads[0][0]
+            cms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+                xc, (C, 1, kh, kw), gc, padding=pad, groups=C))
+            bms, by = bound(nbytes(x, gy, gw), 2 * kh * kw * gy.numel(), PEAK_FP32)
+            line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms, "
+                     f"cuDNN weight gradient {cms:.4f} ms")
             if name.startswith("fwd enc"):
-                out["dw_kernel_grad"] = [0.0, kms, pms]
+                out["dw_kernel_grad"] = result(0.0, kms, pms, bms, by, cms)
         print(line)
         check(rel <= 1e-4, f"K2 {name} disagrees with its plain version")
         check(torch.equal(gw, again), f"K2 {name} is not deterministic")
         k2_err = max(k2_err, err)
-    out["dw_stencil"][0], out["dw_kernel_grad"][0] = k5_err, k2_err
+    out["dw_stencil"]["max_abs_err"] = k5_err
+    out["dw_kernel_grad"]["max_abs_err"] = k2_err
     return out
 
 
@@ -301,7 +451,8 @@ def phase2_slice(dev):
 
     train_kernels = (aggregate.att_group_aggregate_bwd, dwconv.dw_stencil,
                      dwgrad.dw_kernel_grad)
-    for f in (aggregate.att_group_aggregate, mbconv.norm_gelu_matmul, *train_kernels):
+    for f in (aggregate.att_group_aggregate, mbconv.norm_gelu_matmul,
+              mbconv.norm_gelu_dwconv3x3, *train_kernels):
         f.launches = 0
     times, results = [], []
     for _ in range(2):
@@ -312,11 +463,14 @@ def phase2_slice(dev):
             times.append((time.perf_counter() - t0) * 1e3)
             results.append(aux)
     k1, k3 = aggregate.att_group_aggregate.launches, mbconv.norm_gelu_matmul.launches
+    k4 = mbconv.norm_gelu_dwconv3x3.launches
     n_fwd = len(times)
     print(f"phase 2: paper recipe (bf16, {n_params} parameters), {n_fwd} eval "
-          f"steps of B={B}, T={T}, {P}x{P}: K1 launches {k1}, K3 launches {k3}")
+          f"steps of B={B}, T={T}, {P}x{P}: K1 launches {k1}, K3 launches {k3}, "
+          f"K4 launches {k4}")
     check(k1 == n_fwd, f"K1 launched {k1} times in {n_fwd} forwards (1 each expected)")
     check(k3 == 10 * n_fwd, f"K3 launched {k3} times in {n_fwd} forwards (10 each expected)")
+    check(k4 == 5 * n_fwd, f"K4 launched {k4} times in {n_fwd} forwards (5 each expected)")
     check(all(f.launches == 0 for f in train_kernels),
           "the eval step launched a backward or train-only kernel (K1-bwd, K5, K2)")
     for i, aux in enumerate(results[:3]):
@@ -332,7 +486,7 @@ def phase2_slice(dev):
     ms = statistics.median(times)
     print(f"  eval step: {ms:.3f} ms median of {n_fwd} (min {min(times):.3f}, "
           f"max {max(times):.3f}), {B / ms * 1e3:.2f} sequences/s")
-    return cfg, model, batches, k1, k3
+    return cfg, model, batches, {"K1": k1, "K3": k3, "K4": k4}
 
 
 def phase3_references(dev, cfg, model, batch):
@@ -344,9 +498,10 @@ def phase3_references(dev, cfg, model, batch):
     fused = step(model, batch)
     off = get_generator(cfg.replace(fused_eval="off"), device=dev)
     off.load_state_dict(model.state_dict())
-    n = mbconv.norm_gelu_matmul.launches
+    n = mbconv.norm_gelu_matmul.launches, mbconv.norm_gelu_dwconv3x3.launches
     std = step(off, batch)
-    check(mbconv.norm_gelu_matmul.launches == n, "fused_eval=off launched K3")
+    check((mbconv.norm_gelu_matmul.launches, mbconv.norm_gelu_dwconv3x3.launches) == n,
+          "fused_eval=off launched K3 or K4")
     for k in ("pred", "var"):
         y, d = std[k], (fused[k] - std[k]).abs()
         top = float(y.abs().max())
@@ -386,6 +541,80 @@ def phase3_references(dev, cfg, model, batch):
         print(f"phase 3: card vs CPU, {form}, loss rel {rel:.3g} (<= 1e-3)")
         check(rel <= 1e-3, f"card/CPU loss gap ({form})")
 
+    # the other UnCRtainTS variants run on the device too: residual blocks,
+    # the full L-TAE with include_v, separate mean and variance heads
+    variant = derive(Config(use_sar=True, scale_by=10.0, block_type="residual", use_v=True,
+                            separate_out=True, encoder_widths=[32], decoder_widths=[32, 32],
+                            n_head=4, d_model=64, low_res_size=8, compute_dtype="float32"))
+    vstep = make_eval_step(variant)
+    g = vstep(seeded_model(variant, dev), batch_to_device(nb, dev))
+    c = vstep(seeded_model(variant, torch.device("cpu")), batch_to_device(nb, "cpu"))
+    for k in ("pred", "var"):
+        rmse = float((g[k].cpu() - c[k]).square().mean().sqrt())
+        print(f"phase 3: residual + use_v + separate_out, card vs CPU, fp32 2x3x32x32, {k}: "
+              f"RMSE {rmse:.4g} (<= 1e-3)")
+        check(finite(g[k]) and rmse <= 1e-3, f"card/CPU gap of the variant model in {k}")
+    return off
+
+
+def phase_scene(dev, cfg, model, off):
+    """Whole-scene inference of the paper recipe at full width: the fused
+    path on a 1024x1024 scene, against the eval step on one window and
+    against the standard path on the whole scene."""
+    from uncrtaints_tpu_torch.data import SyntheticSEN12MSCRTS, collate_multi
+    from uncrtaints_tpu_torch.infer import predict_scene
+    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv
+    from uncrtaints_tpu_torch.train import batch_to_device, make_eval_step
+
+    S, tile, overlap, bs = 1024, PATCH, 64, B
+    nb = collate_multi([SyntheticSEN12MSCRTS(n_samples=1, n_input_t=T, patch_size=S,
+                                             seed=SEED + 6)[0]], use_sar=True)
+    scene, dates = nb["x"][0], nb["dates"][0]
+    kernels = {"K1": aggregate.att_group_aggregate, "K3": mbconv.norm_gelu_matmul,
+               "K4": mbconv.norm_gelu_dwconv3x3, "K1-bwd": aggregate.att_group_aggregate_bwd,
+               "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad}
+    kw = dict(tile=tile, overlap=overlap, batch_size=bs)
+    predict_scene(model, cfg, scene[:, :tile, :tile], dates, **kw)  # warm-up
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = predict_scene(model, cfg, scene, dates, **kw)
+    sec = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in kernels.items()}
+    n_win, n_fwd = 25, 7
+    print(f"scene phase: paper recipe (bf16), T={T}, {S}x{S}x{scene.shape[-1]}, tile {tile}, "
+          f"overlap {overlap}, batches of {bs}: {n_win} windows in {n_fwd} forwards, "
+          f"launches {counts}")
+    print(f"  {sec * 1e3:.1f} ms for the scene (host tiling and blend included): "
+          f"{n_win / sec:.2f} windows/s, {S * S / sec / 1e6:.3f} Mpixel/s")
+    want = {"K1": n_fwd, "K3": 10 * n_fwd, "K4": 5 * n_fwd, "K1-bwd": 0, "K5": 0, "K2": 0}
+    check(counts == want, f"scene launches {counts}, expected {want}")
+    for k in ("pred", "var"):
+        check(out[k].shape == (1, S, S, 13), f"scene {k} shape {out[k].shape}")
+        check(bool(np.isfinite(out[k]).all()), f"scene {k} not finite")
+    check(bool((out["var"] > 0).all()), "scene variance not positive")
+
+    # one window: the scene path is the eval step's forward (same shapes,
+    # same kernels), so the two agree to the bit or within 1e-6
+    one = predict_scene(model, cfg, scene[:, :tile, :tile], dates, tile=tile,
+                        overlap=overlap, batch_size=1)
+    batch = {"x": scene[None, :, :tile, :tile], "dates": dates[None],
+             "y": np.zeros((1, 1, tile, tile, 13), np.float32)}
+    direct = make_eval_step(cfg)(model, batch_to_device(batch, dev))
+    for k in ("pred", "var"):
+        gap = float(np.abs(one[k] - direct[k][:, 0].cpu().numpy()).max())
+        print(f"  single window vs the eval step, {k}: max abs {gap:.3g} (<= 1e-6)")
+        check(gap <= 1e-6, f"single-window scene differs from the eval step in {k}")
+
+    std = predict_scene(off, cfg, scene, dates, **kw)
+    for k in ("pred", "var"):
+        d, top = np.abs(out[k] - std[k]), float(np.abs(std[k]).max())
+        mx, rmse = float(d.max()), float(np.sqrt((d ** 2).mean()))
+        print(f"  fused vs standard scene, {k}: max {mx:.4g} (<= {0.02 * top:.4g}), "
+              f"RMSE {rmse:.4g} (<= {5e-3 * top:.4g})")
+        check(mx <= 0.02 * top and rmse <= 5e-3 * top, f"fused/standard scene gap in {k}")
+    return counts
+
 
 def phase4_train(dev, batches):
     from uncrtaints_tpu_torch.config import Config, derive
@@ -402,7 +631,7 @@ def phase4_train(dev, batches):
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     kernels = {"K1": aggregate.att_group_aggregate, "K1-bwd": aggregate.att_group_aggregate_bwd,
                "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad,
-               "K3": mbconv.norm_gelu_matmul}
+               "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3}
     torch.cuda.reset_peak_memory_stats(dev)
     for f in kernels.values():
         f.launches = 0
@@ -421,7 +650,7 @@ def phase4_train(dev, batches):
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"phase 4: paper recipe train step (bf16, Adam lr {cfg.lr}), {TRAIN_STEPS} steps of "
           f"B={B}, T={T}, {PATCH}x{PATCH}: launches {counts}")
-    per_step = {"K1": 1, "K1-bwd": 1, "K5": 12, "K2": 6, "K3": 0}
+    per_step = {"K1": 1, "K1-bwd": 1, "K5": 12, "K2": 6, "K3": 0, "K4": 0}
     for k, n in per_step.items():
         check(counts[k] == n * TRAIN_STEPS,
               f"{k} launched {counts[k]} times in {TRAIN_STEPS} train steps ({n} each expected)")
@@ -501,31 +730,30 @@ def main():
     dev = torch.device("cuda", 0)
 
     kern = phase1_kernels(dev)
-    cfg, model, batches, k1, k3 = phase2_slice(dev)
-    phase3_references(dev, cfg, model, batches[0])
-    del model
+    cfg, model, batches, evalc = phase2_slice(dev)
+    off = phase3_references(dev, cfg, model, batches[0])
+    scene = phase_scene(dev, cfg, model, off)
+    del model, off
     train = phase4_train(dev, batches)
     phase5_train_reference(dev)
-    print(f"launches by path: eval K1 {k1}, K3 {k3}; train {train}")
+    print(f"launches by path: eval {evalc}; scene {scene}; train {train}")
 
-    meta = {  # launches: the eval and train runs of phases 2 and 4
-        "att_group_aggregate": ("uncrtaints_tpu_torch/csrc/aggregate.cu",
-                                "uncrtaints_tpu/ops/pallas_aggregate.py:268", k1 + train["K1"]),
-        "att_group_aggregate_bwd": ("uncrtaints_tpu_torch/csrc/aggregate.cu",
-                                    "uncrtaints_tpu/ops/pallas_aggregate.py:164",
-                                    train["K1-bwd"]),
-        "norm_gelu_matmul": ("uncrtaints_tpu_torch/csrc/norm_gelu_matmul.cu",
-                             "uncrtaints_tpu/ops/pallas_mbconv.py:136", k3),
-        "dw_stencil": ("uncrtaints_tpu_torch/csrc/dwconv.cu",
-                       "uncrtaints_tpu/ops/pallas_dwconv.py:92", train["K5"]),
-        "dw_kernel_grad": ("uncrtaints_tpu_torch/csrc/dwgrad.cu",
-                           "uncrtaints_tpu/ops/pallas_dwgrad.py:80", train["K2"]),
+    # launches: the sum over the three paths' runs (eval, scene, train),
+    # each counted from 0 just before the path to just after it
+    paths = (evalc, scene, train)
+    meta = {  # name: (source, the TPU kernel it replaces, its counter)
+        "att_group_aggregate": ("aggregate.cu", "pallas_aggregate.py:268", "K1"),
+        "att_group_aggregate_bwd": ("aggregate.cu", "pallas_aggregate.py:164", "K1-bwd"),
+        "norm_gelu_matmul": ("norm_gelu_matmul.cu", "pallas_mbconv.py:136", "K3"),
+        "norm_gelu_dwconv3x3": ("norm_gelu_dwconv.cu", "pallas_mbconv.py:254", "K4"),
+        "dw_stencil": ("dwconv.cu", "pallas_dwconv.py:92", "K5"),
+        "dw_kernel_grad": ("dwgrad.cu", "pallas_dwgrad.py:80", "K2"),
     }
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": n, "max_abs_err": kern[name][0], "ms": kern[name][1],
-         "plain_ms": kern[name][2]}
-        for name, (src, rep, n) in meta.items()]}))
+        {"name": name, "route": "cuda", "source": f"uncrtaints_tpu_torch/csrc/{src}",
+         "replaces": f"uncrtaints_tpu/ops/{rep}",
+         "launches": sum(p.get(key, 0) for p in paths), **kern[name]}
+        for name, (src, rep, key) in meta.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -208,3 +208,98 @@ def test_norm_gelu_matmul_kernel_refuses_grad(cuda):
     with torch.no_grad():
         out, _, _ = tops.norm_gelu_matmul(*args)
     assert out.shape == (2, 128, 16) and out.grad_fn is None
+
+
+def _k4_args(rng, dev, N, H, W, C, G, dtype):
+    x = _t(rng.standard_normal((N, H, W, C)), dev, dtype)
+    if G == 1:  # the batch-norm form: a plain per-channel affine
+        mean, coef = torch.zeros(N, 1, device=dev), torch.ones(N, 1, device=dev)
+    else:
+        xg = x.float().view(N, H * W, G, C // G)
+        mean = xg.mean(dim=(1, 3))
+        coef = torch.rsqrt(xg.var(dim=(1, 3), correction=0) + 1e-5)
+    f = lambda *s: _t(rng.standard_normal(s), dev)
+    return x, mean, coef, f(C), f(C), f(3, 3, C) * 0.3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (2, 32, 64, 256, 1),   # the decoder's width, the batch-norm form
+    (2, 32, 64, 256, 4),   # group statistics in and out
+    (3, 37, 70, 24, 3),    # ragged: an odd height, a column segment of 6
+    (1, 2, 2, 8, 1),       # the smallest map: every tap reflects
+    (2, 5, 130, 16, 2),    # three column segments, the last of 2
+])
+def test_norm_gelu_dwconv_kernel_matches_plain(cuda, rng, shape, dtype):
+    N, H, W, C, G = shape
+    args = _k4_args(rng, cuda, N, H, W, C, G, dtype)
+    n = tops.norm_gelu_dwconv3x3.launches
+    got = tops.norm_gelu_dwconv3x3(*args, groups_in=G, groups_out=G)
+    torch.cuda.synchronize()
+    assert tops.norm_gelu_dwconv3x3.launches == n + 1
+    ref = tops.norm_gelu_dwconv3x3_plain(*args, groups_in=G, groups_out=G)
+    assert got[0].dtype == dtype and got[0].shape == (N, H, W, C)
+    # the kernel keeps the plain version's fp32 roundings; erff against
+    # torch's erf and then the cast may move one bf16 ulp, or 1e-5 in fp32
+    top = ref[0].float().abs().max()
+    tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * top
+    assert (got[0].float() - ref[0].float()).abs().max() <= tol
+    # fp32 sums in another order: 1e-5 of the sum of magnitudes
+    abs_sum = ref[0].float().abs().view(N, H * W, G, C // G).sum(dim=(1, 3))
+    assert ((got[1] - ref[1]).abs() <= 1e-5 * abs_sum).all()
+    assert ((got[2] - ref[2]).abs() <= 1e-5 * ref[2]).all()
+    again = tops.norm_gelu_dwconv3x3(*args, groups_in=G, groups_out=G)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+def test_norm_gelu_dwconv_kernel_rejects_unaligned_channels(cuda, rng):
+    """16-byte channel vectors: C % 8 in bf16, C % 4 in fp32; never a
+    fallback."""
+    for C, dtype in ((12, torch.bfloat16), (6, torch.float32)):
+        args = _k4_args(rng, cuda, 1, 4, 4, C, 1, dtype)
+        with pytest.raises(ValueError, match="16-byte"):
+            tops.norm_gelu_dwconv3x3(*args, groups_in=1, groups_out=1)
+    args = _k4_args(rng, cuda, 1, 4, 4, 12, 1, torch.float32)
+    out, _, _ = tops.norm_gelu_dwconv3x3(*args, groups_in=1, groups_out=1)
+    assert out.shape == (1, 4, 4, 12)
+
+
+@pytest.mark.cuda
+def test_norm_gelu_dwconv_kernel_refuses_grad(cuda, rng):
+    """K4 has no backward: with grad enabled and an input that requires
+    grad it raises instead of returning a detached result."""
+    args = list(_k4_args(rng, cuda, 1, 4, 4, 16, 1, torch.bfloat16))
+    args[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tops.norm_gelu_dwconv3x3(*args, groups_in=1, groups_out=1)
+    with torch.no_grad():
+        out, _, _ = tops.norm_gelu_dwconv3x3(*args, groups_in=1, groups_out=1)
+    assert out.shape == (1, 4, 4, 16) and out.grad_fn is None
+
+
+@pytest.mark.cuda
+def test_fused_mbconv_chain_on_card(cuda, rng):
+    """The eval MBConv on the card runs K3, K4, K3 and stays within the
+    fused-vs-standard gate of its own standard body."""
+    from uncrtaints_tpu_torch.models.blocks import MBConv
+    from uncrtaints_tpu_torch.models.layers import init_weights
+    tm = MBConv(128, 128, expansion=2, norm="batch").eval()
+    init_weights(tm, torch.Generator().manual_seed(0))
+    for b in tm.buffers():
+        b.copy_(_t(np.abs(rng.standard_normal(b.shape) * 0.3) + 0.5, "cpu"))
+    tm = tm.to(cuda)
+    for p in tm.parameters():
+        p.data = p.data.bfloat16()
+    x = _t(rng.standard_normal((2, 3, 16, 16, 128)), cuda, torch.bfloat16)
+    with torch.inference_mode():
+        y0 = tm(x).float()
+        tm.fused_eval = True
+        n3, n4 = tops.norm_gelu_matmul.launches, tops.norm_gelu_dwconv3x3.launches
+        y1 = tm(x).float()
+    assert tops.norm_gelu_matmul.launches == n3 + 2
+    assert tops.norm_gelu_dwconv3x3.launches == n4 + 1
+    d = (y0 - y1).abs()
+    assert d.max() <= 0.02 * y0.abs().max()
+    assert d.square().mean().sqrt() <= 5e-3 * y0.abs().max()

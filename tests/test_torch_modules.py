@@ -1,5 +1,6 @@
-"""The port's modules against the JAX package's, on the CPU: layers, L-TAE,
-the temporal aggregator and the MBConv block (standard and fused bodies).
+"""The port's modules against the JAX package's, on the CPU: layers, the
+two L-TAEs, the temporal aggregator, the MBConv block (standard and fused
+bodies) and the residual conv block.
 
 Both sides get the same weights: the JAX module is initialised, its
 variables are converted with the port's layout transforms and loaded into
@@ -261,3 +262,145 @@ def test_mbconv_fused_matches_standard_bf16(rng):
     d = (y0 - y1).abs()
     assert d.max() <= 0.02 * y0.abs().max()
     assert d.square().mean().sqrt() <= 5e-3 * y0.abs().max()
+
+
+def test_mbconv_fused_chain_against_jax_standard(rng):
+    """The port's fused body (the chain K3 -> K4 -> K3 through the kernels'
+    plain versions, bf16) against the JAX package's *standard* eval body on
+    the same weights: the JAX package's fused-vs-standard gate, max 0.02 and
+    RMSE 5e-3 of max|y|."""
+    from uncrtaints_tpu_torch.models.blocks import MBConv
+    from uncrtaints_tpu_torch.ops import norm_gelu_dwconv3x3, norm_gelu_matmul
+    C = 128
+    xb = jnp.asarray(rng.standard_normal((2, 3, 16, 16, C)).astype(np.float32)).astype(jnp.bfloat16)
+    jm, v = _jax_mbconv(rng, C, "batch", xb, fused=False)
+    vb = {"params": jax.tree.map(lambda p: p.astype(jnp.bfloat16), v["params"]),
+          "batch_stats": v["batch_stats"]}
+    ref = np.asarray(jm.apply(vb, xb, False), np.float32)
+    tm = MBConv(C, C, expansion=2, norm="batch", fused_eval=True).eval()
+    tm.load_state_dict(_mbconv_state(vb, "batch", C), strict=True)
+    for p in tm.parameters():
+        p.data = p.data.bfloat16()
+    calls = []
+    hook = tm.conv.fn[3].register_forward_hook(lambda *a: calls.append("conv"))
+    got = _np(tm(_t(xb.astype(jnp.float32)).bfloat16()))
+    hook.remove()
+    assert not calls  # the depthwise conv module is bypassed: K4 does its work
+    d = np.abs(got - ref)
+    assert d.max() <= 0.02 * np.abs(ref).max()
+    assert np.sqrt((d ** 2).mean()) <= 5e-3 * np.abs(ref).max()
+    assert norm_gelu_matmul.launches == 0 and norm_gelu_dwconv3x3.launches == 0  # CPU: plain
+
+
+# ---------------------------------------------------- ResidualConvBlock --
+
+def _tree_state(variables, cfg, root_flax, root_torch):
+    """The bridge's table for one submodule, re-rooted at it."""
+    table = jax_to_torch_names(cfg)
+    out = {}
+    for coll, tag in (("params", ""), ("batch_stats", "B:")):
+        for path, leaf in flax.traverse_util.flatten_dict(
+                flax.core.unfreeze(variables.get(coll, {})), sep="/").items():
+            name, tf = table[f"{tag}{root_flax}/{path}"]
+            out[name[len(root_torch) + 1:]] = _t(tf(np.asarray(leaf)))
+    return out
+
+
+@pytest.mark.parametrize("norm", ["batch", "group"])
+def test_residual_conv_block(rng, norm):
+    """fp32, rtol/atol 1e-4 (three 3x3 convolutions' fp32 sums reordered);
+    an all-pad frame is re-filled."""
+    from uncrtaints_tpu.models.blocks import ResidualConvBlock as JRes
+    from uncrtaints_tpu_torch.models.blocks import ResidualConvBlock
+    C = 16
+    x = rng.standard_normal((2, 3, 8, 8, C)).astype(np.float32)
+    x[0, 1] = 0.0
+    jm = JRes(C, norm=norm, pad_value=0.0)
+    v = flax.core.unfreeze(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), False))
+    if "batch_stats" in v:
+        v["batch_stats"] = jax.tree.map(
+            lambda a: jnp.abs(jnp.asarray(rng.standard_normal(a.shape).astype(np.float32)) * 0.3) + 0.5,
+            v["batch_stats"])
+    ref = jm.apply(v, jnp.asarray(x), False)
+    cfg = Config(block_type="residual", encoder_norm=norm, encoder_widths=[C])
+    tm = ResidualConvBlock(C, norm=norm, pad_value=0.0).eval()
+    tm.load_state_dict(_tree_state(v, cfg, "in_block0", "in_block.0"), strict=True)
+    got = tm(_t(x))
+    assert float(got[0, 1].detach().abs().max()) == 0.0
+    _close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------- LTAE2d --
+
+def _ltae2d_pair(rng, dropout=0.2):
+    from uncrtaints_tpu.models.ltae import LTAE2d as JLTAE
+    from uncrtaints_tpu_torch.models.ltae import LTAE2d
+    x = rng.standard_normal((2, 3, 4, 5, 16)).astype(np.float32)
+    pos = rng.integers(0, 1500, (2, 3)).astype(np.float32)
+    pad = np.array([[False, False, False], [False, False, True]])
+    kw = dict(in_channels=16, n_head=4, d_k=4, d_model=32, mlp=(32, 16),
+              dropout=dropout, use_dropout=False)
+    jm = JLTAE(**kw)
+    v = flax.core.unfreeze(jm.init(jax.random.PRNGKey(3), jnp.asarray(x),
+                                   batch_positions=jnp.asarray(pos)))
+    v["batch_stats"] = jax.tree.map(
+        lambda a: jnp.abs(jnp.asarray(rng.standard_normal(a.shape).astype(np.float32)) * 0.3) + 0.5,
+        v["batch_stats"])
+    # non-trivial norm affines, so out_norm's per-channel terms matter
+    for k in ("in_norm", "out_norm"):
+        v["params"][k] = jax.tree.map(
+            lambda a: jnp.asarray(rng.standard_normal(a.shape).astype(np.float32)), v["params"][k])
+    cfg = Config(use_v=True, encoder_widths=[16], d_model=32, n_head=4)
+    tm = LTAE2d(**kw)
+    tm.load_state_dict(_tree_state(v, cfg, "temporal_encoder", "temporal_encoder"),
+                       strict=True)
+    return jm, v, tm, x, pos, pad
+
+
+def test_ltae2d_eval(rng):
+    """Values and attention at fp32, rtol/atol 1e-5 (2e-5 on the values:
+    they pass two norms)."""
+    jm, v, tm, x, pos, pad = _ltae2d_pair(rng)
+    ref, ratt = jm.apply(v, jnp.asarray(x), batch_positions=jnp.asarray(pos),
+                         pad_mask=jnp.asarray(pad), train=False)
+    got, att = tm.eval()(_t(x), batch_positions=_t(pos), pad_mask=torch.from_numpy(pad))
+    assert got.shape == (2, 4, 5, 16) and att.shape == (2, 3, 4, 5, 4)
+    _close(att, ratt)
+    _close(got, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_ltae2d_out_norm_is_per_pixel(rng):
+    """out_norm normalises each pixel's channel groups on its own: changing
+    one pixel's input leaves every other pixel's output as it was."""
+    _, _, tm, x, pos, pad = _ltae2d_pair(rng)
+    tm.eval()
+    a, _ = tm(_t(x), batch_positions=_t(pos))
+    x2 = x.copy()
+    x2[0, :, 1, 2] += 3.0
+    b, _ = tm(_t(x2), batch_positions=_t(pos))
+    changed = (a - b).abs().amax(dim=-1) > 0
+    assert changed[0, 1, 2] and int(changed.sum()) == 1
+
+
+def test_ltae2d_train_updates_batch_norm(rng):
+    """Train mode with dropout 0: batch statistics over the flattened
+    B*H*W pixels, and the updated running statistics (momentum: torch 0.1 =
+    flax 0.9; the running variance takes flax's biased batch variance)."""
+    jm, v, tm, x, pos, pad = _ltae2d_pair(rng, dropout=0.0)
+    (ref, ratt), mut = jm.apply(v, jnp.asarray(x), batch_positions=jnp.asarray(pos),
+                                pad_mask=jnp.asarray(pad), train=True,
+                                mutable=["batch_stats"])
+    got, att = tm.train()(_t(x), batch_positions=_t(pos), pad_mask=torch.from_numpy(pad))
+    _close(att, ratt)
+    _close(got, ref, rtol=1e-4, atol=1e-4)
+    _close(tm.mlp[1].running_mean, mut["batch_stats"]["BatchNorm_0"]["mean"])
+    _close(tm.mlp[1].running_var, mut["batch_stats"]["BatchNorm_0"]["var"])
+
+
+def test_ltae2d_train_dropout_needs_generator(rng):
+    _, _, tm, x, pos, _ = _ltae2d_pair(rng, dropout=0.2)
+    with pytest.raises(ValueError, match="Generator"):
+        tm.train()(_t(x), batch_positions=_t(pos))
+    y, _ = tm(_t(x), batch_positions=_t(pos),
+              dropout_generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(y).all()

@@ -315,6 +315,103 @@ def test_norm_gelu_matmul_wrapper_rejects_bad_input():
         tops.norm_gelu_matmul(x, m, c, s, b, torch.zeros(32, 18, dtype=torch.bfloat16))
 
 
+# ------------------------------------------------------------------ K4 --
+
+def _k4_case(rng, N, H, W, C, G):
+    bf = lambda a: np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+    x = bf(rng.standard_normal((N, H, W, C)).astype(np.float32))
+    w = rng.standard_normal((3, 3, C)).astype(np.float32) * 0.2
+    scale = rng.standard_normal(C).astype(np.float32)
+    bias = rng.standard_normal(C).astype(np.float32)
+    if G == 1:  # the batch-norm form: a plain per-channel affine
+        mean, coef = np.zeros((N, 1), np.float32), np.ones((N, 1), np.float32)
+    else:
+        mean, coef = _group_stats(x, G)
+    return x, mean, coef, scale, bias, w
+
+
+@pytest.mark.parametrize("shape,tile_h", [
+    ((1, 32, 256, 256, 4), 16),   # the JAX package's own test shape
+    ((2, 24, 16, 128, 1), 8),     # H not a multiple of 16; the batch-norm form
+    ((1, 6, 8, 128, 4), 2),
+])
+def test_norm_gelu_dwconv_plain_matches_jax_kernel(rng, shape, tile_h):
+    from uncrtaints_tpu.ops.pallas_mbconv import norm_gelu_dwconv3x3
+    N, H, W, C, G = shape
+    args = _k4_case(rng, *shape)
+    ref, r1, r2 = norm_gelu_dwconv3x3(
+        jnp.asarray(args[0]).astype(jnp.bfloat16), *(jnp.asarray(a) for a in args[1:]),
+        groups_in=G, groups_out=G, tile_h=tile_h, interpret=True)
+    out, s1, s2 = tops.norm_gelu_dwconv3x3(
+        _t(args[0]).bfloat16(), *(_t(a) for a in args[1:]), groups_in=G, groups_out=G)
+    assert out.dtype == torch.bfloat16 and out.shape == tuple(ref.shape)
+    ref = np.asarray(ref, np.float32)
+    # the JAX package's tolerance for this kernel (test_pallas_kernels.py):
+    # bf16 output, the TPU kernel's A&S erf against the exact erf here
+    assert np.abs(_np(out) - ref).max() <= 0.05 * np.abs(ref).max()
+    np.testing.assert_allclose(_np(s1), np.asarray(r1), rtol=2e-3, atol=2.0)
+    np.testing.assert_allclose(_np(s2), np.asarray(r2), rtol=2e-3)
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 7, 12, 3), (1, 2, 2, 8, 1), (2, 16, 16, 32, 4)])
+def test_norm_gelu_dwconv_plain_matches_lax_conv_fp32(rng, shape):
+    """fp32 end to end against an independent reference: exact-erf GELU,
+    jnp reflect pad, lax depthwise conv. Any H, W >= 2, no tile constraint.
+    Tolerance 1e-5 of max|out| (fp32 sums of nine products in another
+    order); the statistics rtol 1e-5."""
+    import jax
+    N, H, W, C, G = shape
+    x, mean, coef, scale, bias, w = _k4_case(rng, *shape)
+    x = x + 1e-3 * rng.standard_normal(x.shape).astype(np.float32)  # not bf16-exact
+    mb = np.repeat(mean, C // G, -1)[:, None, None]
+    cb = np.repeat(coef, C // G, -1)[:, None, None]
+    h = jax.nn.gelu((jnp.asarray(x) - mb) * cb * scale + bias, approximate=False)
+    hp = jnp.pad(h, [(0, 0), (1, 1), (1, 1), (0, 0)], mode="reflect")
+    ref = np.asarray(jax.lax.conv_general_dilated(
+        hp, jnp.asarray(w)[:, :, None, :], (1, 1), "VALID",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), feature_group_count=C,
+        precision=jax.lax.Precision.HIGHEST))
+    out, s1, s2 = tops.norm_gelu_dwconv3x3(*(_t(a) for a in (x, mean, coef, scale, bias, w)),
+                                           groups_in=G, groups_out=G)
+    assert out.dtype == torch.float32
+    assert np.abs(_np(out) - ref).max() <= 1e-5 * np.abs(ref).max()
+    rg = ref.reshape(N, H * W, G, C // G)
+    np.testing.assert_allclose(_np(s1), rg.sum(axis=(1, 3)), rtol=1e-5,
+                               atol=1e-5 * np.abs(rg).sum(axis=(1, 3)).max())
+    np.testing.assert_allclose(_np(s2), (rg ** 2).sum(axis=(1, 3)), rtol=1e-5)
+
+
+def test_norm_gelu_dwconv_stats_are_of_the_rounded_output(rng):
+    """sum and sumsq are taken after the cast to bf16, as the JAX kernel
+    takes them from its output block."""
+    args = [_t(a) for a in _k4_case(rng, 2, 8, 8, 16, 4)]
+    out, s1, s2 = tops.norm_gelu_dwconv3x3(args[0].bfloat16(), *args[1:])
+    og = out.float().view(2, 64, 4, 4)
+    assert torch.equal(s1, og.sum(dim=(1, 3))) and torch.equal(s2, og.square().sum(dim=(1, 3)))
+
+
+def test_norm_gelu_dwconv_wrapper_rejects_bad_input():
+    x = torch.zeros(2, 4, 4, 16)
+    m, c, s, b = torch.zeros(2, 4), torch.ones(2, 4), torch.ones(16), torch.zeros(16)
+    w = torch.zeros(3, 3, 16)
+    with pytest.raises(ValueError, match=r"w \[3,3,C\]"):
+        tops.norm_gelu_dwconv3x3(x, m, c, s, b, torch.zeros(16, 1, 3, 3))
+    with pytest.raises(TypeError):
+        tops.norm_gelu_dwconv3x3(x.half(), m, c, s, b, w)
+    with pytest.raises(ValueError, match="H, W >= 2"):
+        tops.norm_gelu_dwconv3x3(torch.zeros(2, 1, 4, 16), m, c, s, b, w)
+    with pytest.raises(ValueError, match="not a multiple"):
+        tops.norm_gelu_dwconv3x3(x, m, c, s, b, w, groups_out=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.norm_gelu_dwconv3x3(x.transpose(1, 2), m, c, s, b, w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.norm_gelu_dwconv3x3(x.to("meta"), m, c, s, b, w)
+    n = tops.norm_gelu_dwconv3x3.launches
+    x.requires_grad_()  # the CPU runs the plain version, which is differentiable
+    out, _, _ = tops.norm_gelu_dwconv3x3(x, m, c, s, b, w)
+    assert out.requires_grad and tops.norm_gelu_dwconv3x3.launches == n
+
+
 # ------------------------------------------------------- plain torch ops --
 
 @pytest.mark.parametrize("hw,out", [((16, 16), (4, 4)), ((10, 7), (4, 3))])

@@ -62,7 +62,7 @@ def pair():
         lambda a: jnp.asarray(np.abs(rng.standard_normal(a.shape)) * 0.3 + 0.5,
                               jnp.float32), state.batch_stats)
     state = state.replace(batch_stats=bs)
-    model = get_generator(cfg)
+    model = get_generator(cfg, "cpu")
     model.load_state_dict(from_jax_variables(
         {"params": state.params, "batch_stats": state.batch_stats}, cfg), strict=True)
     return cfg, state, model
@@ -115,7 +115,7 @@ def test_bridge_table_matches_torch_import():
         a = np.arange(24, dtype=np.float32).reshape(
             (1, 2, 3, 4) if "Conv2d" in k else (4, 6) if k.endswith("kernel") else (24,))
         np.testing.assert_array_equal(theirs[k][1](inv(a)), a, err_msg=k)
-    assert set(get_generator(cfg).state_dict()) == {v[0] for v in ours.values()}
+    assert set(get_generator(cfg, "cpu").state_dict()) == {v[0] for v in ours.values()}
 
 
 def test_bridge_rejects_mismatched_variables(pair):
@@ -148,7 +148,7 @@ def test_forward_runs_without_jax():
         "             decoder_widths=[32], n_head=4, d_model=64, low_res_size=8))\n"
         "ds = SyntheticSEN12MSCRTS(n_samples=2, patch_size=32)\n"
         "b = batch_to_device(collate_multi([ds[0], ds[1]]), 'cpu')\n"
-        "aux = make_eval_step(cfg, with_metrics=True)(get_generator(cfg), b)\n"
+        "aux = make_eval_step(cfg, with_metrics=True)(get_generator(cfg, 'cpu'), b)\n"
         "assert torch.isfinite(aux['loss'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
         "assert not bad, bad\n"

@@ -206,7 +206,7 @@ def test_model_dropout_follows_generator():
     same output, another seed another one, the global RNG plays no part."""
     cfg = derive(Config(use_sar=True, encoder_widths=[16], decoder_widths=[16],
                         n_head=4, d_model=32, low_res_size=8, compute_dtype="float32"))
-    model = get_generator(cfg).train()
+    model = get_generator(cfg, "cpu").train()
     x = _t(np.random.default_rng(3).random((1, 3, 16, 16, 15)))
     run = lambda seed: model(x, dropout_generator=torch.Generator().manual_seed(seed))
     torch.manual_seed(0)
@@ -408,7 +408,7 @@ def _jax_grads(cfg, st, batch, k):
 
 
 def _port_state(cfg, st):
-    model = get_generator(cfg)
+    model = get_generator(cfg, "cpu")
     model.load_state_dict(from_jax_variables(
         {"params": st.params, "batch_stats": st.batch_stats}, cfg), strict=True)
     return create_train_state(cfg, model)
@@ -506,7 +506,7 @@ def test_train_step_runs_without_jax():
         "             decoder_widths=[16], n_head=4, d_model=32, low_res_size=8))\n"
         "ds = SyntheticSEN12MSCRTS(n_samples=2, patch_size=16)\n"
         "b = batch_to_device(collate_multi([ds[0], ds[1]]), 'cpu')\n"
-        "st = create_train_state(cfg, get_generator(cfg))\n"
+        "st = create_train_state(cfg, get_generator(cfg, 'cpu'))\n"
         "st, aux = make_train_step(cfg)(st, b, torch.Generator().manual_seed(0))\n"
         "assert torch.isfinite(aux['loss']) and st.step == 1\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"

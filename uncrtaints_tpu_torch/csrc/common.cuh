@@ -1,6 +1,6 @@
 // Helpers shared by the port's kernels: dtype codes, 16-byte vector loads
-// and stores with fp32 conversion, raw vectors, the depthwise geometry, and
-// the exact (erf) GELU.
+// and stores with fp32 conversion, raw vectors, the depthwise geometry, the
+// exact (erf) GELU, and the second pass of the per-group output statistics.
 #pragma once
 
 #include <cstdint>
@@ -100,6 +100,54 @@ __device__ __forceinline__ RawVec<T, VEC> dw_load_or_zero(const T* __restrict__ 
 __device__ __forceinline__ float gelu_exact(float v) {
   return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
 }
+
+// Second pass of the per-(frame, group) output statistics of K3 and K4. The
+// first pass leaves per-block, per-channel partial sums psum/psq
+// [N * blocks_per_frame, C]; one block per (frame n, group g) adds the
+// frame's partials over the group's channels in a fixed order (a strided
+// walk, then shuffle trees), so two runs give the same bits: no atomics.
+// A template so that a source that does not launch it compiles nothing; in
+// an unnamed namespace so that each source that does gets its own copy.
+namespace {
+template <int THREADS>
+__global__ void group_stats_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
+                                   float* __restrict__ sum, float* __restrict__ sumsq,
+                                   int blocks_per_frame, int C, int groups) {
+  const int n = blockIdx.x / groups, g = blockIdx.x % groups;
+  const int cg = C / groups;
+  const long long total = static_cast<long long>(blocks_per_frame) * cg;
+  float s = 0.0f, q = 0.0f;
+  for (long long i = threadIdx.x; i < total; i += THREADS) {
+    const long long idx =
+        (static_cast<long long>(n) * blocks_per_frame + i / cg) * C + g * cg + i % cg;
+    s += psum[idx];
+    q += psq[idx];
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_down_sync(0xffffffffu, s, off);
+    q += __shfl_down_sync(0xffffffffu, q, off);
+  }
+  __shared__ float ws[THREADS / 32], wq[THREADS / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    ws[warp] = s;
+    wq[warp] = q;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    s = lane < THREADS / 32 ? ws[lane] : 0.0f;
+    q = lane < THREADS / 32 ? wq[lane] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_down_sync(0xffffffffu, s, off);
+      q += __shfl_down_sync(0xffffffffu, q, off);
+    }
+    if (lane == 0) {
+      sum[blockIdx.x] = s;
+      sumsq[blockIdx.x] = q;
+    }
+  }
+}
+}  // namespace
 
 __host__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;

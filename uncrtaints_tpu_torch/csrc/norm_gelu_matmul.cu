@@ -27,7 +27,8 @@
 // steps of 32, 8 warps of 32x64. wgmma/TMA pipelining is later work.
 //
 // Statistics need no atomics: each block writes per-column partial sums of
-// its 128 rows, and a second small kernel reduces them per (frame, group).
+// its 128 rows, and a second small kernel (group_stats_kernel, common.cuh)
+// reduces them per (frame, group).
 #include "common.cuh"
 
 #include <mma.h>
@@ -192,47 +193,6 @@ __global__ void __launch_bounds__(THREADS) ngm_kernel(Args a) {
   }
 }
 
-// one block per (frame n, group g): reduce the frame's row-block partials
-// over the group's columns
-__global__ void ngm_stats_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
-                                 float* __restrict__ sum, float* __restrict__ sumsq,
-                                 int blocks_per_frame, int C2, int groups_out) {
-  const int n = blockIdx.x / groups_out, g = blockIdx.x % groups_out;
-  const int cg = C2 / groups_out;
-  const long long total = static_cast<long long>(blocks_per_frame) * cg;
-  float s = 0.0f, q = 0.0f;
-  for (long long i = threadIdx.x; i < total; i += blockDim.x) {
-    const long long idx =
-        (static_cast<long long>(n) * blocks_per_frame + i / cg) * C2 + g * cg + i % cg;
-    s += psum[idx];
-    q += psq[idx];
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_down_sync(0xffffffffu, s, off);
-    q += __shfl_down_sync(0xffffffffu, q, off);
-  }
-  __shared__ float ws[32], wq[32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) {
-    ws[warp] = s;
-    wq[warp] = q;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    s = lane < nw ? ws[lane] : 0.0f;
-    q = lane < nw ? wq[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_down_sync(0xffffffffu, s, off);
-      q += __shfl_down_sync(0xffffffffu, q, off);
-    }
-    if (lane == 0) {
-      sum[blockIdx.x] = s;
-      sumsq[blockIdx.x] = q;
-    }
-  }
-}
-
 }  // namespace
 
 // x [N,P,C] (dtype), mean/coef [N,groups_in], scale/bias [C], w [C,C2] bf16,
@@ -260,7 +220,7 @@ extern "C" int uncr_norm_gelu_matmul(const void* x, int dtype, const float* mean
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (psum)
-    ngm_stats_kernel<<<N * groups_out, 256, 0, s>>>(psum, psq, sum, sumsq,
-                                                     static_cast<int>(P / BM), C2, groups_out);
+    group_stats_kernel<256><<<N * groups_out, 256, 0, s>>>(
+        psum, psq, sum, sumsq, static_cast<int>(P / BM), C2, groups_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,8 @@ Attention dropout in training draws its mask from an explicit
 the JAX step's ``dropout_rng``), never from the global generator. The masks
 differ from the JAX package's (another generator), their law does not:
 each weight is kept with probability 1-p and scaled by 1/(1-p), as flax's
-Dropout. The JAX config's ``prng_impl`` (threefry or rbg) has no meaning
-here and is ignored.
+Dropout. The JAX config's ``prng_impl`` (threefry or rbg) has no
+counterpart: the port's Config does not carry it.
 """
 
 from __future__ import annotations

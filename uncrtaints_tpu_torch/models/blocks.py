@@ -1,9 +1,12 @@
-"""MBConv (inverted bottleneck with squeeze-and-excitation) and its SE.
+"""Encoder/decoder blocks: MBConv (inverted bottleneck with squeeze-and-
+excitation) and the residual conv block.
 
 Port of uncrtaints_tpu/models/blocks.py (SE, MBConv with its standard and
-fused eval bodies). Submodules carry the reference names: ``conv.norm`` is
-the PreNorm, ``conv.fn.{0..8}`` the pointwise conv, norm, GELU, depthwise
-3x3 conv, norm, GELU, SE, pointwise-linear conv and norm.
+fused eval bodies, ResidualConvBlock). Submodules carry the reference
+names: in MBConv ``conv.norm`` is the PreNorm and ``conv.fn.{0..8}`` the
+pointwise conv, norm, GELU, depthwise 3x3 conv, norm, GELU, SE,
+pointwise-linear conv and norm; in ResidualConvBlock ``conv1..3`` are the
+three ConvLayers.
 """
 
 from __future__ import annotations
@@ -15,8 +18,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uncrtaints_tpu_torch.models.layers import (
-    Conv2d, Linear, Norm2d, gelu, smart_apply)
-from uncrtaints_tpu_torch.ops.mbconv import norm_gelu_matmul
+    Conv2d, ConvLayer, Linear, Norm2d, gelu, smart_apply)
+from uncrtaints_tpu_torch.ops.mbconv import norm_gelu_dwconv3x3, norm_gelu_matmul
 
 
 class SE(nn.Module):
@@ -59,10 +62,10 @@ class MBConv(nn.Module):
     """PreNorm -> pw 1x1 (inp -> hidden) -> norm + GELU -> dw 3x3 reflect ->
     norm + GELU -> SE -> pw-linear (hidden -> oup) -> norm; residual add.
 
-    ``fused_eval`` runs the eval-mode batch-norm body with both pointwise
-    convolutions through kernel K3 (:func:`norm_gelu_matmul`) when the
-    widths allow it (inp and hidden multiples of 128, as in the JAX
-    package). UnCRtainTS uses expansion 2 without downsampling; the other
+    ``fused_eval`` runs the eval-mode batch-norm body as the kernel chain
+    K3 -> K4 -> K3 (:func:`norm_gelu_matmul`, :func:`norm_gelu_dwconv3x3`)
+    when the widths allow it (inp and hidden multiples of 128, as in the
+    JAX package). UnCRtainTS uses expansion 2 without downsampling; the other
     variants of the reference block are not ported."""
 
     def __init__(self, inp: int, oup: int, expansion: int = 4,
@@ -110,12 +113,14 @@ class MBConv(nn.Module):
         return a + h
 
     def _fused_body(self, a: torch.Tensor) -> torch.Tensor:
-        """Eval body with both pointwise GEMMs as K3 launches: gelu(bn1(pw1(
-        prenorm(a)))) with the PreNorm affine as prologue and bn1 + GELU as
-        epilogue; the depthwise conv in torch; then bn3(pw2(se * gelu(bn2(
-        h2)))) with bn2 + GELU + the SE gate as prologue and bn3 as epilogue.
-        The SE pooled vector is the fp32 mean of gelu(bn2(h2)). The GEMM
-        weights go to the kernel as bf16."""
+        """Eval body as the kernel chain K3 -> K4 -> K3: pw1(prenorm(a))
+        with the PreNorm affine as K3's prologue; gelu(bn1(.)) and the
+        reflect depthwise 3x3 in one K4 launch, bn1's folded affine being
+        its norm; then bn3(pw2(se * gelu(bn2(h2)))) with bn2 + GELU + the SE
+        gate as K3's prologue and bn3 as its epilogue. The SE pooled vector
+        is the fp32 mean of gelu(bn2(h2)). The GEMM weights go to K3 as
+        bf16; K4 takes the depthwise weight as [3,3,C]. K4's group
+        statistics are not consumed here (batch norm needs none)."""
         fn = self.conv.fn
         NF, H, W, C = a.shape
         P, hidden = H * W, self.hidden
@@ -126,10 +131,14 @@ class MBConv(nn.Module):
         w1 = fn[0].weight[:, :, 0, 0].t().to(torch.bfloat16).contiguous()
         h1, _, _ = norm_gelu_matmul(
             a.contiguous().view(NF, P, C), zero, one, c0, o0, w1, groups_in=1,
-            do_gelu=False, out_affine=fn[1].fold(), out_gelu=True,
-            do_stats=False)
+            do_gelu=False, do_stats=False)
 
-        h2 = fn[3](h1.view(NF, H, W, hidden)).contiguous()
+        c1, o1 = fn[1].fold()
+        wd = fn[3].weight[:, 0].permute(1, 2, 0)  # [C,1,3,3] -> [3,3,C]
+        h2, _, _ = norm_gelu_dwconv3x3(
+            h1.view(NF, H, W, hidden), zero, one, c1, o1, wd, groups_in=1,
+            groups_out=1)
+
         c2, o2 = fn[4].fold()
         m2 = F.gelu(h2.float() * c2 + o2).mean(dim=(1, 2))
         s = fn[6](h2, mean=m2, scale_only=True)
@@ -139,3 +148,24 @@ class MBConv(nn.Module):
             h2.view(NF, P, hidden), zero, one, c2, o2, w2, se=s, groups_in=1,
             do_gelu=True, out_affine=fn[8].fold(), do_stats=False)
         return a + y.view(NF, H, W, self.oup)
+
+
+class ResidualConvBlock(nn.Module):
+    """Three ConvLayers (3x3, norm + ReLU) with the residual add on the
+    third; time folded into the batch, all-pad frames re-filled."""
+
+    def __init__(self, width: int, norm: str = "batch", n_groups: int = 4,
+                 k: int = 3, s: int = 1, p: int = 1,
+                 padding_mode: str = "reflect",
+                 pad_value: Optional[float] = None):
+        super().__init__()
+        self.pad_value = pad_value
+        mk = lambda: ConvLayer([width, width], norm=norm, k=k, s=s, p=p,
+                               n_groups=n_groups, last_relu=True,
+                               padding_mode=padding_mode)
+        self.conv1, self.conv2, self.conv3 = mk(), mk(), mk()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [N,H,W,C] or [B,T,H,W,C]."""
+        body = lambda a: a + self.conv3(self.conv2(self.conv1(a)))
+        return smart_apply(body, x, self.pad_value)

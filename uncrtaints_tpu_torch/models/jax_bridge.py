@@ -1,9 +1,10 @@
 """JAX variables -> the port's state_dict (reference PyTorch names).
 
 The inverse of uncrtaints_tpu/models/torch_import.py:uncrtaints_mapping for
-the architecture the port builds (MBConv blocks, tiny L-TAE, shared output
-head). Pure numpy: the module imports neither JAX nor that module (which
-does); the tests hold the two tables against each other.
+every UnCRtainTS configuration the port builds (MBConv or residual blocks,
+the tiny or the full L-TAE with ``include_v``, the shared or the separate
+output heads). Pure numpy: the module imports neither JAX nor that module
+(which does); the tests hold the two tables against each other.
 
 Inverse layout transforms: conv HWIO -> OIHW, Dense [I,O] -> Linear [O,I],
 Dense [I,O] -> Conv1d [O,I,1]; batch stats mean/var -> running_mean/var.
@@ -64,21 +65,39 @@ def jax_to_torch_names(cfg) -> Dict[str, Tuple[str, Callable]]:
         conv(f"{fp}/Conv2d_2", f"{tp}.conv.fn.7", bias=False)
         norm2d(fp, 3, f"{tp}.conv.fn.8", kind)
 
+    def residual(fp, tp, kind):
+        for j in range(3):
+            conv(f"{fp}/ConvLayer_{j}/Conv2d_0", f"{tp}.conv{j + 1}.conv.0")
+            norm2d(f"{fp}/ConvLayer_{j}", 0, f"{tp}.conv{j + 1}.conv.1", kind)
+
+    block = mbconv if cfg.block_type == "mbconv" else residual
+
     conv("in_conv/ConvLayer_0/Conv2d_0", "in_conv.conv.conv.0")
     norm2d("in_conv/ConvLayer_0", 0, "in_conv.conv.conv.1", cfg.encoder_norm)
     for i in range(len(cfg.encoder_widths)):
-        mbconv(f"in_block{i}", f"in_block.{i}", cfg.encoder_norm)
+        block(f"in_block{i}", f"in_block.{i}", cfg.encoder_norm)
     if not cfg.pretrain:
         te = "temporal_encoder"
-        norm(f"{te}/GroupNormCT_0", f"{te}.in_norm")
+        norm(f"{te}/in_norm" if cfg.use_v else f"{te}/GroupNormCT_0", f"{te}.in_norm")
         m[f"{te}/inconv/kernel"] = (f"{te}.inconv.weight", _conv1d_w)
         m[f"{te}/inconv/bias"] = (f"{te}.inconv.bias", _ident)
         m[f"{te}/Q"] = (f"{te}.attention_heads.Q", _ident)
         m[f"{te}/fc1_k/kernel"] = (f"{te}.attention_heads.fc1_k.weight", _lin_w)
         m[f"{te}/fc1_k/bias"] = (f"{te}.attention_heads.fc1_k.bias", _ident)
+        if cfg.use_v:  # the full L-TAE: one MLP stage (d_model -> width)
+            m[f"{te}/Dense_0/kernel"] = (f"{te}.mlp.0.weight", _lin_w)
+            m[f"{te}/Dense_0/bias"] = (f"{te}.mlp.0.bias", _ident)
+            norm(f"{te}/BatchNorm_0", f"{te}.mlp.1", batch=True)
+            norm(f"{te}/out_norm", f"{te}.out_norm")
+            conv("include_v", "include_v")
     for i in range(len(cfg.decoder_widths)):
-        mbconv(f"out_block{i}", f"out_block.{i}", cfg.decoder_norm)
-    conv("out_conv/ConvLayer_0/Conv2d_0", "out_conv.conv.conv.0")
+        block(f"out_block{i}", f"out_block.{i}", cfg.decoder_norm)
+    if cfg.separate_out:
+        conv("out_conv_mean_1/ConvLayer_0/Conv2d_0", "out_conv_mean_1.conv.conv.0")
+        if cfg.out_conv[-1] - 13 > 0:  # else a mean-only head
+            conv("out_conv_var_1/ConvLayer_0/Conv2d_0", "out_conv_var_1.conv.conv.0")
+    else:
+        conv("out_conv/ConvLayer_0/Conv2d_0", "out_conv.conv.conv.0")
     return m
 
 

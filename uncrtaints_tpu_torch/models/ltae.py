@@ -1,22 +1,23 @@
-"""L-TAE tiny: attention masks over time from learned queries.
+"""L-TAE: temporal attention over day offsets from learned queries.
 
 Port of uncrtaints_tpu/models/ltae.py (positional_encoding_table,
-GroupNormCT, LTAE2dtiny). Input [B,T,H,W,C] at the attention resolution;
-the projections act on the channel axis. The full LTAE2d (``use_v``) is not
-ported yet.
+GroupNormCT, LTAE2dtiny: attention masks only; LTAE2d: attention-weighted
+values, an MLP head and an output norm, for ``use_v``). Input [B,T,H,W,C]
+at the attention resolution; the projections act on the channel axis.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from uncrtaints_tpu_torch.models.layers import Conv1d, Linear
+from uncrtaints_tpu_torch.models.aggregator import attention_dropout
+from uncrtaints_tpu_torch.models.layers import Conv1d, Linear, _moments_f32
 
 
 def positional_encoding_table(positions: torch.Tensor, d: int, T: int = 1000,
@@ -74,6 +75,28 @@ class MultiHeadAttentionSmall(nn.Module):
         nn.init.normal_(self.Q, std=math.sqrt(2.0 / self.d_k), generator=generator)
 
 
+def _attention(mod: nn.Module, x: torch.Tensor,
+               batch_positions: Optional[torch.Tensor],
+               pad_mask: Optional[torch.Tensor]):
+    """The part the two L-TAEs share: in_norm, inconv, the positional
+    encoding, keys against the learned queries, pad fill, softmax over T.
+    Returns (the d_model features [B,T,H,W,d_model], attention
+    [B,T,H,W,n_head] in fp32)."""
+    h, d_k = mod.n_head, mod.d_k
+    out = F.linear(mod.in_norm(x), mod.inconv.weight[..., 0], mod.inconv.bias)
+    if mod.positional_encoding and batch_positions is not None:
+        pe = positional_encoding_table(batch_positions.float(),
+                                       mod.d_model // h, T=mod.T, repeat=h)
+        out = out + pe[:, :, None, None, :].to(out.dtype)
+    k = mod.attention_heads.fc1_k(out)
+    k = k.reshape(*k.shape[:-1], h, d_k)
+    q = mod.attention_heads.Q
+    logits = (k.float() * q.float()).sum(-1) / math.sqrt(d_k)
+    if pad_mask is not None:
+        logits = logits.masked_fill(pad_mask[:, :, None, None, None], -1e3)
+    return out, torch.softmax(logits, dim=1)
+
+
 class LTAE2dtiny(nn.Module):
     """Attention-only L-TAE: x [B,T,H,W,C], positions [B,T], pad_mask [B,T]
     bool -> attention [B,T,H,W,n_head], fp32, softmax over T."""
@@ -90,16 +113,91 @@ class LTAE2dtiny(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_positions: Optional[torch.Tensor] = None,
                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h, d_k = self.n_head, self.d_k
-        out = F.linear(self.in_norm(x), self.inconv.weight[..., 0], self.inconv.bias)
-        if self.positional_encoding and batch_positions is not None:
-            pe = positional_encoding_table(batch_positions.float(),
-                                           self.d_model // h, T=self.T, repeat=h)
-            out = out + pe[:, :, None, None, :].to(out.dtype)
-        k = self.attention_heads.fc1_k(out)
-        k = k.reshape(*k.shape[:-1], h, d_k)
-        q = self.attention_heads.Q
-        logits = (k.float() * q.float()).sum(-1) / math.sqrt(d_k)
-        if pad_mask is not None:
-            logits = logits.masked_fill(pad_mask[:, :, None, None, None], -1e3)
-        return torch.softmax(logits, dim=1)
+        return _attention(self, x, batch_positions, pad_mask)[1]
+
+
+class BatchNorm1d(nn.Module):
+    """Batch norm over the rows of [P,C], as the JAX package's L-TAE runs it
+    (flax BatchNorm, momentum 0.9 = torch's 0.1, eps 1e-5): fp32 statistics
+    as E[x^2] - E[x]^2, and the running variance takes the *biased* batch
+    variance (torch's BatchNorm1d would store the unbiased one). No
+    ``num_batches_tracked`` buffer, as the port's other batch norms."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        nn.init.normal_(self.weight, generator=generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            m, v = _moments_f32(x, (0,), keepdim=False)
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * m)
+                self.running_var.copy_(0.9 * self.running_var + 0.1 * v)
+        else:
+            m, v = self.running_mean, self.running_var
+        y = (x.float() - m) * torch.rsqrt(v + 1e-5) * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm in fp32 with the port's ``reset_parameters(generator)``."""
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        super().reset_parameters()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+class LTAE2d(nn.Module):
+    """Full L-TAE: x [B,T,H,W,C], positions [B,T], pad_mask [B,T] bool ->
+    (values [B,H,W,mlp[-1]], attention [B,T,H,W,n_head] fp32).
+
+    The values are d_model split into n_head contiguous channel groups,
+    each weighted by its head's attention and summed over T; then per stage
+    Linear -> BatchNorm1d over the flattened B*H*W pixels -> ReLU, dropout,
+    and ``out_norm``: a GroupNorm over each pixel's channels (the flattened
+    [B*H*W, C] batch, not pooled over H and W). In training the two
+    dropouts draw from ``dropout_generator``."""
+
+    def __init__(self, in_channels: int = 128, n_head: int = 16, d_k: int = 4,
+                 mlp: Sequence[int] = (256, 128), dropout: float = 0.2,
+                 d_model: int = 256, T: int = 1000,
+                 positional_encoding: bool = True, use_dropout: bool = True):
+        super().__init__()
+        if mlp[0] != d_model:
+            raise ValueError(f"mlp[0]={mlp[0]} must equal d_model={d_model}")
+        self.n_head, self.d_k, self.d_model, self.T = n_head, d_k, d_model, T
+        self.positional_encoding = positional_encoding
+        self.dropout, self.use_dropout = dropout, use_dropout
+        self.in_norm = GroupNormCT(n_head, in_channels)
+        self.inconv = Conv1d(in_channels, d_model, 1)
+        self.attention_heads = MultiHeadAttentionSmall(n_head, d_k, d_model)
+        stages = []
+        for i in range(len(mlp) - 1):
+            stages += [Linear(mlp[i], mlp[i + 1]), BatchNorm1d(mlp[i + 1]), nn.ReLU()]
+        self.mlp = nn.Sequential(*stages)
+        self.out_norm = GroupNorm(n_head, mlp[-1])
+
+    def forward(self, x: torch.Tensor, batch_positions: Optional[torch.Tensor] = None,
+                pad_mask: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None):
+        out, attn = _attention(self, x, batch_positions, pad_mask)
+        if self.use_dropout and self.training:
+            attn = attention_dropout(attn, 0.1, dropout_generator)
+        B, T, H, W, _ = out.shape
+        h = self.n_head
+        v = out.reshape(B, T, H, W, h, self.d_model // h)
+        agg = (attn.to(out.dtype)[..., None] * v).sum(dim=1)
+        y = self.mlp(agg.reshape(B * H * W, self.d_model))
+        if self.dropout > 0 and self.training:
+            y = attention_dropout(y, self.dropout, dropout_generator)
+        return self.out_norm(y).reshape(B, H, W, -1), attn

@@ -24,10 +24,10 @@ def mean_vars_idx(cfg: Config):
 def _resolve_fused_eval(cfg: Config, device: torch.device) -> bool:
     """``fused_eval``: 'on', 'off', or 'auto'.
 
-    'auto' is on for a CUDA device, where the fused eval MBConv runs its two
-    pointwise GEMMs through the hand-written kernel K3; that is the path the
-    port brings up and measures. On the CPU it is off: the kernel's plain
-    version there only adds work to the standard body."""
+    'auto' is on for a CUDA device, where the fused eval MBConv runs as the
+    hand-written kernel chain K3 -> K4 -> K3; that is the path the port
+    brings up and measures. On the CPU it is off: the kernels' plain
+    versions there only add work to the standard body."""
     mode = getattr(cfg, "fused_eval", "auto")
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"fused_eval must be auto, on or off, not {mode!r}")
@@ -36,16 +36,18 @@ def _resolve_fused_eval(cfg: Config, device: torch.device) -> bool:
     return mode == "on"
 
 
-def get_generator(cfg: Config, device: Union[str, torch.device] = "cpu",
+def get_generator(cfg: Config, device: Union[str, torch.device, None] = None,
                   generator: Optional[torch.Generator] = None):
-    """Build the model for ``cfg`` on ``device``. Weights are drawn on the
-    CPU from ``generator`` (default: seeded with ``cfg.rdm_seed``), so one
-    seed gives the same model on every device; convolution weights are
-    stored ``channels_last``."""
+    """Build the model for ``cfg`` on ``device`` (default: ``cfg.device``,
+    "cuda" unless the config says otherwise; there is no fall-back to the
+    CPU when no card is found). Weights are drawn on the CPU from
+    ``generator`` (default: seeded with ``cfg.rdm_seed``), so one seed gives
+    the same model on every device; convolution weights are stored
+    ``channels_last``."""
     if cfg.model != "uncrtaints":
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
     from uncrtaints_tpu_torch.models.uncrtaints import UNCRTAINTS
-    device = torch.device(device)
+    device = torch.device(cfg.device if device is None else device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.rdm_seed)
     model = UNCRTAINTS(

@@ -8,7 +8,8 @@ from uncrtaints_tpu_torch.ops.dwconv import dw_stencil, dw_stencil_plain  # noqa
 from uncrtaints_tpu_torch.ops.dwgrad import (  # noqa: F401
     dw_kernel_grad, dw_kernel_grad_plain)
 from uncrtaints_tpu_torch.ops.mbconv import (  # noqa: F401
-    norm_gelu_matmul, norm_gelu_matmul_plain)
+    norm_gelu_dwconv3x3, norm_gelu_dwconv3x3_plain, norm_gelu_matmul,
+    norm_gelu_matmul_plain)
 from uncrtaints_tpu_torch.ops.pooling import adaptive_max_pool2d  # noqa: F401
 from uncrtaints_tpu_torch.ops.resize import avg_pool2d, upsample_bilinear  # noqa: F401
 from uncrtaints_tpu_torch.ops.ssim import ssim  # noqa: F401

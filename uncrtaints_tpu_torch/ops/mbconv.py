@@ -1,9 +1,12 @@
-"""Fused MBConv pointwise stage, kernel K3 (norm -> GELU -> SE -> GEMM ->
-affine -> GELU, plus optional per-group output statistics).
+"""The fused MBConv eval stages: kernel K3 (norm -> GELU -> SE -> GEMM ->
+affine -> GELU) and kernel K4 (norm -> GELU -> reflect depthwise 3x3), each
+with per-group statistics of its output.
 
-Port of uncrtaints_tpu/ops/pallas_mbconv.py:norm_gelu_matmul (kernel A);
-the CUDA kernel is csrc/norm_gelu_matmul.cu. The eval-mode MBConv runs both
-of its pointwise convolutions through it (models/blocks.py).
+Port of uncrtaints_tpu/ops/pallas_mbconv.py: norm_gelu_matmul (kernel A,
+CUDA kernel csrc/norm_gelu_matmul.cu) and norm_gelu_dwconv3x3 (kernel B,
+CUDA kernel csrc/norm_gelu_dwconv.cu). The eval-mode MBConv runs its two
+pointwise convolutions through K3 and its depthwise convolution through K4
+(models/blocks.py).
 """
 
 from __future__ import annotations
@@ -53,9 +56,19 @@ def norm_gelu_matmul_plain(x, mean, coef, scale, bias, w, se=None,
 
 def _f32(t: torch.Tensor, shape, name: str) -> torch.Tensor:
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"norm_gelu_matmul: {name} must be {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
+        raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
     return t.to(torch.float32).contiguous()
+
+
+def _refuse_grad(name: str, tensors) -> None:
+    """The eval kernels have no backward (the JAX kernels have no VJP
+    either): raise rather than return a result detached from the graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() or torch.inference_mode() (the fused MBConv body "
+            "is for eval), or with inputs that do not require grad")
 
 
 def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
@@ -100,27 +113,21 @@ def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
             out_gelu=out_gelu, do_stats=do_stats)
     if x.device.type != "cuda":
         raise ValueError(f"norm_gelu_matmul: unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, mean, coef, scale, bias, w, se,
-                      *(out_affine if out_affine is not None else ()))):
-        raise RuntimeError(
-            "norm_gelu_matmul: the CUDA kernel has no backward; call it under "
-            "torch.no_grad() or torch.inference_mode() (the fused MBConv body "
-            "is for eval), or with inputs that do not require grad")
+    _refuse_grad("norm_gelu_matmul", (x, mean, coef, scale, bias, w, se,
+                                      *(out_affine if out_affine is not None else ())))
     if P % BLOCK_M or C % 32 or C2 % 16:
         raise ValueError(f"norm_gelu_matmul kernel needs P % {BLOCK_M} == 0, "
                          f"C % 32 == 0 and C2 % 16 == 0; got P={P}, C={C}, "
                          f"C2={C2}")
 
-    mean = _f32(mean, (N, groups_in), "mean")
-    coef = _f32(coef, (N, groups_in), "coef")
-    scale = _f32(scale, (C,), "scale")
-    bias = _f32(bias, (C,), "bias")
-    se = _f32(se, (N, C), "se") if se is not None else None
+    mean = _f32(mean, (N, groups_in), "norm_gelu_matmul: mean")
+    coef = _f32(coef, (N, groups_in), "norm_gelu_matmul: coef")
+    scale = _f32(scale, (C,), "norm_gelu_matmul: scale")
+    bias = _f32(bias, (C,), "norm_gelu_matmul: bias")
+    se = _f32(se, (N, C), "norm_gelu_matmul: se") if se is not None else None
     if out_affine is not None:
-        oscale = _f32(out_affine[0], (C2,), "oscale")
-        obias = _f32(out_affine[1], (C2,), "obias")
+        oscale = _f32(out_affine[0], (C2,), "norm_gelu_matmul: oscale")
+        obias = _f32(out_affine[1], (C2,), "norm_gelu_matmul: obias")
     else:
         oscale = obias = None
     small = [mean, coef, scale, bias, se, oscale, obias]
@@ -157,3 +164,108 @@ def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
 
 
 norm_gelu_matmul.launches = 0
+
+
+# ------------------------------------------------------------------- K4 --
+
+def norm_gelu_dwconv3x3_plain(x, mean, coef, scale, bias, w,
+                              groups_in: int = 4, groups_out: int = 4):
+    """The plain PyTorch version of kernel K4: the prologue and the exact
+    GELU in fp32, a reflect pad of one pixel, then the nine fp32 shifted
+    multiply-adds in the JAX kernel's order (dx-major, dy-minor; product
+    and sum rounded separately), one cast, and the sums of the cast output."""
+    N, H, W, C = x.shape
+    m = mean.float().repeat_interleave(C // groups_in, -1)[:, None, None, :]
+    cf = coef.float().repeat_interleave(C // groups_in, -1)[:, None, None, :]
+    h = F.gelu((x.float() - m) * cf * scale.float() + bias.float())
+    # pad H and W of the NHWC map as the inner dims of a 5-D view
+    hp = F.pad(h.unsqueeze(1), (0, 0, 1, 1, 1, 1), mode="reflect").squeeze(1)
+    w9 = w.float().reshape(9, C)
+    acc = torch.zeros((N, H, W, C), dtype=torch.float32, device=x.device)
+    for dx in range(3):
+        for dy in range(3):
+            acc = acc + hp[:, dy:dy + H, dx:dx + W] * w9[dy * 3 + dx]
+    out = acc.to(x.dtype)
+    og = out.float().view(N, H * W, groups_out, C // groups_out)
+    return out, og.sum(dim=(1, 3)), og.square().sum(dim=(1, 3))
+
+
+def norm_gelu_dwconv3x3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
+                        scale: torch.Tensor, bias: torch.Tensor, w: torch.Tensor,
+                        groups_in: int = 4, groups_out: int = 4):
+    """dw3x3(gelu(norm(x))) with reflect borders, fused.
+
+    x [N,H,W,C] (bf16 or fp32, NHWC contiguous, H and W >= 2); mean/coef
+    [N,groups_in]; scale/bias [C]; w [3,3,C] (tap dy, dx). The small
+    tensors are taken as fp32. Returns (out [N,H,W,C] in x's dtype, sum
+    [N,groups_out], sumsq [N,groups_out]): the per-(frame, group) sum and
+    sum of squares of the output after rounding.
+
+    A CUDA tensor launches the CUDA kernel, which moves 16-byte channel
+    vectors and so needs C % 8 == 0 in bf16 and C % 4 == 0 in fp32
+    (anything else raises); a CPU tensor runs
+    :func:`norm_gelu_dwconv3x3_plain`. ``norm_gelu_dwconv3x3.launches``
+    counts the kernel launches. Like K3 the kernel has no backward and
+    raises on the card when grad is enabled and an input requires grad."""
+    name = "norm_gelu_dwconv3x3"
+    if x.dim() != 4 or tuple(w.shape) != (3, 3, x.shape[-1]):
+        raise ValueError(f"{name}: x [N,H,W,C] and w [3,3,C] expected, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    N, H, W, C = x.shape
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{name}: x must be fp32 or bf16, got {x.dtype}")
+    if H < 2 or W < 2:
+        raise ValueError(f"{name}: the reflect border needs H, W >= 2, got {H}x{W}")
+    if C % groups_in or C % groups_out:
+        raise ValueError(f"{name}: C={C} is not a multiple of groups_in="
+                         f"{groups_in} and groups_out={groups_out}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    if x.device.type == "cpu":
+        return norm_gelu_dwconv3x3_plain(x, mean, coef, scale, bias, w,
+                                         groups_in=groups_in, groups_out=groups_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    _refuse_grad(name, (x, mean, coef, scale, bias, w))
+    vec = 16 // x.element_size()
+    if C % vec:
+        raise ValueError(f"{name} kernel needs C % {vec} == 0 for {x.dtype} "
+                         f"(16-byte channel vectors), got C={C}")
+    if N > 65535:
+        raise ValueError(f"{name} kernel takes at most 65535 frames, got {N}")
+
+    mean = _f32(mean, (N, groups_in), f"{name}: mean")
+    coef = _f32(coef, (N, groups_in), f"{name}: coef")
+    scale = _f32(scale, (C,), f"{name}: scale")
+    bias = _f32(bias, (C,), f"{name}: bias")
+    w9 = w.to(torch.float32).reshape(9, C).contiguous()
+    if any(t.device != x.device for t in (mean, coef, scale, bias, w9)):
+        raise ValueError(f"{name}: all tensors must be on x's device")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned")
+
+    dev = x.device
+    out = torch.empty_like(x)
+    s1 = torch.zeros((N, groups_out), dtype=torch.float32, device=dev)
+    s2 = torch.zeros((N, groups_out), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out, s1, s2
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    blocks = _build.kernel("uncr_ngd_blocks", [ci, ci])(H, W)
+    psum = torch.empty((N * blocks, C), dtype=torch.float32, device=dev)
+    psq = torch.empty_like(psum)
+    fn = _build.kernel("uncr_norm_gelu_dwconv3x3", [
+        vp, ci, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, ci,
+        vp])
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), _build.DTYPE_CODES[x.dtype], mean.data_ptr(),
+                 coef.data_ptr(), groups_in, scale.data_ptr(), bias.data_ptr(),
+                 w9.data_ptr(), out.data_ptr(), N, H, W, C, psum.data_ptr(),
+                 psq.data_ptr(), s1.data_ptr(), s2.data_ptr(), groups_out,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "uncr_norm_gelu_dwconv3x3")
+    norm_gelu_dwconv3x3.launches += 1
+    return out, s1, s2
+
+
+norm_gelu_dwconv3x3.launches = 0

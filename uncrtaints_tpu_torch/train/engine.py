@@ -81,6 +81,18 @@ def _cast_for_forward(cfg: Config, model: torch.nn.Module, x: torch.Tensor):
     return params, x.to(dt)
 
 
+def eval_forward(cfg: Config, model: torch.nn.Module, x_scaled: torch.Tensor,
+                 dates: Optional[torch.Tensor]):
+    """The eval forward both serving entry points share (the eval step and
+    ``infer.predict_scene``): parameters and the scale_by-scaled input in
+    the compute dtype, the output split into fp32 (mean, variance or None),
+    still in scaled units. The caller holds ``torch.inference_mode()`` and
+    has the model in eval mode."""
+    params, xc = _cast_for_forward(cfg, model, x_scaled)
+    out = functional_call(model, params, (xc,), {"batch_positions": dates})
+    return _split_out(out.float(), cfg)
+
+
 def make_eval_step(cfg: Config, with_metrics: bool = False,
                    rescale_method: str = "default",
                    return_outputs: bool = True) -> Callable:
@@ -102,11 +114,7 @@ def make_eval_step(cfg: Config, with_metrics: bool = False,
     def eval_step(model: torch.nn.Module, batch: Dict) -> Dict:
         model.eval()
         x, y, y_u = _prepare_xy(cfg, batch, rescale_method)
-        params, xc = _cast_for_forward(cfg, model, x)
-        dates = batch.get("dates")
-        out = functional_call(model, params, (xc,),
-                              {"batch_positions": dates})
-        mean, var = _split_out(out.float(), cfg)
+        mean, var = eval_forward(cfg, model, x, batch.get("dates"))
         loss, variance = calc_loss(criterion, cfg, mean, y, var=var)
         pred = mean / s
         rvar = variance / (s * s) if variance is not None else None
