@@ -6,11 +6,14 @@ one NVIDIA GPU and check them.
 Phase 1 builds the six hand-written CUDA kernels of ``uncrtaints_tpu_torch``
 from ``csrc/`` (one nvcc per source, in parallel) and holds each against its
 plain PyTorch version on the card, at the shapes the paths give it and at a
-ragged shape, and times both (CUDA events, median of 25 runs). Where one
+ragged shape, and times both (CUDA events, median of 15 runs; 7 for the slow
+plain versions of K5 and K2). Where one
 library call or composition computes the same function it is timed beside
 the kernel as a yardstick the port never calls: ``torch.einsum`` (K1, and two
-of them for K1-bwd), cuDNN's depthwise convolution (K5) and its weight
-gradient (K2), the bare bf16 ``torch.matmul`` (K3), and gelu -> reflect pad ->
+of them for K1-bwd), cuDNN's depthwise convolution, input gradient and weight
+gradient (K5 and K2; in reflect mode behind a reflect ``F.pad`` or before its
+backward, the composition the port ran before the border was folded into the
+kernels), the bare bf16 ``torch.matmul`` (K3), and gelu -> reflect pad ->
 cuDNN depthwise conv (K4). Each kernel's
 bound is the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type.
@@ -34,7 +37,9 @@ rescale) of the paper recipe in bf16: 4 steps of B=4, T=3, 256x256 over the
 3 batches with an explicit dropout generator. It checks the launches per
 step (K1 1, K1-bwd 1, K5 12, K2 6, no K3 or K4), finite losses, a finite non-zero
 gradient for every parameter on the first step, and that the parameters
-moved; it prints the step time and the peak device memory.
+moved; it prints the step time and the peak device memory. One more step
+runs under ``torch.profiler``: no ``reflection_pad`` kernel may appear (the
+reflect border lives in K5 and K2), and the device time is printed by kind.
 Phase 5 compares one fp32 train step on the card with the same step on
 the CPU on a small input.
 
@@ -53,25 +58,41 @@ import numpy as np
 import torch
 
 SEED = 0
-TIMING_RUNS = 25
+TIMING_RUNS = 15
 TRAIN_STEPS = 4
 # the paths' shapes: the paper batch, and the kernels as the paths call them
 B, T, PATCH = 4, 3, 256
 K1_SHAPES = [(B, T, PATCH, PATCH, 128, 16), (2, 3, 7, 9, 20, 4)]  # + ragged
 HIDDEN = 256  # the MBConv depthwise width (expansion 2 of 128)
 # K5 and K2 on the train path: the encoder's depthwise conv over B*T frames
-# and the decoder's over B maps, on the reflect-padded 258x258 input (VALID);
-# the input gradient is K5 on the 256x256 output gradient with pads 2 (FULL)
-DW_CASES = {  # name: (N, H, W, C, (kh, kw), pads, dtype)
-    "fwd enc [12,258,258,256]": (B * T, PATCH + 2, PATCH + 2, HIDDEN, (3, 3), ((0, 0), (0, 0)),
-                                 torch.bfloat16),
-    "fwd dec [4,258,258,256]": (B, PATCH + 2, PATCH + 2, HIDDEN, (3, 3), ((0, 0), (0, 0)),
-                                torch.bfloat16),
-    "gx enc [12,256,256,256] pads 2": (B * T, PATCH, PATCH, HIDDEN, (3, 3), ((2, 2), (2, 2)),
-                                       torch.bfloat16),
-    "gx dec [4,256,256,256] pads 2": (B, PATCH, PATCH, HIDDEN, (3, 3), ((2, 2), (2, 2)),
-                                      torch.bfloat16),
-    "ragged [3,37,70,20] 3x1 fp32": (3, 37, 70, 20, (3, 1), ((1, 1), (0, 0)), torch.float32),
+# and the decoder's over B maps, in reflect mode on the unpadded 256x256 input
+# (forward, weight gradient) and output gradient (the folded adjoint). The
+# zero-pad cases are the same convs as the port ran them before, on a
+# reflect-padded 258x258 copy (VALID) with the input gradient as K5 on the
+# output gradient with pads 2 (FULL); they stay as the zero mode's check.
+ONE, NONE, FULL = ((1, 1), (1, 1)), ((0, 0), (0, 0)), ((2, 2), (2, 2))
+BF16, FP32 = torch.bfloat16, torch.float32
+DW_CASES = {  # name: (N, H, W, C, (kh, kw), pads, mode, dtype); "adjoint" = K5's third rule
+    "reflect enc [12,256,256,256]": (B * T, PATCH, PATCH, HIDDEN, (3, 3), ONE, "reflect", BF16),
+    "reflect dec [4,256,256,256]": (B, PATCH, PATCH, HIDDEN, (3, 3), ONE, "reflect", BF16),
+    "adjoint enc [12,256,256,256]": (B * T, PATCH, PATCH, HIDDEN, (3, 3), ONE, "adjoint", BF16),
+    "adjoint dec [4,256,256,256]": (B, PATCH, PATCH, HIDDEN, (3, 3), ONE, "adjoint", BF16),
+    "reflect fp32 [2,64,64,128]": (2, 64, 64, 128, (3, 3), ONE, "reflect", FP32),
+    "adjoint fp32 [2,64,64,128]": (2, 64, 64, 128, (3, 3), ONE, "adjoint", FP32),
+    # odd H and W, H of 3 (row 1 takes both folds), C % 8 != 0: the direct kernel
+    "reflect ragged [3,3,37,20]": (3, 3, 37, 20, (3, 3), ONE, "reflect", BF16),
+    "adjoint ragged [3,3,37,20]": (3, 3, 37, 20, (3, 3), ONE, "adjoint", BF16),
+    # W of 2 (every column reflects), a ragged channel tile: the tiled kernel
+    "reflect ragged [2,35,2,72]": (2, 35, 2, 72, (3, 3), ONE, "reflect", BF16),
+    "adjoint ragged [2,35,2,72]": (2, 35, 2, 72, (3, 3), ONE, "adjoint", BF16),
+    "zeros fwd enc [12,258,258,256]": (B * T, PATCH + 2, PATCH + 2, HIDDEN, (3, 3), NONE, "zeros",
+                                       BF16),
+    "zeros fwd dec [4,258,258,256]": (B, PATCH + 2, PATCH + 2, HIDDEN, (3, 3), NONE, "zeros",
+                                      BF16),
+    "zeros gx enc [12,256,256,256] pads 2": (B * T, PATCH, PATCH, HIDDEN, (3, 3), FULL, "zeros",
+                                             BF16),
+    "zeros gx dec [4,256,256,256] pads 2": (B, PATCH, PATCH, HIDDEN, (3, 3), FULL, "zeros", BF16),
+    "zeros ragged [3,37,70,20] 3x1 fp32": (3, 37, 70, 20, (3, 1), ((1, 1), (0, 0)), "zeros", FP32),
 }
 K4_CASES = {  # name: (N, H, W, C, groups, dtype); groups 1 = the batch-norm form
     "path [4,256,256,256] G=1": (B, PATCH, PATCH, HIDDEN, 1, torch.bfloat16),
@@ -347,61 +368,96 @@ def phase1_kernels(dev):
             kb_err = max(kb_err, err)
     out["att_group_aggregate_bwd"] = result(kb_err, *kb_ms)
 
-    # ---- K5 (forward and input-gradient shapes) and K2 (weight gradient)
+    # ---- K5 (forward, folded adjoint, zero-pad shapes) and K2 (weight gradient)
+    Fn = torch.nn.functional
     k5_err, k2_err = 0.0, 0.0
-    for name, (N, H, W, C, (kh, kw), pads, dtype) in DW_CASES.items():
+    for name, (N, H, W, C, (kh, kw), pads, mode, dtype) in DW_CASES.items():
         x = randn(N, H, W, C).to(dtype)
         w = (randn(C, 1, kh, kw) * 0.3).to(dtype)
-        got = dwconv.dw_stencil(x, w, pads)
+        xc, pad = x.permute(0, 3, 1, 2), pads[0][0]  # the NCHW view (channels_last)
+        if mode == "adjoint":  # x is the output gradient here
+            kernel = lambda: dwconv.dw_stencil_reflect_adjoint(x, w)
+            plain = lambda: dwconv.dw_stencil_reflect_adjoint_plain(x, w)
+            # what the port ran before: autograd's input gradient of cuDNN's
+            # conv on the padded input, then the reflect pad's backward
+            leaf = torch.zeros_like(x).requires_grad_()
+            y = Fn.conv2d(dwconv.reflect_pad(leaf).permute(0, 3, 1, 2), w, groups=C)
+            library = lambda: torch.autograd.grad(y, leaf, xc, retain_graph=True)[0]
+            bare = lambda: torch.nn.grad.conv2d_input((N, C, H, W), w, xc, padding=1, groups=C)
+            bare_name = "torch.nn.grad.conv2d_input alone"
+            lib_name = "autograd of reflect F.pad + cuDNN conv"
+        else:
+            kernel = lambda: dwconv.dw_stencil(x, w, pads, mode)
+            plain = lambda: dwconv.dw_stencil_plain(x, w, pads, mode)
+            bare = lambda: Fn.conv2d(xc, w, padding=pad, groups=C)
+            bare_name = "cuDNN alone"
+            if mode == "reflect":  # what the port ran before: the pad, then cuDNN
+                library = lambda: Fn.conv2d(dwconv.reflect_pad(x).permute(0, 3, 1, 2), w,
+                                            groups=C).permute(0, 2, 3, 1)
+                lib_name = "reflect F.pad + cuDNN"
+            else:
+                library, lib_name = None, ""
+        got = kernel()
         torch.cuda.synchronize()
-        ref = dwconv.dw_stencil_plain(x, w, pads)
+        ref = plain()
         err = float((got.float() - ref.float()).abs().max())
-        # one bf16 ulp of the largest output (the kernel keeps the plain
-        # version's fp32 roundings; fp32: 1e-6 of it)
-        tol = (1e-6 if dtype == torch.float32 else 2 ** -7) * float(ref.float().abs().max())
+        top = float(ref.float().abs().max())
+        # one bf16 ulp of the largest output (fp32 sums in another order, one
+        # fused multiply-add per tap, then one rounding; fp32: 1e-6 of it)
+        tol = (1e-6 if dtype == torch.float32 else 2 ** -7) * top
         line = f"K5 dw_stencil {name}: max_abs_err={err:.3g} (tol {tol:.3g})"
-        if dtype == torch.bfloat16:
-            # cuDNN's depthwise conv on the NCHW view of the NHWC memory
-            # (channels_last), symmetric zero pads
-            xc, pad = x.permute(0, 3, 1, 2), pads[0][0]
-            kms = time_ms(lambda: dwconv.dw_stencil(x, w, pads))
-            pms = time_ms(lambda: dwconv.dw_stencil_plain(x, w, pads))
-            cms = time_ms(lambda: torch.nn.functional.conv2d(xc, w, padding=pad, groups=C))
+        if dtype == torch.bfloat16 and N * H * W * C > 1e7:
+            kms, pms, cms = time_ms(kernel, warmup=10), time_ms(plain, runs=7), time_ms(bare)
             bms, by = bound(nbytes(x, w, got), 2 * kh * kw * got.numel(), PEAK_FP32)
             line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms, "
-                     f"cuDNN {cms:.4f} ms")
-            if name.startswith("fwd enc"):
-                out["dw_stencil"] = result(0.0, kms, pms, bms, by, cms)
+                     f"{bare_name} {cms:.4f} ms")
+            if library is not None:
+                lerr = float((library().float() - ref.float()).abs().max())
+                check(lerr <= 4 * tol, f"K5 {name}: the library composition computes "
+                                       f"another function (max_abs_err {lerr:.3g})")
+                lms = time_ms(library)
+                line += f", {lib_name} {lms:.4f} ms"
+            if name.startswith("reflect enc"):
+                out["dw_stencil"] = result(0.0, kms, pms, bms, by, lms)
         print(line)
         check(err <= tol, f"K5 {name} disagrees with its plain version")
         k5_err = max(k5_err, err)
-        if name.startswith("gx"):
+        if mode == "adjoint" or "gx" in name:
             continue  # K2 pairs the primal input with the output gradient
         Ho, Wo = dwconv.out_hw(H, W, kh, kw, pads)
         gy = randn(N, Ho, Wo, C).to(dtype)
-        gw = dwgrad.dw_kernel_grad(x, gy, pads, kh, kw)
+        gw = dwgrad.dw_kernel_grad(x, gy, pads, kh, kw, mode)
         torch.cuda.synchronize()
-        ref = dwgrad.dw_kernel_grad_plain(x, gy, pads, kh, kw)
-        scale = dwgrad.dw_kernel_grad_plain(x.abs(), gy.abs(), pads, kh, kw)
+        ref = dwgrad.dw_kernel_grad_plain(x, gy, pads, kh, kw, mode)
+        scale = dwgrad.dw_kernel_grad_plain(x.abs(), gy.abs(), pads, kh, kw, mode)
         rel = float(((gw - ref).abs() / scale).max())
         err = float((gw - ref).abs().max())
-        again = dwgrad.dw_kernel_grad(x, gy, pads, kh, kw)
+        again = dwgrad.dw_kernel_grad(x, gy, pads, kh, kw, mode)
         # fp32 sums of N*Ho*Wo products in another order: 1e-4 of sum |x*g|
-        line = (f"K2 dw_kernel_grad {name.replace('fwd ', '')}: max_abs_err={err:.3g}, "
+        line = (f"K2 dw_kernel_grad {name}: max_abs_err={err:.3g}, "
                 f"rel to sum|x*g| {rel:.3g} (tol 1e-4), deterministic "
                 f"{bool(torch.equal(gw, again))}")
-        if dtype == torch.bfloat16:
-            kms = time_ms(lambda: dwgrad.dw_kernel_grad(x, gy, pads, kh, kw))
-            pms = time_ms(lambda: dwgrad.dw_kernel_grad_plain(x, gy, pads, kh, kw))
+        if dtype == torch.bfloat16 and N * H * W * C > 1e7:
+            kms = time_ms(lambda: dwgrad.dw_kernel_grad(x, gy, pads, kh, kw, mode), warmup=10)
+            pms = time_ms(lambda: dwgrad.dw_kernel_grad_plain(x, gy, pads, kh, kw, mode), runs=7)
             # cuDNN's weight gradient of the same depthwise convolution
-            xc, gc, pad = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2), pads[0][0]
+            gc = gy.permute(0, 3, 1, 2)
             cms = time_ms(lambda: torch.nn.grad.conv2d_weight(
                 xc, (C, 1, kh, kw), gc, padding=pad, groups=C))
             bms, by = bound(nbytes(x, gy, gw), 2 * kh * kw * gy.numel(), PEAK_FP32)
             line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms, "
-                     f"cuDNN weight gradient {cms:.4f} ms")
-            if name.startswith("fwd enc"):
-                out["dw_kernel_grad"] = result(0.0, kms, pms, bms, by, cms)
+                     f"cuDNN weight gradient alone {cms:.4f} ms")
+            if mode == "reflect":  # what the port ran before: the pad, then cuDNN
+                library = lambda: torch.nn.grad.conv2d_weight(
+                    dwconv.reflect_pad(x).permute(0, 3, 1, 2), (C, 1, kh, kw), gc, groups=C)
+                lrel = float(((library().float() - ref).abs() / scale).max())
+                # cuDNN may sum in bf16-rounded partials: 1e-2 of sum |x*g|
+                check(lrel <= 1e-2, f"K2 {name}: the library composition computes another "
+                                    f"function (rel {lrel:.3g})")
+                lms = time_ms(library)
+                line += f", reflect F.pad + cuDNN weight gradient {lms:.4f} ms"
+                if name.startswith("reflect enc"):
+                    out["dw_kernel_grad"] = result(0.0, kms, pms, bms, by, lms)
         print(line)
         check(rel <= 1e-4, f"K2 {name} disagrees with its plain version")
         check(torch.equal(gw, again), f"K2 {name} is not deterministic")
@@ -671,7 +727,61 @@ def phase4_train(dev, batches):
     print(f"  train step: {ms:.3f} ms median of {TRAIN_STEPS} (min {min(times):.3f}, "
           f"max {max(times):.3f}), {B / ms * 1e3:.2f} sequences/s, peak device memory "
           f"{peak / 2**30:.2f} GiB ({peak} bytes)")
+    profile_train_step(step, state, batches[0], gen)
     return counts
+
+
+# device kernels of a train step by kind: the first fragment found in a
+# kernel's name decides (the hand-written kernels first; a GELU or a copy is
+# an elementwise kernel by name, so they come before it)
+KERNEL_KINDS = (
+    ("reflect pad", ("reflection_pad",)),
+    ("K5 depthwise stencil", ("dw_tile_kernel", "dw_direct_kernel", "dw_adjoint_frame_kernel")),
+    ("K2 depthwise weight gradient", ("dw_grad_",)),
+    ("K1 and K1-bwd", ("att_group_",)),
+    ("GEMMs", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "splitK")),
+    ("reductions", ("reduce_kernel",)),
+    ("GELU", ("gelu", "Gelu")),
+    ("dtype and layout copies", ("copy", "Copy", "CatArray", "Memcpy")),
+    ("Adam (_foreach)", ("multi_tensor_apply",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def profile_train_step(step, state, batch, gen):
+    """One more train step under ``torch.profiler``: fails if a reflect-pad
+    kernel runs, prints the device time by kind."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kinds, others = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kind = next((k for k, frags in KERNEL_KINDS if any(f in e.key for f in frags)), "other")
+        t, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (t + us / 1e3, n + e.count)
+        if kind == "other":
+            others.append((us / 1e3, e.count, e.key[:60]))
+    busy = sum(t for t, _ in kinds.values())
+    check(busy > 0, "the profiler recorded no device time")
+    print(f"  profile of one train step ({host_ms:.1f} ms on the host under the profiler): "
+          f"device busy {busy:.2f} ms in {sum(n for _, n in kinds.values())} kernels")
+    for kind, (t, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {kind}: {t:.3f} ms, {n} launches")
+    print(f"    the largest of 'other': {sorted(others, reverse=True)[:4]}")
+    check("reflect pad" not in kinds, "the train step ran a reflection_pad kernel: "
+          "the differentiated reflect depthwise conv must not pad")
+    check(kinds.get("K5 depthwise stencil", (0, 0))[1] >= 12
+          and kinds.get("K2 depthwise weight gradient", (0, 0))[1] >= 12,
+          f"the profile misses K5 or K2 kernels: {kinds}")
 
 
 def phase5_train_reference(dev):
@@ -729,13 +839,25 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda", 0)
 
+    clock = [time.perf_counter()]
+
+    def took(what):
+        clock.append(time.perf_counter())
+        print(f"[{what} took {clock[-1] - clock[-2]:.1f} s]")
+
     kern = phase1_kernels(dev)
+    took("phase 1")
     cfg, model, batches, evalc = phase2_slice(dev)
+    took("phase 2")
     off = phase3_references(dev, cfg, model, batches[0])
+    took("phase 3")
     scene = phase_scene(dev, cfg, model, off)
+    took("the scene phase")
     del model, off
     train = phase4_train(dev, batches)
+    took("phase 4")
     phase5_train_reference(dev)
+    took("phase 5")
     print(f"launches by path: eval {evalc}; scene {scene}; train {train}")
 
     # launches: the sum over the three paths' runs (eval, scene, train),

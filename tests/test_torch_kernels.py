@@ -135,6 +135,20 @@ def test_att_group_bwd_kernel_matches_plain(cuda, rng, dtype, shape):
     assert ((da.float() - rda.float()).abs() <= tol).all()
 
 
+def _stencil_close(got, ref, dtype):
+    """K5 against its plain version: the same fp32 taps summed in another
+    order with one fused multiply-add each, then one rounding. The fp32
+    sums differ by at most 1e-6 of the largest output (far more than an
+    output's own ulp where its taps cancel); bf16 adds one ulp of each output
+    for the rounding."""
+    assert got.dtype == dtype and got.shape == ref.shape
+    got, ref = got.float(), ref.float()
+    tol = 1e-6 * ref.abs().max()
+    if dtype == torch.bfloat16:
+        tol = tol + _ulp_bf16(ref)
+    assert ((got - ref).abs() <= tol).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C", [256, 20])
@@ -149,8 +163,81 @@ def test_dw_stencil_kernel_matches_plain(cuda, rng, dtype, C, k, pads):
     got = tops.dw_stencil(x, w, pads)
     torch.cuda.synchronize()
     assert tops.dw_stencil.launches == n + 1
-    # the plain version's roundings exactly (fp32 taps in its order, no FMA)
-    assert torch.equal(got, tops.dw_stencil_plain(x, w, pads))
+    ref = tops.dw_stencil_plain(x, w, pads)
+    if (kh, kw) == (3, 3) and C % (8 if dtype == torch.bfloat16 else 4) == 0:
+        # 16-byte channel vectors: the tiled kernel (fmaf, dx-major)
+        _stencil_close(got, ref, dtype)
+    else:  # the direct kernel keeps the plain version's roundings exactly
+        assert torch.equal(got, ref)
+
+
+ONE = ((1, 1), (1, 1))
+# aligned and ragged channel counts (the tiled and the direct kernel), odd
+# sizes, ragged column strips and row bands, and the border-only sizes where
+# every pixel folds: H or W of 2 and 3
+REFLECT_SHAPES = [(2, 37, 70, 256), (2, 37, 70, 20), (3, 16, 33, 72), (1, 2, 2, 8),
+                  (2, 3, 3, 16), (2, 2, 9, 12), (1, 5, 2, 64), (2, 3, 40, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", REFLECT_SHAPES)
+def test_dw_stencil_reflect_kernel_matches_plain(cuda, rng, dtype, shape):
+    N, H, W, C = shape
+    x = _t(rng.standard_normal(shape), cuda, dtype)
+    w = _t(rng.standard_normal((C, 1, 3, 3)), cuda, dtype)
+    n = tops.dw_stencil.launches
+    got = tops.dw_stencil(x, w, ONE, "reflect")
+    torch.cuda.synchronize()
+    assert tops.dw_stencil.launches == n + 1
+    _stencil_close(got, tops.dw_stencil_plain(x, w, ONE, "reflect"), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", REFLECT_SHAPES)
+def test_dw_stencil_reflect_adjoint_kernel_matches_plain(cuda, rng, dtype, shape):
+    N, H, W, C = shape
+    g = _t(rng.standard_normal(shape), cuda, dtype)
+    w = _t(rng.standard_normal((C, 1, 3, 3)), cuda, dtype)
+    n = tops.dw_stencil.launches
+    got = tops.dw_stencil_reflect_adjoint(g, w)
+    torch.cuda.synchronize()
+    assert tops.dw_stencil.launches == n + 1  # the adjoint counts as K5
+    _stencil_close(got, tops.dw_stencil_reflect_adjoint_plain(g, w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", REFLECT_SHAPES)
+def test_dw_kernel_grad_reflect_kernel_matches_plain(cuda, rng, dtype, shape):
+    N, H, W, C = shape
+    x = _t(rng.standard_normal(shape), cuda, dtype)
+    g = _t(rng.standard_normal(shape), cuda, dtype)
+    n = tops.dw_kernel_grad.launches
+    got = tops.dw_kernel_grad(x, g, ONE, 3, 3, "reflect")
+    torch.cuda.synchronize()
+    assert tops.dw_kernel_grad.launches == n + 1
+    ref = tops.dw_kernel_grad_plain(x, g, ONE, 3, 3, "reflect")
+    scale = tops.dw_kernel_grad_plain(x.abs(), g.abs(), ONE, 3, 3, "reflect")
+    # fp32 sums of N*H*W products in another order: relative to sum |x*g|
+    assert ((got - ref).abs() / scale).max() <= 1e-5
+    assert torch.equal(got, tops.dw_kernel_grad(x, g, ONE, 3, 3, "reflect"))  # deterministic
+
+
+@pytest.mark.cuda
+def test_dw_reflect_kernels_reject_bad_input(cuda):
+    """On the card too: reflect mode takes 3x3 on a map of at least 2x2."""
+    w = torch.zeros(8, 1, 3, 3, device=cuda)
+    bad = torch.zeros(1, 1, 6, 8, device=cuda)
+    with pytest.raises(ValueError, match="H, W >= 2"):
+        tops.dw_stencil(bad, w, ONE, "reflect")
+    with pytest.raises(ValueError, match="H, W >= 2"):
+        tops.dw_stencil_reflect_adjoint(bad, w)
+    with pytest.raises(ValueError, match="3x3"):
+        tops.dw_kernel_grad(torch.zeros(1, 6, 6, 8, device=cuda),
+                            torch.zeros(1, 6, 6, 8, device=cuda), ((1, 1), (0, 0)), 3, 1,
+                            "reflect")
 
 
 @pytest.mark.cuda
@@ -177,21 +264,53 @@ def test_dw_kernel_grad_kernel_matches_plain(cuda, rng, dtype, C, k, pads):
 
 
 @pytest.mark.cuda
-def test_depthwise_function_on_card_matches_cpu(cuda, rng):
-    """The depthwise Function (K5 forward, K5 input gradient, K2 weight
-    gradient) on the card against the same Function on the CPU (the
-    kernels' plain versions), fp32."""
+@pytest.mark.parametrize("mode,hw", [("zeros", (18, 20)), ("reflect", (18, 20)),
+                                     ("reflect", (3, 5)), ("reflect", (2, 2))])
+def test_depthwise_function_on_card_matches_cpu(cuda, rng, mode, hw):
+    """The depthwise Function (K5 forward, K5 input gradient or folded
+    adjoint, K2 weight gradient) on the card against the same Function on
+    the CPU (the kernels' plain versions), fp32."""
     from uncrtaints_tpu_torch.models.layers import DepthwiseConv2d
-    x = rng.standard_normal((2, 18, 20, 64)).astype(np.float32)
+    pads = ONE if mode == "reflect" else ((0, 0), (0, 0))
+    H, W = hw
+    x = rng.standard_normal((2, H, W, 64)).astype(np.float32)
     w = rng.standard_normal((64, 1, 3, 3)).astype(np.float32)
-    cot = rng.standard_normal((2, 16, 18, 64)).astype(np.float32)
+    cot = rng.standard_normal((2, H + 2 * pads[0][0] - 2, W + 2 * pads[0][0] - 2, 64)).astype(
+        np.float32)
     out = {}
     for dev in (torch.device("cpu"), cuda):
         tx, tw = _t(x, dev).requires_grad_(), _t(w, dev).requires_grad_()
-        y = DepthwiseConv2d.apply(tx, tw, ((0, 0), (0, 0)))
+        n5, n2 = tops.dw_stencil.launches, tops.dw_kernel_grad.launches
+        y = DepthwiseConv2d.apply(tx, tw, pads, mode)
         (y * _t(cot, dev)).sum().backward()
+        launched = (tops.dw_stencil.launches - n5, tops.dw_kernel_grad.launches - n2)
+        assert launched == ((2, 1) if dev.type == "cuda" else (0, 0))
         out[dev.type] = [t.detach().cpu() for t in (y, tx.grad, tw.grad)]
     for got, ref in zip(out["cuda"], out["cpu"]):
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_reflect_conv2d_on_card_does_not_pad(cuda, rng):
+    """The differentiated reflect depthwise Conv2d on the card: one K5
+    forward, one K5 adjoint and one K2, the gradients of the explicit pad +
+    F.conv2d route, and no pad node in its graph."""
+    import torch.nn.functional as F
+    from uncrtaints_tpu_torch.models.layers import Conv2d
+    torch.backends.cudnn.allow_tf32 = False
+    tm = Conv2d(32, 32, kernel=3, pad=1, groups=32, bias=True).to(cuda)
+    x = _t(rng.standard_normal((2, 9, 11, 32)), cuda).requires_grad_()
+    cot = _t(rng.standard_normal((2, 9, 11, 32)), cuda)
+    n5, n2 = tops.dw_stencil.launches, tops.dw_kernel_grad.launches
+    y = tm(x)
+    (y * cot).sum().backward()
+    assert (tops.dw_stencil.launches - n5, tops.dw_kernel_grad.launches - n2) == (2, 1)
+    x2 = x.detach().clone().requires_grad_()
+    w2 = tm.weight.detach().clone().requires_grad_()
+    xp = F.pad(x2.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    y2 = F.conv2d(xp, w2, tm.bias.detach(), groups=32).permute(0, 2, 3, 1)
+    (y2 * cot).sum().backward()
+    for got, ref in ((y, y2), (x.grad, x2.grad), (tm.weight.grad, w2.grad)):
         assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 

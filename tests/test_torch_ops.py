@@ -236,6 +236,100 @@ def test_dw_kernel_grad_wrapper_rejects_bad_input():
     assert gw.shape == (8, 1, 3, 3) and tops.dw_kernel_grad.launches == n
 
 
+REFLECT_SIZES = [(8, 8), (7, 10), (3, 5), (2, 2)]
+ONE = ((1, 1), (1, 1))
+
+
+@pytest.mark.parametrize("hw", REFLECT_SIZES)
+def test_dw_stencil_plain_reflect_matches_jax_conv2d(rng, hw):
+    """dw_stencil(mode="reflect") on the unpadded input against the value of
+    the JAX Conv2d(groups=C, padding_mode="reflect")."""
+    import jax
+    from uncrtaints_tpu.models import layers as jl
+    C = 16
+    x = rng.standard_normal((2, *hw, C)).astype(np.float32)
+    jm = jl.Conv2d(C, kernel=3, pad=1, padding_mode="reflect", use_bias=False, groups=C)
+    v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    ref = np.asarray(jm.apply(v, jnp.asarray(x)))
+    w = _t(np.transpose(np.asarray(v["params"]["kernel"]), (3, 2, 0, 1))).contiguous()
+    got = tops.dw_stencil(_t(x), w, ONE, "reflect")
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(_np(got), ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+    # the plain version is the explicit pad followed by the zero-mode VALID sum
+    xp = torch.nn.functional.pad(_t(x).permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    valid = tops.dw_stencil(xp.permute(0, 2, 3, 1).contiguous(), w, ((0, 0), (0, 0)))
+    assert torch.equal(got, valid)
+
+
+@pytest.mark.parametrize("hw", REFLECT_SIZES + [(3, 3), (2, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dw_stencil_reflect_adjoint_plain_is_the_adjoint(rng, hw, dtype):
+    """<dw_stencil(x, reflect), g> = <x, adjoint(g)> through torch autograd of
+    an explicit reflect pad and F.conv2d: the folded adjoint's plain version
+    returns exactly that input gradient (fp32: 1e-6 of its largest value;
+    bf16: one rounding of it, within one ulp)."""
+    C = 12
+    td = getattr(torch, dtype)
+    g = _t(rng.standard_normal((2, *hw, C))).to(td)
+    w = _t(rng.standard_normal((C, 1, 3, 3))).to(td)
+    got = tops.dw_stencil_reflect_adjoint(g, w)
+    assert got.dtype == td and got.shape == g.shape
+    x = torch.zeros(2, *hw, C, requires_grad=True)
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    y = torch.nn.functional.conv2d(xp, w.float(), groups=C).permute(0, 2, 3, 1)
+    (ref,) = torch.autograd.grad(y, x, g.float())
+    if dtype == "float32":
+        assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+    else:
+        assert (np.abs(_np(got) - _np(ref)) <= _ulp_bf16(_np(ref))).all()
+
+
+def test_dw_reflect_wrappers_reject_bad_input():
+    """Reflect mode takes a 3x3 kernel with pads of one on a map of at least
+    2x2, in the forward, the adjoint and the weight gradient."""
+    w = torch.zeros(8, 1, 3, 3)
+    x = torch.zeros(1, 6, 6, 8)
+    for bad in (torch.zeros(1, 1, 6, 8), torch.zeros(1, 6, 1, 8)):
+        with pytest.raises(ValueError, match="H, W >= 2"):
+            tops.dw_stencil(bad, w, ONE, "reflect")
+        with pytest.raises(ValueError, match="H, W >= 2"):
+            tops.dw_stencil_reflect_adjoint(bad, w)
+        with pytest.raises(ValueError, match="H, W >= 2"):
+            tops.dw_kernel_grad(bad, bad, ONE, 3, 3, "reflect")
+    with pytest.raises(ValueError, match="3x3"):
+        tops.dw_stencil(x, torch.zeros(8, 1, 1, 3), ((0, 0), (1, 1)), "reflect")
+    with pytest.raises(ValueError, match="3x3"):
+        tops.dw_stencil_reflect_adjoint(x, torch.zeros(8, 1, 3, 1))
+    with pytest.raises(ValueError, match="3x3"):
+        tops.dw_kernel_grad(x, x, ((1, 1), (0, 0)), 3, 1, "reflect")
+    with pytest.raises(ValueError, match="pads"):
+        tops.dw_stencil(x, w, ((0, 0), (0, 0)), "reflect")
+    with pytest.raises(ValueError, match="pads"):
+        tops.dw_kernel_grad(x, torch.zeros(1, 4, 4, 8), ((0, 0), (0, 0)), 3, 3, "reflect")
+    with pytest.raises(ValueError, match="mode"):
+        tops.dw_stencil(x, w, ONE, "replicate")
+    with pytest.raises(ValueError, match="mode"):
+        tops.dw_kernel_grad(x, x, ONE, 3, 3, "circular")
+    n5, n2 = tops.dw_stencil.launches, tops.dw_kernel_grad.launches
+    assert tops.dw_stencil(x, w, ONE, "reflect").shape == x.shape     # CPU: plain
+    assert tops.dw_stencil_reflect_adjoint(x, w).shape == x.shape
+    assert tops.dw_kernel_grad(x, x, ONE, 3, 3, "reflect").shape == (8, 1, 3, 3)
+    assert (tops.dw_stencil.launches, tops.dw_kernel_grad.launches) == (n5, n2)
+
+
+@pytest.mark.parametrize("hw", REFLECT_SIZES)
+def test_dw_kernel_grad_plain_reflect_matches_padded_zero_mode(rng, hw):
+    """dw_kernel_grad(mode="reflect") on the unpadded x equals the zero-mode
+    VALID gradient on the explicitly reflect-padded x."""
+    C = 12
+    x = _t(rng.standard_normal((2, *hw, C)).astype(np.float32))
+    g = _t(rng.standard_normal((2, *hw, C)).astype(np.float32))
+    got = tops.dw_kernel_grad(x, g, ONE, 3, 3, "reflect")
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    ref = tops.dw_kernel_grad(xp.permute(0, 2, 3, 1).contiguous(), g, ((0, 0), (0, 0)), 3, 3)
+    assert got.shape == (C, 1, 3, 3) and torch.equal(got, ref)
+
+
 # ------------------------------------------------------------------ K3 --
 
 def _group_stats(x, G):

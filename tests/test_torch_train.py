@@ -122,16 +122,77 @@ def test_reflect_depthwise_conv2d_grads_match_jax(rng, hw):
                   np.transpose(np.asarray(gp["kernel"]), (3, 2, 0, 1)), 1e-6)
 
 
+def _graph_nodes(fn):
+    """Names of every node of the autograd graph below ``fn``."""
+    seen, stack, names = set(), [fn], []
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.append(type(node).__name__)
+        stack.extend(n for n, _ in node.next_functions)
+    return names
+
+
 def test_depthwise_routing(rng):
     """Differentiated depthwise convs go through DepthwiseConv2d; no-grad
-    ones (the eval path) and grouped non-depthwise ones stay F.conv2d."""
+    ones (the eval path) and grouped non-depthwise ones stay F.conv2d. The
+    differentiated 3x3 reflect conv makes no padded tensor: its graph holds
+    no pad node, other padding modes and the non-depthwise conv still pad."""
     tm = tl.Conv2d(8, 8, kernel=3, pad=1, groups=8, bias=False)
     x = _t(rng.standard_normal((1, 5, 5, 8)))
-    assert "DepthwiseConv2d" in type(tm(x).grad_fn).__name__
+    y = tm(x)
+    assert "DepthwiseConv2d" in type(y.grad_fn).__name__
+    assert y.grad_fn.mode == "reflect"
+    assert not [n for n in _graph_nodes(y.grad_fn) if "Pad" in n]
+    assert not [n for n in _graph_nodes(tm(x.clone().requires_grad_()).grad_fn) if "Pad" in n]
     with torch.no_grad():
         assert tm(x).grad_fn is None
     grouped = tl.Conv2d(8, 8, kernel=3, pad=1, groups=4, bias=False)
+    nodes = _graph_nodes(grouped(x.clone().requires_grad_()).grad_fn)
     assert "DepthwiseConv2d" not in type(grouped(x).grad_fn).__name__
+    assert [n for n in nodes if "Pad" in n]
+    other = tl.Conv2d(8, 8, kernel=3, pad=1, groups=8, bias=False, padding_mode="replicate")
+    yo = other(x.clone().requires_grad_())
+    assert "DepthwiseConv2d" in type(yo.grad_fn).__name__ and yo.grad_fn.mode == "zeros"
+    assert [n for n in _graph_nodes(yo.grad_fn) if "Pad" in n]
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (7, 10), (3, 5), (2, 2)])
+def test_reflect_depthwise_function_matches_jax_and_autograd(rng, hw):
+    """DepthwiseConv2d in reflect mode (the plain versions of K5 forward, the
+    folded adjoint and K2 on the unpadded x): value, gx and gw against
+    jax.grad of the JAX package's fused reflect conv _dw_reflect3x3 and
+    against torch autograd through an explicit F.pad and F.conv2d."""
+    import torch.nn.functional as F
+    from uncrtaints_tpu.models import layers as jl
+    C = 16
+    x = rng.standard_normal((2, *hw, C)).astype(np.float32)
+    w = rng.standard_normal((3, 3, 1, C)).astype(np.float32)          # HWIO
+    cot = rng.standard_normal((2, *hw, C)).astype(np.float32)
+
+    def f(x_, w_):
+        y = jl._dw_reflect3x3(x_, w_)
+        return (y * cot).sum(), y
+
+    (_, ref), (rgx, rgw) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(w))
+    wt = np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))           # [C,1,3,3]
+    tx, tw = _t(x).requires_grad_(), _t(wt).requires_grad_()
+    y = tl.DepthwiseConv2d.apply(tx, tw, ((1, 1), (1, 1)), "reflect")
+    (y * _t(cot)).sum().backward()
+    _close_to_max(_np(y), ref, 1e-6)
+    _close_to_max(_np(tx.grad), rgx, 1e-6)
+    _close_to_max(_np(tw.grad), np.transpose(np.asarray(rgw), (3, 2, 0, 1)), 1e-6)
+
+    ax, aw = _t(x).requires_grad_(), _t(wt).requires_grad_()
+    xp = F.pad(ax.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    ay = F.conv2d(xp, aw, groups=C).permute(0, 2, 3, 1)
+    (ay * _t(cot)).sum().backward()
+    _close_to_max(_np(y), _np(ay), 1e-6)
+    _close_to_max(_np(tx.grad), _np(ax.grad), 1e-6)
+    _close_to_max(_np(tw.grad), _np(aw.grad), 1e-6)
 
 
 # ------------------------------------------------------ module gradients --

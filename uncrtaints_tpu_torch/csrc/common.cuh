@@ -1,6 +1,6 @@
 // Helpers shared by the port's kernels: dtype codes, 16-byte vector loads
-// and stores with fp32 conversion, raw vectors, the depthwise geometry, the
-// exact (erf) GELU, and the second pass of the per-group output statistics.
+// and stores with fp32 conversion, raw vectors, the depthwise geometry and
+// border modes, the exact (erf) GELU, and the second pass of the per-group output statistics.
 #pragma once
 
 #include <cstdint>
@@ -80,19 +80,40 @@ __device__ __forceinline__ RawVec<T, VEC> zero_raw() {
   return r;
 }
 
+// Border modes of the depthwise kernels K5 and K2 (the codes the Python
+// wrappers pass): zero pads; torch's reflect pad of one pixel around a 3x3
+// kernel, taken as mirrored indices on the unpadded input; and, for K5 only,
+// the adjoint of that reflect correlation (the input gradient with the pad's
+// fold inside).
+enum DwMode : int { kZeros = 0, kReflect = 1, kReflectAdjoint = 2 };
+
 // Geometry of a stride-1 depthwise correlation over NHWC maps: input
-// [N,H,W,C], output [N,Ho,Wo,C], top/left zero pads pt/pl.
+// [N,H,W,C], output [N,Ho,Wo,C], top/left pads pt/pl (zeros, or mirrored
+// pixels in kReflect, where pt = pl = 1 and Ho = H, Wo = W).
 struct DwGeo {
-  int N, H, W, C, Ho, Wo, pt, pl;
+  int N, H, W, C, Ho, Wo, pt, pl, mode;
 };
 
-// the VEC channels at (n, r, s, ch) of the input, zeros outside it (the
-// zero padding as a bounds check, no padded copy)
+// torch's reflect index for a pad of one (-1 -> 1, n -> n-2), clamped into
+// [0, n) so that rows past a ragged tile still name a valid row
+__device__ __forceinline__ int dw_mirror(int i, int n) {
+  i = i < 0 ? -i : i;
+  i = i >= n ? 2 * n - 2 - i : i;
+  return min(max(i, 0), n - 1);
+}
+
+// the VEC channels at (n, r, s, ch) of the input: in kReflect the mirrored
+// pixel, else zeros outside the map (the padding as an index rule or a
+// bounds check, no padded copy)
 template <typename T, int VEC>
-__device__ __forceinline__ RawVec<T, VEC> dw_load_or_zero(const T* __restrict__ x,
-                                                          const DwGeo& g, int n, int r, int s,
-                                                          int ch) {
-  if (r < 0 || r >= g.H || s < 0 || s >= g.W) return zero_raw<T, VEC>();
+__device__ __forceinline__ RawVec<T, VEC> dw_load(const T* __restrict__ x, const DwGeo& g, int n,
+                                                  int r, int s, int ch) {
+  if (g.mode == kReflect) {
+    r = dw_mirror(r, g.H);
+    s = dw_mirror(s, g.W);
+  } else if (r < 0 || r >= g.H || s < 0 || s >= g.W) {
+    return zero_raw<T, VEC>();
+  }
   return load_raw<T, VEC>(x + ((static_cast<long long>(n) * g.H + r) * g.W + s) * g.C + ch);
 }
 

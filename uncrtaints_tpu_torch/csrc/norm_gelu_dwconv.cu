@@ -62,12 +62,6 @@ struct Args {
   int nseg, nrb;  // column segments per row, row blocks
 };
 
-__device__ __forceinline__ int reflect(int i, int n) {
-  i = i < 0 ? -i : i;
-  i = i >= n ? 2 * n - 2 - i : i;
-  return min(max(i, 0), n - 1);  // rows past a ragged row block: any valid row
-}
-
 template <typename T, int VEC>
 __global__ void __launch_bounds__(TX * TY) ngd_kernel(Args a) {
   __shared__ float red_s[TY][VEC * TX], red_q[TY][VEC * TX];
@@ -99,7 +93,7 @@ __global__ void __launch_bounds__(TX * TY) ngd_kernel(Args a) {
     const T* rows[TR + 2];
 #pragma unroll
     for (int j = 0; j < TR + 2; ++j)
-      rows[j] = x + (static_cast<long long>(n) * a.H + reflect(r0 - 1 + j, a.H)) * a.W * a.C + ch;
+      rows[j] = x + (static_cast<long long>(n) * a.H + dw_mirror(r0 - 1 + j, a.H)) * a.W * a.C + ch;
 
     // accumulators of output columns ci+1 (A), ci (B), ci-1 (C)
     float accA[TR][VEC], accB[TR][VEC], accC[TR][VEC];
@@ -109,7 +103,7 @@ __global__ void __launch_bounds__(TX * TY) ngd_kernel(Args a) {
       for (int e = 0; e < VEC; ++e) accB[i][e] = accC[i][e] = 0.0f;
 
     for (int ci = w0 - 1; ci <= w1; ++ci) {
-      const long long off = static_cast<long long>(reflect(ci, a.W)) * a.C;
+      const long long off = static_cast<long long>(dw_mirror(ci, a.W)) * a.C;
       RawVec<T, VEC> raw[TR + 2];
 #pragma unroll
       for (int j = 0; j < TR + 2; ++j) raw[j] = load_raw<T, VEC>(rows[j] + off);

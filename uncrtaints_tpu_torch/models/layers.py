@@ -24,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from uncrtaints_tpu_torch.ops.dwconv import Pads, dw_stencil
+from uncrtaints_tpu_torch.ops.dwconv import (
+    Pads, dw_stencil, dw_stencil_reflect_adjoint)
 from uncrtaints_tpu_torch.ops.dwgrad import dw_kernel_grad
 
 _PAD_MODES = ("reflect", "replicate", "circular")  # F.pad modes
@@ -68,23 +69,31 @@ class Conv1d(nn.Conv1d):
 
 
 class DepthwiseConv2d(torch.autograd.Function):
-    """Depthwise stride-1 zero-padded correlation of NHWC x with w
-    [C,1,kh,kw], differentiable through hand-written kernels (the math of
-    the JAX package's _dw_conv_valid VJP, layers.py:349-389):
+    """Depthwise stride-1 correlation of NHWC x with w [C,1,kh,kw],
+    differentiable through hand-written kernels.
 
-    - forward: K5 (:func:`dw_stencil`) with ``pads``;
+    ``mode="zeros"`` (the math of the JAX package's _dw_conv_valid VJP,
+    layers.py:349-389):
+
+    - forward: K5 (:func:`dw_stencil`) with the zero ``pads``;
     - gx: K5 on the output gradient with the flipped kernel and the
       complementary pads (kh-1-top, kh-1-bottom), (kw-1-left, kw-1-right):
       the FULL pads for a VALID forward;
     - gw: K2 (:func:`dw_kernel_grad`), fp32, cast to w's dtype.
 
+    ``mode="reflect"`` (3x3, ``pads`` of one, the unpadded x; the JAX
+    package's _dw_reflect3x3, layers.py:477): the reflect conv as one op.
+    The forward and K2 mirror their indices at the border and gx is the
+    folded adjoint (:func:`dw_stencil_reflect_adjoint`), so neither pass
+    makes or saves a padded tensor.
+
     CPU tensors run the kernels' plain versions."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor, pads: Pads):
-        ctx.pads = pads
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, pads: Pads, mode: str = "zeros"):
+        ctx.pads, ctx.mode = pads, mode
         ctx.save_for_backward(x, w)
-        return dw_stencil(x, w, pads)
+        return dw_stencil(x, w, pads, mode)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -94,11 +103,14 @@ class DepthwiseConv2d(torch.autograd.Function):
         g = g.contiguous()
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = dw_stencil(g, w.flip((-2, -1)).contiguous(),
-                            ((kh - 1 - pt, kh - 1 - pb), (kw - 1 - pl, kw - 1 - pr)))
+            if ctx.mode == "reflect":
+                gx = dw_stencil_reflect_adjoint(g, w)
+            else:
+                gx = dw_stencil(g, w.flip((-2, -1)).contiguous(),
+                                ((kh - 1 - pt, kh - 1 - pb), (kw - 1 - pl, kw - 1 - pr)))
         if ctx.needs_input_grad[1]:
-            gw = dw_kernel_grad(x, g, ctx.pads, kh, kw).to(w.dtype)
-        return gx, gw, None
+            gw = dw_kernel_grad(x, g, ctx.pads, kh, kw, ctx.mode).to(w.dtype)
+        return gx, gw, None, None
 
 
 class Conv2d(nn.Module):
@@ -110,8 +122,9 @@ class Conv2d(nn.Module):
 
     A depthwise stride-1 convolution that is differentiated (grad enabled,
     an input requires grad) runs through :class:`DepthwiseConv2d`, i.e. the
-    hand-written kernels K5 and K2; otherwise (eval) it stays
-    ``F.conv2d``, as the JAX eval primal keeps ``lax.conv``."""
+    hand-written kernels K5 and K2; a 3x3 one with a reflect pad of one
+    goes through them unpadded (``mode="reflect"``). Otherwise (eval) it
+    stays ``F.conv2d``, as the JAX eval primal keeps ``lax.conv``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  stride: int = 1, pad: int = 1, padding_mode: str = "reflect",
@@ -150,7 +163,15 @@ class Conv2d(nn.Module):
             b = fold_bias if b is None else b + fold_bias
         w = w.to(x.dtype)
         pad = self.pad
-        if pad and self.padding_mode != "zeros":
+        depthwise = (self.stride == 1 and self.groups > 1
+                     and w.shape[0] == self.groups == x.shape[-1])
+        differentiated = (depthwise and torch.is_grad_enabled()
+                          and (x.requires_grad or w.requires_grad))
+        # a 3x3 reflect conv is one op there: mirrored indices in the kernels,
+        # the pad's adjoint folded into gx, no padded tensor either way
+        folded = (differentiated and self.padding_mode == "reflect" and pad == 1
+                  and w.shape[-2:] == (3, 3) and min(x.shape[1:3]) >= 2)
+        if pad and self.padding_mode != "zeros" and not folded:
             # pad H and W of the NHWC tensor as the last-but-channel dims of
             # a 5-D view: one pass that keeps NHWC memory (the 2-D pad of
             # the channels_last view converts to NCHW and back, measured as
@@ -158,12 +179,10 @@ class Conv2d(nn.Module):
             x = F.pad(x.unsqueeze(1), (0, 0, pad, pad, pad, pad),
                       mode=self.padding_mode).squeeze(1)
             pad = 0
-        depthwise = (self.stride == 1 and self.groups > 1
-                     and w.shape[0] == self.groups == x.shape[-1])
-        if (depthwise and torch.is_grad_enabled()
-                and (x.requires_grad or w.requires_grad)):
+        if differentiated:
             y = DepthwiseConv2d.apply(x.contiguous(), w.contiguous(),
-                                      ((pad, pad), (pad, pad)))
+                                      ((pad, pad), (pad, pad)),
+                                      "reflect" if folded else "zeros")
         else:
             y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
                          padding=pad, groups=self.groups).permute(0, 2, 3, 1)

@@ -4,7 +4,9 @@ versions) and the plain-PyTorch ops around them."""
 from uncrtaints_tpu_torch.ops.aggregate import (  # noqa: F401
     att_group_aggregate, att_group_aggregate_bwd, att_group_aggregate_bwd_plain,
     att_group_aggregate_plain)
-from uncrtaints_tpu_torch.ops.dwconv import dw_stencil, dw_stencil_plain  # noqa: F401
+from uncrtaints_tpu_torch.ops.dwconv import (  # noqa: F401
+    dw_stencil, dw_stencil_plain, dw_stencil_reflect_adjoint,
+    dw_stencil_reflect_adjoint_plain)
 from uncrtaints_tpu_torch.ops.dwgrad import (  # noqa: F401
     dw_kernel_grad, dw_kernel_grad_plain)
 from uncrtaints_tpu_torch.ops.mbconv import (  # noqa: F401

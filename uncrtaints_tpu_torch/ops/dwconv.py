@@ -1,12 +1,19 @@
-"""Depthwise stride-1 correlation with zero padding, kernel K5.
+"""Depthwise stride-1 correlation, kernel K5, with three border rules.
 
-    out[n,ho,wo,c] = sum_{dy,dx} xpad[n, ho+dy, wo+dx, c] * w[c, 0, dy, dx]
+    zeros:    out[n,ho,wo,c] = sum_{dy,dx} xpad[n, ho+dy, wo+dx, c] * w[c, 0, dy, dx]
+    reflect:  out[n,h,w,c]   = sum_{dy,dx} x[n, m(h+dy-1), m(w+dx-1), c] * w[c, 0, dy, dx]
 
 over NHWC maps, xpad being x zero-padded by ``pads = ((top, bottom), (left,
-right))``. The taps are summed in fp32 in the order of the JAX package's
-shift-add form (uncrtaints_tpu/models/layers.py:_dw_shift_add: dy-major,
-dx-minor) and rounded once to x's dtype. Port of
-uncrtaints_tpu/ops/pallas_dwconv.py:dw_stencil; the CUDA kernel is
+right))`` and m torch's reflect index for a pad of one (m(-1) = 1, m(L) =
+L-2; 3x3 kernels, H, W >= 2). The taps are summed in fp32 and rounded once to
+x's dtype; the plain versions sum in the order of the JAX package's shift-add
+form (uncrtaints_tpu/models/layers.py:_dw_shift_add: dy-major, dx-minor).
+The third rule is the adjoint of the reflect correlation
+(:func:`dw_stencil_reflect_adjoint`): its input gradient with the pad's fold
+inside, so that no padded tensor exists on the way forward or back, as in
+the JAX package's fused VJP (layers.py:_dw_reflect3x3).
+
+Port of uncrtaints_tpu/ops/pallas_dwconv.py:dw_stencil; the CUDA kernel is
 csrc/dwconv.cu. The train step runs it for the differentiated depthwise
 forward and its input gradient (models/layers.py:DepthwiseConv2d).
 
@@ -42,19 +49,56 @@ def zero_pad(x: torch.Tensor, pads: Pads) -> torch.Tensor:
     return F.pad(x, (0, 0, pl, pr, pt, pb))
 
 
-def dw_stencil_plain(x: torch.Tensor, w: torch.Tensor, pads: Pads) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: pad, then kh*kw shifted
-    fp32 multiply-adds (the shift-add form)."""
-    N, H, W, C = x.shape
+# the border rules and their codes in csrc/common.cuh (DwMode)
+MODES = {"zeros": 0, "reflect": 1}
+_REFLECT_ADJOINT = 2
+_PADS_ONE: Pads = ((1, 1), (1, 1))
+
+
+def reflect_pad(x: torch.Tensor) -> torch.Tensor:
+    """Reflect-pad H and W of an NHWC tensor by one pixel (as the
+    last-but-channel dims of a 5-D view, which keeps NHWC memory)."""
+    return F.pad(x.unsqueeze(1), (0, 0, 1, 1, 1, 1), mode="reflect").squeeze(1)
+
+
+def _shift_add_f32(xp: torch.Tensor, w: torch.Tensor, Ho: int, Wo: int) -> torch.Tensor:
+    """The kh*kw shifted fp32 multiply-adds of padded xp with w [C,1,kh,kw],
+    dy-major, dx-minor; fp32, not yet rounded."""
     kh, kw = w.shape[-2:]
-    Ho, Wo = out_hw(H, W, kh, kw, pads)
-    xp = zero_pad(x, pads)
-    w32 = w.float().reshape(C, kh, kw)
-    acc = torch.zeros((N, Ho, Wo, C), dtype=torch.float32, device=x.device)
+    w32 = w.float().reshape(-1, kh, kw)
+    acc = torch.zeros((xp.shape[0], Ho, Wo, xp.shape[-1]), dtype=torch.float32,
+                      device=xp.device)
     for dy in range(kh):
         for dx in range(kw):
             acc = acc + xp[:, dy:dy + Ho, dx:dx + Wo].float() * w32[:, dy, dx]
-    return acc.to(x.dtype)
+    return acc
+
+
+def dw_stencil_plain(x: torch.Tensor, w: torch.Tensor, pads: Pads,
+                     mode: str = "zeros") -> torch.Tensor:
+    """The plain PyTorch version of the kernel: pad (zeros by ``pads``, or a
+    reflect pad of one), then kh*kw shifted fp32 multiply-adds (the
+    shift-add form)."""
+    N, H, W, C = x.shape
+    kh, kw = w.shape[-2:]
+    Ho, Wo = out_hw(H, W, kh, kw, pads)
+    xp = reflect_pad(x) if mode == "reflect" else zero_pad(x, pads)
+    return _shift_add_f32(xp, w, Ho, Wo).to(x.dtype)
+
+
+def dw_stencil_reflect_adjoint_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the folded adjoint: the FULL zero-pad
+    shift-add of g with the flipped kernel gives the gradient of the padded
+    input [N,H+2,W+2,C]; the pad's adjoint folds its ring onto rows and
+    columns 1 and -2. All in fp32, rounded once."""
+    N, H, W, C = g.shape
+    full = _shift_add_f32(zero_pad(g, ((2, 2), (2, 2))), w.flip((-2, -1)), H + 2, W + 2)
+    full[:, 2] += full[:, 0]        # padded row 0 mirrors x row 1
+    full[:, -3] += full[:, -1]      # padded row H+1 mirrors x row H-2
+    full = full[:, 1:-1]
+    full[:, :, 2] += full[:, :, 0]
+    full[:, :, -3] += full[:, :, -1]
+    return full[:, :, 1:-1].to(g.dtype).contiguous()
 
 
 def check_pads(name: str, x: torch.Tensor, kh: int, kw: int, pads: Pads) -> None:
@@ -67,34 +111,41 @@ def check_pads(name: str, x: torch.Tensor, kh: int, kw: int, pads: Pads) -> None
                          f"no output of x {tuple(x.shape)}")
 
 
-def dw_stencil(x: torch.Tensor, w: torch.Tensor, pads: Pads) -> torch.Tensor:
-    """x [N,H,W,C], w [C,1,kh,kw] (contiguous, one dtype: fp32 or bf16) ->
-    [N,Ho,Wo,C] in x's dtype.
+def check_mode(name: str, x: torch.Tensor, kh: int, kw: int, pads: Pads,
+               mode: str) -> None:
+    """Raise unless ``mode`` is a border rule and, for reflect, the kernel is
+    3x3 with pads of one on a map of at least 2x2."""
+    if mode not in MODES:
+        raise ValueError(f"{name}: mode must be one of {list(MODES)}, got {mode!r}")
+    if mode != "reflect":
+        return
+    if (kh, kw) != (3, 3) or tuple(map(tuple, pads)) != _PADS_ONE:
+        raise ValueError(f"{name}: reflect mode takes a 3x3 kernel with pads "
+                         f"{_PADS_ONE}, got {kh}x{kw} with pads {pads}")
+    if x.shape[1] < 2 or x.shape[2] < 2:
+        raise ValueError(f"{name}: the reflect border needs H, W >= 2, got "
+                         f"{x.shape[1]}x{x.shape[2]}")
 
-    A CUDA tensor launches the CUDA kernel, which takes the kernel sizes in
-    ``KERNEL_SIZES`` (anything else raises); a CPU tensor runs
-    :func:`dw_stencil_plain`. ``dw_stencil.launches`` counts the kernel
-    launches."""
+
+def _check_operands(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dim() != 4 or w.dim() != 4 or w.shape[:2] != (x.shape[-1], 1):
-        raise ValueError(f"dw_stencil: x [N,H,W,C] and w [C,1,kh,kw] expected, "
+        raise ValueError(f"{name}: x [N,H,W,C] and w [C,1,kh,kw] expected, "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
     if x.dtype not in _build.DTYPE_CODES or w.dtype != x.dtype:
-        raise TypeError(f"dw_stencil: x and w must share a dtype in "
+        raise TypeError(f"{name}: x and w must share a dtype in "
                         f"{list(_build.DTYPE_CODES)}, got {x.dtype}, {w.dtype}")
     if x.device != w.device:
-        raise ValueError(f"dw_stencil: x on {x.device}, w on {w.device}")
+        raise ValueError(f"{name}: x on {x.device}, w on {w.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("dw_stencil: x and w must be contiguous")
+        raise ValueError(f"{name}: x and w must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, pads: Pads, mode_code: int) -> torch.Tensor:
+    """One launch of the CUDA kernel; counted in ``dw_stencil.launches``."""
     N, H, W, C = x.shape
     kh, kw = w.shape[-2:]
-    check_pads("dw_stencil", x, kh, kw, pads)
-    if x.device.type == "cpu":
-        return dw_stencil_plain(x, w, pads)
-    if x.device.type != "cuda":
-        raise ValueError(f"dw_stencil: unsupported device {x.device}")
-    if (kh, kw) not in KERNEL_SIZES:
-        raise ValueError(f"dw_stencil kernel takes kernel sizes {KERNEL_SIZES}, "
-                         f"got {(kh, kw)}")
     Ho, Wo = out_hw(H, W, kh, kw, pads)
     out = torch.empty((N, Ho, Wo, C), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
@@ -103,14 +154,57 @@ def dw_stencil(x: torch.Tensor, w: torch.Tensor, pads: Pads) -> torch.Tensor:
     ci = ctypes.c_int
     fn = _build.kernel("uncr_dw_stencil", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ci, ci, ci, ci, ci,
-        ci, ci, ci, ci, ci, ci, ctypes.c_void_p])
+        ci, ci, ci, ci, ci, ci, ci, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C, kh, kw,
-                 pt, pb, pl, pr, _build.DTYPE_CODES[x.dtype],
+                 pt, pb, pl, pr, mode_code, _build.DTYPE_CODES[x.dtype],
                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "uncr_dw_stencil")
     dw_stencil.launches += 1
     return out
 
 
+def dw_stencil(x: torch.Tensor, w: torch.Tensor, pads: Pads,
+               mode: str = "zeros") -> torch.Tensor:
+    """x [N,H,W,C], w [C,1,kh,kw] (contiguous, one dtype: fp32 or bf16) ->
+    [N,Ho,Wo,C] in x's dtype. ``mode="reflect"`` takes the unpadded x, a 3x3
+    kernel and ``pads`` of one, and mirrors the border instead of padding.
+
+    A CUDA tensor launches the CUDA kernel, which takes the kernel sizes in
+    ``KERNEL_SIZES`` (anything else raises); a CPU tensor runs
+    :func:`dw_stencil_plain`. ``dw_stencil.launches`` counts the kernel
+    launches, those of :func:`dw_stencil_reflect_adjoint` included (one
+    kernel, K5)."""
+    _check_operands("dw_stencil", x, w)
+    kh, kw = w.shape[-2:]
+    check_pads("dw_stencil", x, kh, kw, pads)
+    check_mode("dw_stencil", x, kh, kw, pads, mode)
+    if x.device.type == "cpu":
+        return dw_stencil_plain(x, w, pads, mode)
+    if (kh, kw) not in KERNEL_SIZES:
+        raise ValueError(f"dw_stencil kernel takes kernel sizes {KERNEL_SIZES}, "
+                         f"got {(kh, kw)}")
+    return _launch(x, w, pads, MODES[mode])
+
+
 dw_stencil.launches = 0
+
+
+def dw_stencil_reflect_adjoint(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The input gradient of ``dw_stencil(x, w, pads of one, "reflect")``:
+    g [N,H,W,C] the output gradient, w [C,1,3,3] the primal kernel (not
+    flipped) -> gx [N,H,W,C] in g's dtype,
+
+        gx[n,r,s,c] = sum g[n,h,w,c] * w[c,0,dy,dx]
+
+    over all (h, dy) with m(h+dy-1) = r and all (w, dx) with m(w+dx-1) = s:
+    nine terms inside, up to sixteen next to a corner. No [N,H+2,W+2,C]
+    tensor is made. A CUDA tensor launches the CUDA kernel (counted in
+    ``dw_stencil.launches``); a CPU tensor runs
+    :func:`dw_stencil_reflect_adjoint_plain`."""
+    name = "dw_stencil_reflect_adjoint"
+    _check_operands(name, g, w)
+    check_mode(name, g, *w.shape[-2:], _PADS_ONE, "reflect")
+    if g.device.type == "cpu":
+        return dw_stencil_reflect_adjoint_plain(g, w)
+    return _launch(g, w, _PADS_ONE, _REFLECT_ADJOINT)

@@ -4,7 +4,9 @@
 
 in fp32, for x [N,H,W,C] the input of a stride-1 depthwise correlation with
 zero pads ``((top, bottom), (left, right))`` and g [N,Ho,Wo,C] its output
-gradient. Port of uncrtaints_tpu/ops/pallas_dwgrad.py:dw_kernel_grad (which
+gradient. With ``mode="reflect"`` xpad is the reflect pad of one pixel of the
+unpadded x (3x3 kernels, H, W >= 2), read through mirrored indices: no
+padded copy is made. Port of uncrtaints_tpu/ops/pallas_dwgrad.py:dw_kernel_grad (which
 returns [kh,kw,1,C]); here the result has the port's weight layout
 [C,1,kh,kw]. The CUDA kernel is csrc/dwgrad.cu: per-block partial sums and a
 second pass over them, no atomics, so the result is deterministic.
@@ -18,16 +20,17 @@ import torch
 
 from uncrtaints_tpu_torch import _build
 from uncrtaints_tpu_torch.ops.dwconv import (
-    KERNEL_SIZES, Pads, check_pads, out_hw, zero_pad)
+    KERNEL_SIZES, MODES, Pads, check_mode, check_pads, out_hw, reflect_pad, zero_pad)
 
 
 def dw_kernel_grad_plain(x: torch.Tensor, g: torch.Tensor, pads: Pads,
-                         kh: int, kw: int) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: one fp32 multiply-reduce
-    per tap (the tap loop of the JAX package's dw-conv VJP)."""
+                         kh: int, kw: int, mode: str = "zeros") -> torch.Tensor:
+    """The plain PyTorch version of the kernel: pad (zeros by ``pads``, or a
+    reflect pad of one), then one fp32 multiply-reduce per tap (the tap loop
+    of the JAX package's dw-conv VJP)."""
     N, H, W, C = x.shape
     Ho, Wo = out_hw(H, W, kh, kw, pads)
-    xp = zero_pad(x, pads)
+    xp = reflect_pad(x) if mode == "reflect" else zero_pad(x, pads)
     g32 = g.float()
     taps = [(xp[:, dy:dy + Ho, dx:dx + Wo].float() * g32).sum(dim=(0, 1, 2))
             for dy in range(kh) for dx in range(kw)]
@@ -35,9 +38,10 @@ def dw_kernel_grad_plain(x: torch.Tensor, g: torch.Tensor, pads: Pads,
 
 
 def dw_kernel_grad(x: torch.Tensor, g: torch.Tensor, pads: Pads, kh: int,
-                   kw: int) -> torch.Tensor:
+                   kw: int, mode: str = "zeros") -> torch.Tensor:
     """x [N,H,W,C], g [N,Ho,Wo,C] (contiguous, one dtype: fp32 or bf16) ->
-    gw [C,1,kh,kw] fp32.
+    gw [C,1,kh,kw] fp32. ``mode="reflect"`` takes the unpadded x, a 3x3
+    kernel and ``pads`` of one.
 
     A CUDA tensor launches the CUDA kernel, which takes the kernel sizes in
     ``KERNEL_SIZES`` (anything else raises); a CPU tensor runs
@@ -48,6 +52,7 @@ def dw_kernel_grad(x: torch.Tensor, g: torch.Tensor, pads: Pads, kh: int,
         raise ValueError(f"dw_kernel_grad: x [N,H,W,C] expected, got {tuple(x.shape)}")
     N, H, W, C = x.shape
     check_pads("dw_kernel_grad", x, kh, kw, pads)
+    check_mode("dw_kernel_grad", x, kh, kw, pads, mode)
     Ho, Wo = out_hw(H, W, kh, kw, pads)
     if g.shape != (N, Ho, Wo, C):
         raise ValueError(f"dw_kernel_grad: g must be {(N, Ho, Wo, C)}, got "
@@ -60,7 +65,7 @@ def dw_kernel_grad(x: torch.Tensor, g: torch.Tensor, pads: Pads, kh: int,
     if not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("dw_kernel_grad: x and g must be contiguous")
     if x.device.type == "cpu":
-        return dw_kernel_grad_plain(x, g, pads, kh, kw)
+        return dw_kernel_grad_plain(x, g, pads, kh, kw, mode)
     if x.device.type != "cuda":
         raise ValueError(f"dw_kernel_grad: unsupported device {x.device}")
     if (kh, kw) not in KERNEL_SIZES:
@@ -70,15 +75,19 @@ def dw_kernel_grad(x: torch.Tensor, g: torch.Tensor, pads: Pads, kh: int,
     if g.numel() == 0:
         return gw.zero_()
     ci = ctypes.c_int
-    nb = _build.kernel("uncr_dw_kernel_grad_blocks", [ci, ci, ci])(N, Ho, Wo)
+    code = _build.DTYPE_CODES[x.dtype]
+    aligned = int(x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
+    with torch.cuda.device(x.device):  # the grid follows this card's SM count
+        nb = _build.kernel("uncr_dw_kernel_grad_blocks", [ci] * 8)(
+            N, Ho, Wo, C, kh, kw, code, aligned)
     part = torch.empty((nb, kh * kw, C), dtype=torch.float32, device=x.device)
     (pt, pb), (pl, pr) = pads
     fn = _build.kernel("uncr_dw_kernel_grad", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ctypes.c_void_p])
+        ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), gw.data_ptr(),
-                 N, H, W, C, kh, kw, pt, pb, pl, pr, _build.DTYPE_CODES[x.dtype],
+                 N, H, W, C, kh, kw, pt, pb, pl, pr, MODES[mode], code,
                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "uncr_dw_kernel_grad")
     dw_kernel_grad.launches += 1
