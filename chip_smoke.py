@@ -6,8 +6,16 @@ one NVIDIA GPU and check them.
 Phase 1 builds the six hand-written CUDA kernels of ``uncrtaints_tpu_torch``
 from ``csrc/`` (one nvcc per source, in parallel) and holds each against its
 plain PyTorch version on the card, at the shapes the paths give it and at a
-ragged shape, and times both (CUDA events, median of 15 runs; 7 for the slow
-plain versions of K5 and K2). Where one
+ragged shape, and times both (CUDA events: a kernel or library call as the
+median of 7 samples of 8 calls queued behind a 3 ms spin on the device, so
+that the host's launch path is not in the number; a plain version as the
+median of 15 single calls, 7 for the slow ones of K5, K2 and K4). K3 is
+timed in the two forms the fused block calls (the first GEMM without an
+epilogue) and must run its pipelined wgmma kernel at both decoder shapes
+and its tiled WMMA kernel at the ragged one; K4 is held
+in the form the fused block calls (no statistics, the pooled sum of the
+squeeze-and-excitation mean) and with statistics, each twice for equal bits,
+and the eager pass the pooled sum replaces is timed alone. Where one
 library call or composition computes the same function it is timed beside
 the kernel as a yardstick the port never calls: ``torch.einsum`` (K1, and two
 of them for K1-bwd), cuDNN's depthwise convolution, input gradient and weight
@@ -16,12 +24,19 @@ backward, the composition the port ran before the border was folded into the
 kernels), the bare bf16 ``torch.matmul`` (K3), and gelu -> reflect pad ->
 cuDNN depthwise conv (K4). Each kernel's
 bound is the larger of its bytes over 3.35 TB/s and its operations over the
-card's peak for their type.
+card's peak for their type; an exact GELU counts as the 20 fp32 operations
+of its arithmetic and one special-function instruction. For K3 and K4 the
+time the SMs need to dispatch the 32 instructions of the compiled GELU is
+printed beside the bound and is no part of it.
 Phase 2 runs the port's eval step (forward, MGNLL, scale_by rescale, image
 metrics) of the paper recipe in bf16 on 3 synthetic batches of B=4, T=3,
 256x256 with seeded random weights, and checks that every forward went
 through the kernels (1 K1, 10 K3 and 5 K4 launches, no backward kernel) and
-that the outputs are finite.
+that the outputs are finite. One more step runs under ``torch.profiler``:
+device time by kind, the idle share, the kernels by name (10 wgmma K3, 5 K4
+and their 5 pooled-sum passes, no statistics pass), and the five fused
+decoder blocks alone with recorded shapes, where no GELU, mean or sum over a
+whole [B,256,256,C] map may run outside the kernels.
 Phase 3 compares the fused eval path with the standard one on the card,
 and the card with the CPU (the kernels' plain versions) on a small input,
 for the paper recipe's architecture and for the residual + ``use_v`` +
@@ -59,6 +74,7 @@ import torch
 
 SEED = 0
 TIMING_RUNS = 15
+SPIN_CYCLES = 5_000_000  # about 3 ms of the device's clock
 TRAIN_STEPS = 4
 # the paths' shapes: the paper batch, and the kernels as the paths call them
 B, T, PATCH = 4, 3, 256
@@ -94,20 +110,38 @@ DW_CASES = {  # name: (N, H, W, C, (kh, kw), pads, mode, dtype); "adjoint" = K5'
     "zeros gx dec [4,256,256,256] pads 2": (B, PATCH, PATCH, HIDDEN, (3, 3), FULL, "zeros", BF16),
     "zeros ragged [3,37,70,20] 3x1 fp32": (3, 37, 70, 20, (3, 1), ((1, 1), (0, 0)), "zeros", FP32),
 }
-K4_CASES = {  # name: (N, H, W, C, groups, dtype); groups 1 = the batch-norm form
-    "path [4,256,256,256] G=1": (B, PATCH, PATCH, HIDDEN, 1, torch.bfloat16),
-    "group [4,256,256,256] G=4": (B, PATCH, PATCH, HIDDEN, 4, torch.bfloat16),
-    "fp32 [2,64,64,128] G=4": (2, 64, 64, 128, 4, torch.float32),
-    "ragged [3,37,70,24] G=3": (3, 37, 70, 24, 3, torch.bfloat16),
+K4_CASES = {  # name: (N, H, W, C, groups, dtype, stats, pool); groups 1 = the batch-norm form
+    # the form the fused block calls: no statistics, the pooled sum
+    "path [4,256,256,256] G=1": (B, PATCH, PATCH, HIDDEN, 1, torch.bfloat16, False, True),
+    "path, neither [4,256,256,256] G=1": (B, PATCH, PATCH, HIDDEN, 1, torch.bfloat16, False,
+                                          False),
+    "group [4,256,256,256] G=4": (B, PATCH, PATCH, HIDDEN, 4, torch.bfloat16, True, False),
+    "group, both [4,256,256,256] G=4": (B, PATCH, PATCH, HIDDEN, 4, torch.bfloat16, True, True),
+    "fp32 [2,64,64,128] G=4": (2, 64, 64, 128, 4, torch.float32, True, True),
+    "ragged [3,37,70,24] G=3": (3, 37, 70, 24, 3, torch.bfloat16, True, True),
 }
+# The arithmetic an exact GELU 0.5 x (1 + erf(x / sqrt 2)) needs in fp32: a
+# multiply for the argument and one for its square, a polynomial of 7 fused
+# multiply-adds (2 operations each), the tail's 1 - 2^p, and 0.5 x, 1 + erf
+# and their product: 2 + 14 + 1 + 3 = 20 operations, and one exponential on
+# the special-function unit. Selects, compares and moves are not operations.
+GELU_OPS, GELU_SFU = 20, 1
+# What the compiled GELU costs the SM's instruction dispatch: 32 instructions
+# (tools/tune_mbconv_h100.py lists them from the SASS) at one a lane a clock,
+# half the fused multiply-add operation rate. Printed only; no bound uses it.
+GELU_SLOTS = 32
 # the card's published peaks (H100 SXM): device memory, dense bf16 tensor
-# cores, fp32 outside the tensor cores
+# cores, fp32 outside the tensor cores; the special-function unit has 16
+# lanes an SM to the 128 of fp32, each one result a clock
 PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
-K3_CASES = {  # name: (N, P, C, C2, groups, se, stats, do_gelu)
-    "pw1 [4,65536,128]->256": (B, PATCH * PATCH, 128, 256, 1, False, False, False),
-    "pw2 [4,65536,256]->128": (B, PATCH * PATCH, 256, 128, 1, True, False, True),
-    "stats [4,65536,128]->256 G=4": (B, PATCH * PATCH, 128, 256, 4, False, True, True),
-    "ragged [3,384,96]->80 G=4": (3, 384, 96, 80, 4, True, True, True),
+PEAK_SFU = PEAK_FP32 / 2 / 8
+K3_CASES = {  # name: (N, P, C, C2, groups, se, stats, do_gelu, epilogue)
+    # the two GEMMs as the fused block calls them: the first without an
+    # epilogue, the second with the SE gate and the folded batch norm after it
+    "pw1 [4,65536,128]->256": (B, PATCH * PATCH, 128, 256, 1, False, False, False, False),
+    "pw2 [4,65536,256]->128": (B, PATCH * PATCH, 256, 128, 1, True, False, True, True),
+    "stats [4,65536,128]->256 G=4": (B, PATCH * PATCH, 128, 256, 4, False, True, True, True),
+    "ragged [3,384,96]->80 G=4": (3, 384, 96, 80, 4, True, True, True, True),
 }
 
 
@@ -116,8 +150,14 @@ def check(ok, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def time_ms(fn, runs=TIMING_RUNS, warmup=3):
-    """Median device time of ``fn`` in ms (CUDA events around each run)."""
+def time_ms(fn, runs=TIMING_RUNS, warmup=3, queue=1):
+    """Median device time of ``fn`` in ms over ``runs`` samples (CUDA
+    events). With ``queue`` > 1 a sample is the mean of that many calls
+    enqueued behind a spin of about 3 ms on the device: the host's launch
+    path (the Python wrapper, ctypes, the allocator) then runs ahead of the
+    device and is not in the number, as it is not when a model's forward
+    keeps the stream full. With ``queue`` = 1 the events surround one call
+    made on an idle stream, which adds the host's path to a fast kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -125,19 +165,30 @@ def time_ms(fn, runs=TIMING_RUNS, warmup=3):
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queue > 1:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fn()
+        for _ in range(queue):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / queue)
     return statistics.median(times)
 
 
-def bound(n_bytes, n_ops, peak_ops):
+def time_kernel(fn):
+    """:func:`time_ms` for a kernel's wrapper or a library call: 7 samples
+    of 8 queued calls."""
+    return time_ms(fn, runs=7, queue=8)
+
+
+def bound(n_bytes, *ops):
     """(bound_ms, bound_by): the least time the card could take to move
     ``n_bytes`` (each input read once, each output written once) or to do
-    ``n_ops`` operations at ``peak_ops``, whichever is larger."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / peak_ops * 1e3
+    the operations, given as (count, peak rate) pairs per type, whichever
+    is larger."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = max(n / peak for n, peak in ops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -180,17 +231,18 @@ def phase1_kernels(dev):
             line = (f"K1 att_group_aggregate {str(dtype)[6:]} {list(shape[:5])} "
                     f"heads={heads}: max_abs_err={err:.3g} (tol {tol:.3g})")
             if shape == K1_SHAPES[0]:
-                kms = time_ms(lambda: aggregate.att_group_aggregate(x, a))
+                kms = time_kernel(lambda: aggregate.att_group_aggregate(x, a))
                 pms = time_ms(lambda: aggregate.att_group_aggregate_plain(x, a))
                 # the one library call of the same function: an einsum over
                 # t with the channels split into (head, channel of the head)
                 xv = x.view(B, T, H, W, heads, C // heads)
                 lib = lambda: torch.einsum("bthwn,bthwnc->bhwnc", a, xv)
-                lms = time_ms(lib)
+                lms = time_kernel(lib)
                 lerr = float((lib().reshape(ref.shape).float() - ref.float()).abs().max())
                 check(lerr <= 4 * tol, f"K1 {dtype}: the einsum computes another function")
                 # one multiply-add per (b, t, pixel, channel), fp32
-                k1_ms[dtype] = (kms, pms, *bound(nbytes(x, a, got), 2 * x.numel(), PEAK_FP32),
+                k1_ms[dtype] = (kms, pms,
+                                *bound(nbytes(x, a, got), (2 * x.numel(), PEAK_FP32)),
                                 lms)
                 line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
                          f"{k1_ms[dtype][2]:.4f} ms, torch.einsum {lms:.4f} ms "
@@ -202,7 +254,7 @@ def phase1_kernels(dev):
 
     # ---- K3: the two decoder GEMMs of the fused MBConv (N=4 frames of
     # 256x256), a statistics case, and a ragged shape
-    def k3_case(N, P, C, C2, G, se, stats, do_gelu):
+    def k3_case(N, P, C, C2, G, se, stats, do_gelu, epilogue):
         x = randn(N, P, C).bfloat16()
         w = (randn(C, C2) * 0.05).bfloat16()
         if G == 1:
@@ -214,21 +266,28 @@ def phase1_kernels(dev):
         args = (x, mean, coef, randn(C), randn(C), w)
         kw = dict(se=torch.sigmoid(randn(N, C)) if se else None, groups_in=G,
                   groups_out=G if stats else 4, do_gelu=do_gelu,
-                  out_affine=(randn(C2), randn(C2)), out_gelu=not se,
-                  do_stats=stats)
+                  out_affine=(randn(C2), randn(C2)) if epilogue else None,
+                  out_gelu=epilogue and not se, do_stats=stats)
         return args, kw
 
-    k3_err, k3_ms, k3_pms, k3_bound, k3_lib = 0.0, 0.0, 0.0, 0.0, 0.0
+    k3_err, k3_ms, k3_pms, k3_bound, k3_lib, k3_by = 0.0, 0.0, 0.0, 0.0, 0.0, ("", 0.0)
     for name, case in K3_CASES.items():
         args, kw = k3_case(*case)
+        n_wg = mbconv.norm_gelu_matmul.wgmma_launches
         got = mbconv.norm_gelu_matmul(*args, **kw)
         torch.cuda.synchronize()
+        # the decoder widths run the pipelined wgmma kernel, the ragged
+        # widths the tiled WMMA kernel
+        ran_wg = mbconv.norm_gelu_matmul.wgmma_launches - n_wg
+        check(ran_wg == (0 if name.startswith("ragged") else 1),
+              f"K3 {name} ran the {'wgmma' if ran_wg else 'WMMA'} kernel")
         ref = mbconv.norm_gelu_matmul_plain(*args, **kw)
         err = float((got[0].float() - ref[0].float()).abs().max())
         # bf16 output: at most one ulp at the top of its range (the fp32 GEMM
         # sums in another order, then both round once)
         tol = 2 ** -7 * float(ref[0].float().abs().max())
-        line = f"K3 norm_gelu_matmul {name}: max_abs_err={err:.3g} (tol {tol:.3g})"
+        line = (f"K3 norm_gelu_matmul {name} ({'wgmma' if ran_wg else 'WMMA'} kernel): "
+                f"max_abs_err={err:.3g} (tol {tol:.3g})")
         bad = err > tol
         if kw["do_stats"]:
             N, P, C2, G = got[0].shape[0], got[0].shape[1], got[0].shape[2], kw["groups_out"]
@@ -240,28 +299,49 @@ def phase1_kernels(dev):
             line += f", stats rel_err sum={e1:.3g} sumsq={e2:.3g} (tol 1e-4)"
             bad = bad or e1 > 1e-4 or e2 > 1e-4
         if name.startswith("pw"):
-            kms = time_ms(lambda: mbconv.norm_gelu_matmul(*args, **kw))
+            kms = time_kernel(lambda: mbconv.norm_gelu_matmul(*args, **kw))
             pms = time_ms(lambda: mbconv.norm_gelu_matmul_plain(*args, **kw))
             # the bare bf16 GEMM of the same shape: the floor a library
             # reaches without the prologue and the epilogue
             x2, w2 = args[0].view(-1, args[0].shape[-1]), args[5]
-            lms = time_ms(lambda: torch.matmul(x2, w2))
-            bms, by = bound(nbytes(*args, got[0], kw["out_affine"][0], kw["out_affine"][1]),
-                            2 * x2.shape[0] * x2.shape[1] * w2.shape[1], PEAK_BF16)
-            check(by == "bytes", "K3 is bound by bytes at the path shapes")
+            lms = time_kernel(lambda: torch.matmul(x2, w2))
+            # tensor-core operations of the GEMM; fp32 operations per input
+            # element: the prologue's 4, the GELU and the SE product where
+            # they run, and per output element the affine's 2 where it runs
+            n_in, n_out = x2.numel(), x2.shape[0] * w2.shape[1]
+            n_gelu = n_in if kw["do_gelu"] else 0
+            fp32_ops = (4 * n_in + GELU_OPS * n_gelu + (kw["se"] is not None) * n_in
+                        + 2 * n_out * (kw["out_affine"] is not None))
+            n_byte = nbytes(*args, got[0], *(kw["out_affine"] or ()),
+                            *([kw["se"]] if kw["se"] is not None else []))
+            bms, by = bound(n_byte, (2 * n_in * w2.shape[1], PEAK_BF16), (fp32_ops, PEAK_FP32),
+                            (GELU_SFU * n_gelu, PEAK_SFU))
+            # both GEMMs are bound by their bytes: the second's GELU per input
+            # element is 1.7 G operations, 0.026 ms at the fp32 peak
+            check(by == "bytes", f"K3 {name} is bound by {by}")
             k3_ms, k3_pms, k3_bound, k3_lib = k3_ms + kms, k3_pms + pms, k3_bound + bms, k3_lib + lms
-            line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms, "
+            k3_by = max(k3_by, (by, bms), key=lambda t: t[1])
+            line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}: "
+                     f"{n_byte / 1e6:.0f} MB are {n_byte / PEAK_BYTES * 1e3:.4f} ms, "
+                     f"{fp32_ops / 1e9:.2f} G fp32 operations {fp32_ops / PEAK_FP32 * 1e3:.4f} ms), "
                      f"torch.matmul alone {lms:.4f} ms")
+            if n_gelu:
+                line += (f"; dispatching the compiled GELU's {GELU_SLOTS} instructions "
+                         f"{n_gelu / 1e6:.0f} M times takes the SMs "
+                         f"{GELU_SLOTS * n_gelu / (PEAK_FP32 / 2) * 1e3:.4f} ms (no bound)")
         print(line)
         check(not bad, f"K3 {name} disagrees with its plain version")
         k3_err = max(k3_err, err)
-    # the two decoder GEMMs together: a fused block runs one of each
-    out["norm_gelu_matmul"] = result(k3_err, k3_ms, k3_pms, k3_bound, "bytes", k3_lib)
+    # the two decoder GEMMs together: a fused block runs one of each (bound
+    # by what bounds the slower of the two)
+    out["norm_gelu_matmul"] = result(k3_err, k3_ms, k3_pms, k3_bound, k3_by[0], k3_lib)
 
     # ---- K4: the decoder's fused norm -> GELU -> reflect depthwise 3x3
-    # (N=4 maps of 256x256x256, the batch-norm form), a group-norm form with
-    # its statistics, fp32, and a ragged shape whose every border reflects
-    def k4_case(N, H, W, C, G, dtype):
+    # (N=4 maps of 256x256x256, the batch-norm form) as the fused block calls
+    # it (no statistics, the pooled sum) and bare, a group-norm form with its
+    # statistics and with both, fp32, and a ragged shape whose every border
+    # reflects, the last two with statistics and the pooled sum
+    def k4_case(N, H, W, C, G, dtype, stats, pool):
         x = randn(N, H, W, C).to(dtype)
         if G == 1:
             mean, coef = torch.zeros(N, 1, device=dev), torch.ones(N, 1, device=dev)
@@ -270,7 +350,8 @@ def phase1_kernels(dev):
             mean = xg.mean(dim=(1, 3))
             coef = torch.rsqrt(xg.var(dim=(1, 3), correction=0) + 1e-5)
         return (x, mean, coef, randn(C), randn(C), randn(3, 3, C) * 0.3), dict(
-            groups_in=G, groups_out=G)
+            groups_in=G, groups_out=G, do_stats=stats,
+            pool_affine=(randn(C), randn(C)) if pool else None)
 
     k4_err = 0.0
     for name, case in K4_CASES.items():
@@ -281,23 +362,44 @@ def phase1_kernels(dev):
         ref = mbconv.norm_gelu_dwconv3x3_plain(*args, **kw)
         err = float((got[0].float() - ref[0].float()).abs().max())
         top = float(ref[0].float().abs().max())
-        # the kernel keeps the plain version's fp32 roundings; what may
-        # differ is erff against torch's erf and then the final cast: one
+        # fp32 sums of nine taps, one fused multiply-add each against the
+        # plain version's product and sum rounded apart, then one cast: one
         # bf16 ulp of the largest output, or 1e-5 of it in fp32
-        tol = (1e-5 if case[-1] == torch.float32 else 2 ** -7) * top
-        N, G, C = case[0], kw["groups_out"], case[3]
-        abs_sum = ref[0].float().abs().view(N, -1, G, C // G).sum(dim=(1, 3))
-        e1 = float(((got[1] - ref[1]).abs() / abs_sum).max())
-        e2 = float(((got[2] - ref[2]).abs() / ref[2]).max())
+        tol = (1e-5 if case[5] == torch.float32 else 2 ** -7) * top
+        N, G, C, stats, pool = case[0], kw["groups_out"], case[3], case[6], case[7]
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        # fp32 sums of up to 4M terms in another order: 1e-5 relative
         line = (f"K4 norm_gelu_dwconv3x3 {name}: max_abs_err={err:.3g} (tol {tol:.3g}), "
-                f"stats rel_err sum={e1:.3g} sumsq={e2:.3g} (tol 1e-5), two runs "
-                f"bit-identical {same}")
+                f"two runs bit-identical {same}")
+        check(len(got) == (4 if pool else 3), f"K4 {name}: {len(got)} return values")
+        e1 = e2 = ep = 0.0
+        if stats:
+            # fp32 sums of up to 4M terms in another order: 1e-5 relative
+            # (of the sum of |terms|); a rounding that falls the other way
+            # moves a term by one ulp, far inside that
+            abs_sum = ref[0].float().abs().view(N, -1, G, C // G).sum(dim=(1, 3))
+            e1 = float(((got[1] - ref[1]).abs() / abs_sum).max())
+            e2 = float(((got[2] - ref[2]).abs() / ref[2]).max())
+            line += f", stats rel_err sum={e1:.3g} sumsq={e2:.3g} (tol 1e-5)"
+        else:
+            check(not got[1].any() and not got[2].any(), f"K4 {name}: statistics not zero")
+        if pool:
+            # the pooled sum of the kernel's own rounded output, so that the
+            # reduction is held apart from the one-ulp gap of the outputs:
+            # 1e-5 of the sum of |gelu(.)| (fp32 sums in another order)
+            psc, pbi = kw["pool_affine"]
+            act = torch.nn.functional.gelu(got[0].float() * psc + pbi)
+            ep = float(((got[3] - act.sum(dim=(1, 2))).abs() / act.abs().sum(dim=(1, 2))).max())
+            # and against the plain version's, whose outputs may differ by an ulp
+            ep_plain = float(((got[3] - ref[3]).abs() / act.abs().sum(dim=(1, 2))).max())
+            line += (f", pooled sum rel_err {ep:.3g} (tol 1e-5; against the plain version's "
+                     f"{ep_plain:.3g}, tol 1e-3)")
+            check(ep_plain <= 1e-3, f"K4 {name}: pooled sum far from the plain version's")
         if name.startswith("path"):
             x, _, _, sc, bi, w = args
-            kms = time_ms(lambda: mbconv.norm_gelu_dwconv3x3(*args, **kw))
-            pms = time_ms(lambda: mbconv.norm_gelu_dwconv3x3_plain(*args, **kw))
+            kms = time_kernel(lambda: mbconv.norm_gelu_dwconv3x3(*args, **kw))
+            line += f", kernel {kms:.4f} ms"
+        if name.startswith("path ["):
+            pms = time_ms(lambda: mbconv.norm_gelu_dwconv3x3_plain(*args, **kw), runs=7)
             # what the fused body ran before K4: the norm affine and GELU in
             # bf16, a reflect pad that keeps NHWC, cuDNN's depthwise conv
             wc = w.permute(2, 0, 1)[:, None].contiguous().to(x.dtype)
@@ -309,16 +411,31 @@ def phase1_kernels(dev):
                                              mode="reflect").squeeze(1)
                 return torch.nn.functional.conv2d(hp.permute(0, 3, 1, 2), wc, groups=C)
 
-            lms = time_ms(composition)
-            # per element: 9 multiply-adds, the prologue, the GELU's own
-            # arithmetic around erf, the statistics
-            bms, by = bound(nbytes(*args, got[0]), 29 * x.numel(), PEAK_FP32)
+            lms = time_kernel(composition)
+            # fp32 operations per element: the prologue's 4 and its GELU, 9
+            # multiply-adds, the pooled sum's affine, GELU and add
+            ops = (4 + GELU_OPS + 18 + 3 + GELU_OPS) * x.numel()
+            n_byte = nbytes(*args, got[0], *kw["pool_affine"], got[3])
+            bms, by = bound(n_byte, (ops, PEAK_FP32), (2 * GELU_SFU * x.numel(), PEAK_SFU))
+            check(by == "bytes", f"K4 is bound by {by}")
             out["norm_gelu_dwconv3x3"] = result(0.0, kms, pms, bms, by, lms)
-            line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
-                     f"gelu + reflect pad + cuDNN depthwise {lms:.4f} ms")
+            # the eager pass the pooled sum replaces, alone: the SE mean of
+            # the fused block as it ran between K4 and the second K3
+            h2 = got[0]
+            se_ms = time_kernel(
+                lambda: torch.nn.functional.gelu(h2.float() * psc + pbi).mean(dim=(1, 2)))
+            line += (f", plain {pms:.4f} ms, bound {bms:.4f} ms ({by}: {n_byte / 1e6:.0f} MB are "
+                     f"{n_byte / PEAK_BYTES * 1e3:.4f} ms, {ops / 1e9:.2f} G fp32 operations "
+                     f"{ops / PEAK_FP32 * 1e3:.4f} ms), gelu + reflect pad + cuDNN depthwise "
+                     f"{lms:.4f} ms; dispatching the compiled GELU's {GELU_SLOTS} instructions "
+                     f"twice an output takes the SMs "
+                     f"{2 * GELU_SLOTS * x.numel() / (PEAK_FP32 / 2) * 1e3:.4f} ms (no bound)")
+            print(f"K4 the eager SE pass the pooled sum replaces, gelu(h2.float() * c2 + o2)"
+                  f".mean((1, 2)) on [4,256,256,256] bf16, alone: {se_ms:.4f} ms")
         print(line)
         check(err <= tol, f"K4 {name} disagrees with its plain version")
         check(e1 <= 1e-5 and e2 <= 1e-5, f"K4 {name}: statistics disagree")
+        check(ep <= 1e-5, f"K4 {name}: the pooled sum disagrees")
         check(same, f"K4 {name} is not deterministic")
         k4_err = max(k4_err, err)
     out["norm_gelu_dwconv3x3"]["max_abs_err"] = k4_err
@@ -343,7 +460,7 @@ def phase1_kernels(dev):
             line = (f"K1-bwd att_group_aggregate_bwd {str(dtype)[6:]} {list(shape[:5])} "
                     f"heads={heads}: max_abs_err={err:.3g} (tol {tol:.3g})")
             if shape == K1_SHAPES[0] and dtype == torch.bfloat16:
-                kms = time_ms(lambda: aggregate.att_group_aggregate_bwd(x, a, gy))
+                kms = time_kernel(lambda: aggregate.att_group_aggregate_bwd(x, a, gy))
                 pms = time_ms(lambda: aggregate.att_group_aggregate_bwd_plain(x, a, gy))
                 # the library's way to the same two results: one einsum each
                 xv = x.view(B_, T_, H, W, heads, C // heads)
@@ -353,13 +470,14 @@ def phase1_kernels(dev):
                     return (torch.einsum("bthwn,bhwnc->bthwnc", a, gv),
                             torch.einsum("bthwnc,bhwnc->bthwn", xv, gv))
 
-                lms = time_ms(lib)
+                lms = time_kernel(lib)
                 ldx, lda = lib()
                 lerr = max(float((ldx.reshape(rdx.shape).float() - rdx.float()).abs().max()),
                            float((lda.float() - rda.float()).abs().max()))
                 check(lerr <= 4 * tol, "K1-bwd: the einsums compute another function")
                 # per (b, t, pixel, channel): dx = a * gy and one term of da
-                kb_ms = (kms, pms, *bound(nbytes(x, a, gy, dx, da), 4 * x.numel(), PEAK_FP32),
+                kb_ms = (kms, pms,
+                         *bound(nbytes(x, a, gy, dx, da), (4 * x.numel(), PEAK_FP32)),
                          lms)
                 line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {kb_ms[2]:.4f} ms, "
                          f"two torch.einsum {lms:.4f} ms (max_abs_err {lerr:.3g})")
@@ -407,15 +525,15 @@ def phase1_kernels(dev):
         tol = (1e-6 if dtype == torch.float32 else 2 ** -7) * top
         line = f"K5 dw_stencil {name}: max_abs_err={err:.3g} (tol {tol:.3g})"
         if dtype == torch.bfloat16 and N * H * W * C > 1e7:
-            kms, pms, cms = time_ms(kernel, warmup=10), time_ms(plain, runs=7), time_ms(bare)
-            bms, by = bound(nbytes(x, w, got), 2 * kh * kw * got.numel(), PEAK_FP32)
+            kms, pms, cms = time_kernel(kernel), time_ms(plain, runs=7), time_kernel(bare)
+            bms, by = bound(nbytes(x, w, got), (2 * kh * kw * got.numel(), PEAK_FP32))
             line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms, "
                      f"{bare_name} {cms:.4f} ms")
             if library is not None:
                 lerr = float((library().float() - ref.float()).abs().max())
                 check(lerr <= 4 * tol, f"K5 {name}: the library composition computes "
                                        f"another function (max_abs_err {lerr:.3g})")
-                lms = time_ms(library)
+                lms = time_kernel(library)
                 line += f", {lib_name} {lms:.4f} ms"
             if name.startswith("reflect enc"):
                 out["dw_stencil"] = result(0.0, kms, pms, bms, by, lms)
@@ -438,13 +556,13 @@ def phase1_kernels(dev):
                 f"rel to sum|x*g| {rel:.3g} (tol 1e-4), deterministic "
                 f"{bool(torch.equal(gw, again))}")
         if dtype == torch.bfloat16 and N * H * W * C > 1e7:
-            kms = time_ms(lambda: dwgrad.dw_kernel_grad(x, gy, pads, kh, kw, mode), warmup=10)
+            kms = time_kernel(lambda: dwgrad.dw_kernel_grad(x, gy, pads, kh, kw, mode))
             pms = time_ms(lambda: dwgrad.dw_kernel_grad_plain(x, gy, pads, kh, kw, mode), runs=7)
             # cuDNN's weight gradient of the same depthwise convolution
             gc = gy.permute(0, 3, 1, 2)
-            cms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+            cms = time_kernel(lambda: torch.nn.grad.conv2d_weight(
                 xc, (C, 1, kh, kw), gc, padding=pad, groups=C))
-            bms, by = bound(nbytes(x, gy, gw), 2 * kh * kw * gy.numel(), PEAK_FP32)
+            bms, by = bound(nbytes(x, gy, gw), (2 * kh * kw * gy.numel(), PEAK_FP32))
             line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms, "
                      f"cuDNN weight gradient alone {cms:.4f} ms")
             if mode == "reflect":  # what the port ran before: the pad, then cuDNN
@@ -454,7 +572,7 @@ def phase1_kernels(dev):
                 # cuDNN may sum in bf16-rounded partials: 1e-2 of sum |x*g|
                 check(lrel <= 1e-2, f"K2 {name}: the library composition computes another "
                                     f"function (rel {lrel:.3g})")
-                lms = time_ms(library)
+                lms = time_kernel(library)
                 line += f", reflect F.pad + cuDNN weight gradient {lms:.4f} ms"
                 if name.startswith("reflect enc"):
                     out["dw_kernel_grad"] = result(0.0, kms, pms, bms, by, lms)
@@ -510,6 +628,7 @@ def phase2_slice(dev):
     for f in (aggregate.att_group_aggregate, mbconv.norm_gelu_matmul,
               mbconv.norm_gelu_dwconv3x3, *train_kernels):
         f.launches = 0
+    mbconv.norm_gelu_matmul.wgmma_launches = 0
     times, results = [], []
     for _ in range(2):
         for b in batches:
@@ -527,6 +646,9 @@ def phase2_slice(dev):
     check(k1 == n_fwd, f"K1 launched {k1} times in {n_fwd} forwards (1 each expected)")
     check(k3 == 10 * n_fwd, f"K3 launched {k3} times in {n_fwd} forwards (10 each expected)")
     check(k4 == 5 * n_fwd, f"K4 launched {k4} times in {n_fwd} forwards (5 each expected)")
+    check(mbconv.norm_gelu_matmul.wgmma_launches == k3,
+          f"only {mbconv.norm_gelu_matmul.wgmma_launches} of the {k3} K3 launches ran the "
+          "wgmma kernel")
     check(all(f.launches == 0 for f in train_kernels),
           "the eval step launched a backward or train-only kernel (K1-bwd, K5, K2)")
     for i, aux in enumerate(results[:3]):
@@ -542,7 +664,118 @@ def phase2_slice(dev):
     ms = statistics.median(times)
     print(f"  eval step: {ms:.3f} ms median of {n_fwd} (min {min(times):.3f}, "
           f"max {max(times):.3f}), {B / ms * 1e3:.2f} sequences/s")
+    profile_eval_step(step, model, batches[0], ms)
     return cfg, model, batches, {"K1": k1, "K3": k3, "K4": k4}
+
+
+# device kernels of an eval step by kind, as KERNEL_KINDS below
+EVAL_KINDS = (
+    ("K1", ("att_group_",)),
+    ("K3", ("ngm_",)),
+    ("K4 (with its pooled-sum and statistics passes)", ("ngd_", "channel_sum_kernel",
+                                                        "group_stats_kernel")),
+    ("GEMMs outside the kernels", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "splitK")),
+    ("convolutions (cuDNN)", ("cudnn", "conv", "Conv")),
+    ("reductions", ("reduce_kernel",)),
+    ("GELU", ("gelu", "Gelu")),
+    ("dtype and layout copies", ("copy", "Copy", "CatArray", "Memcpy")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def device_time_by_kind(prof, kind_table):
+    """({kind: (ms, launches)}, {kernel name: (launches, ms)}, the largest
+    'other' kernels) of the device kernels a profile recorded."""
+    from torch.autograd import DeviceType
+    kinds, names, others = {}, {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kind = next((k for k, frags in kind_table if any(f in e.key for f in frags)), "other")
+        t, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (t + us / 1e3, n + e.count)
+        n0, t0 = names.get(e.key, (0, 0.0))
+        names[e.key] = (n0 + e.count, t0 + us / 1e3)
+        if kind == "other":
+            others.append((round(us / 1e3, 3), e.count, e.key[:60]))
+    return kinds, names, sorted(others, reverse=True)[:4]
+
+
+def profile_eval_step(step, model, batch, step_ms):
+    """One more eval step under ``torch.profiler``, reported by
+    :func:`eval_step_report`: the step must run 1 K1, 10 K3 through the
+    wgmma kernel and 5 K4 each with its pooled-sum pass and none with
+    statistics, and the five fused decoder blocks no GELU, mean or sum over
+    a whole map outside the kernels."""
+    found, eager = eval_step_report(step, model, batch, step_ms)
+    want = {"att_group_": 1, "ngm_wg_kernel": 10, "ngm_kernel": 0, "ngd_tile_kernel": 5,
+            "channel_sum_kernel": 5, "group_stats_kernel": 0}
+    check(found == want,
+          f"the eval step's kernels {found}, expected {want} (1 K1, 10 K3 through "
+          "the wgmma kernel, 5 K4 each with its pooled-sum pass and none with statistics)")
+    check(not eager, "a fused decoder block ran an eager GELU or reduction over a whole map")
+
+
+def eval_step_report(step, model, batch, step_ms):
+    """Print the profile of one eval step under ``torch.profiler``: device
+    time by kind and the idle share against the unprofiled step time
+    ``step_ms``, the K3 and K4 kernels by name, then the five fused decoder
+    blocks alone with recorded shapes. Returns ({kernel name fragment:
+    launches in the step}, the eager GELU, mean or sum calls over a whole
+    map in the blocks); ``tools/profile_eval_h100.py`` prints the same for
+    an older tree."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(model, batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kinds, names, others = device_time_by_kind(prof, EVAL_KINDS)
+    busy = sum(t for t, _ in kinds.values())
+    check(busy > 0, "the profiler recorded no device time")
+    print(f"  profile of one eval step ({host_ms:.1f} ms on the host under the profiler): device "
+          f"busy {busy:.2f} ms in {sum(n for _, n in kinds.values())} kernels; against the "
+          f"unprofiled step of {step_ms:.2f} ms the device idles {1 - busy / step_ms:.1%}")
+    for kind, (t, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {kind}: {t:.3f} ms, {n} launches")
+    print(f"    the largest of 'other': {others}")
+    count = lambda frag: sum(n for k, (n, _) in names.items() if frag in k)
+    found = {f: count(f) for f in ("att_group_", "ngm_wg_kernel", "ngm_kernel", "ngd_tile_kernel",
+                                   "channel_sum_kernel", "group_stats_kernel")}
+    print(f"    kernels by name: {found}")
+    # the hand-written kernels one by one (template arguments tell the two K3 shapes apart)
+    for key, (n, ms) in sorted(names.items()):
+        if any(f in key for f in ("ngm_", "ngd_", "channel_sum_kernel", "att_group_")):
+            short = key[key.find("ng"):] if "::ng" in key else key
+            print(f"      {short[:70]}: {n} launches, {ms / n:.4f} ms each")
+
+    # the five fused decoder blocks alone, shapes recorded
+    x = torch.randn(B, PATCH, PATCH, 128, device=batch["x"].device).bfloat16()
+    with torch.inference_mode():
+        for blk in model.out_block:  # warm-up
+            blk(x)
+        torch.cuda.synchronize()
+        with profile(activities=acts, record_shapes=True) as prof:
+            y = x
+            for blk in model.out_block:
+                y = blk(y)
+            torch.cuda.synchronize()
+    kinds, _, _ = device_time_by_kind(prof, EVAL_KINDS)
+    busy = sum(t for t, _ in kinds.values())
+    parts = ", ".join(f"{k} {t:.3f} ms / {n}" for k, (t, n) in
+                      sorted(kinds.items(), key=lambda kv: -kv[1][0]))
+    print(f"  the {len(model.out_block)} fused decoder blocks alone on [{B},{PATCH},{PATCH},128] "
+          f"bf16: device busy {busy:.3f} ms: {parts}")
+    whole_map = B * PATCH * PATCH * 128
+    eager = [(e.name, e.input_shapes) for e in prof.events()
+             if e.name in ("aten::gelu", "aten::mean", "aten::sum")
+             and any(len(sh) and int(np.prod(sh)) >= whole_map for sh in e.input_shapes or [])]
+    print(f"    eager GELU, mean or sum over a whole map in the blocks: {eager[:4] or 'none'}")
+    return found, eager
 
 
 def phase3_references(dev, cfg, model, batch):
@@ -633,6 +866,7 @@ def phase_scene(dev, cfg, model, off):
     predict_scene(model, cfg, scene[:, :tile, :tile], dates, **kw)  # warm-up
     for f in kernels.values():
         f.launches = 0
+    mbconv.norm_gelu_matmul.wgmma_launches = 0
     t0 = time.perf_counter()
     out = predict_scene(model, cfg, scene, dates, **kw)
     sec = time.perf_counter() - t0
@@ -645,6 +879,8 @@ def phase_scene(dev, cfg, model, off):
           f"{n_win / sec:.2f} windows/s, {S * S / sec / 1e6:.3f} Mpixel/s")
     want = {"K1": n_fwd, "K3": 10 * n_fwd, "K4": 5 * n_fwd, "K1-bwd": 0, "K5": 0, "K2": 0}
     check(counts == want, f"scene launches {counts}, expected {want}")
+    check(mbconv.norm_gelu_matmul.wgmma_launches == counts["K3"],
+          "a K3 launch of the scene did not run the wgmma kernel")
     for k in ("pred", "var"):
         check(out[k].shape == (1, S, S, 13), f"scene {k} shape {out[k].shape}")
         check(bool(np.isfinite(out[k]).all()), f"scene {k} not finite")
@@ -751,32 +987,20 @@ KERNEL_KINDS = (
 def profile_train_step(step, state, batch, gen):
     """One more train step under ``torch.profiler``: fails if a reflect-pad
     kernel runs, prints the device time by kind."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(state, batch, gen)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-    kinds, others = {}, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kind = next((k for k, frags in KERNEL_KINDS if any(f in e.key for f in frags)), "other")
-        t, n = kinds.get(kind, (0.0, 0))
-        kinds[kind] = (t + us / 1e3, n + e.count)
-        if kind == "other":
-            others.append((us / 1e3, e.count, e.key[:60]))
+    kinds, _, others = device_time_by_kind(prof, KERNEL_KINDS)
     busy = sum(t for t, _ in kinds.values())
     check(busy > 0, "the profiler recorded no device time")
     print(f"  profile of one train step ({host_ms:.1f} ms on the host under the profiler): "
           f"device busy {busy:.2f} ms in {sum(n for _, n in kinds.values())} kernels")
     for kind, (t, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
         print(f"    {kind}: {t:.3f} ms, {n} launches")
-    print(f"    the largest of 'other': {sorted(others, reverse=True)[:4]}")
+    print(f"    the largest of 'other': {others}")
     check("reflect pad" not in kinds, "the train step ran a reflection_pad kernel: "
           "the differentiated reflect depthwise conv must not pad")
     check(kinds.get("K5 depthwise stencil", (0, 0))[1] >= 12

@@ -73,6 +73,66 @@ def test_norm_gelu_matmul_kernel_matches_plain(cuda, rng, shape, xdtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("se,out_gelu", [(False, False), (True, False), (False, True)])
+@pytest.mark.parametrize("C,C2,G", [(128, 256, 1), (256, 128, 1), (128, 128, 4), (256, 128, 8)])
+def test_norm_gelu_matmul_wgmma_kernel_matches_plain(cuda, rng, C, C2, G, se, out_gelu, stats):
+    """The decoder widths in bf16 run the pipelined wgmma kernel (its own
+    counter says so); tolerance as for the tiled kernel: one bf16 ulp of the
+    largest output, statistics 1e-4 relative. 3 frames of 384 rows: a
+    warpgroup's 64-row tiles cross frames, the last block has one tile."""
+    N, P = 3, 384
+    x = _t(rng.standard_normal((N, P, C)), cuda, torch.bfloat16)
+    w = _t(rng.standard_normal((C, C2)) * 0.05, cuda, torch.bfloat16)
+    f = lambda *s: _t(rng.standard_normal(s), cuda)
+    args = (x, f(N, G), f(N, G).abs() + 0.5, f(C), f(C), w)
+    kw = dict(se=f(N, C).sigmoid() if se else None, groups_in=G, groups_out=G, do_gelu=se,
+              out_affine=(f(C2), f(C2)) if se or out_gelu else None, out_gelu=out_gelu,
+              do_stats=stats)
+    n, nw = tops.norm_gelu_matmul.launches, tops.norm_gelu_matmul.wgmma_launches
+    got = tops.norm_gelu_matmul(*args, **kw)
+    torch.cuda.synchronize()
+    assert tops.norm_gelu_matmul.launches == n + 1
+    assert tops.norm_gelu_matmul.wgmma_launches == nw + 1
+    ref = tops.norm_gelu_matmul_plain(*args, **kw)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == (N, P, C2)
+    assert (got[0].float() - ref[0].float()).abs().max() <= 2 ** -7 * ref[0].float().abs().max()
+    if stats:
+        abs_sum = ref[0].float().abs().view(N, P, G, C2 // G).sum(dim=(1, 3))
+        assert ((got[1] - ref[1]).abs() <= 1e-4 * abs_sum).all()
+        torch.testing.assert_close(got[2], ref[2], rtol=1e-4, atol=1e-3)
+        again = tops.norm_gelu_matmul(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+    else:
+        assert not got[1].any() and not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,xdtype", [((3, 128, 96, 80, 4), torch.bfloat16),
+                                          ((2, 256, 128, 256, 4), torch.float32),
+                                          ((2, 128, 256, 256, 4), torch.bfloat16),
+                                          ((2, 128, 128, 128, 32), torch.bfloat16)])
+def test_norm_gelu_matmul_other_shapes_keep_the_tiled_kernel(cuda, rng, shape, xdtype):
+    """Widths outside {128, 256}, fp32 x, 256 -> 256 (weight and ring do not
+    fit in shared memory) and input groups narrower than 8 channels run the
+    tiled WMMA kernel: the wgmma counter stays."""
+    N, P, C, C2, G = shape
+    x = _t(rng.standard_normal((N, P, C)), cuda, xdtype)
+    w = _t(rng.standard_normal((C, C2)) * 0.05, cuda, torch.bfloat16)
+    f = lambda *s: _t(rng.standard_normal(s), cuda)
+    args = (x, f(N, G), f(N, G).abs() + 0.5, f(C), f(C), w)
+    n, nw = tops.norm_gelu_matmul.launches, tops.norm_gelu_matmul.wgmma_launches
+    got = tops.norm_gelu_matmul(*args, groups_in=G, groups_out=4)
+    torch.cuda.synchronize()
+    assert tops.norm_gelu_matmul.launches == n + 1
+    assert tops.norm_gelu_matmul.wgmma_launches == nw
+    ref = tops.norm_gelu_matmul_plain(*args, groups_in=G, groups_out=4)
+    tol = 2 ** -7 if xdtype == torch.bfloat16 else 1e-4
+    assert (got[0].float() - ref[0].float()).abs().max() <= tol * ref[0].float().abs().max()
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
 def test_norm_gelu_matmul_kernel_rejects_ragged_rows(cuda):
     x = torch.zeros(2, 100, 32, device=cuda, dtype=torch.bfloat16)
     w = torch.zeros(32, 16, device=cuda, dtype=torch.bfloat16)
@@ -342,33 +402,49 @@ def _k4_args(rng, dev, N, H, W, C, G, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stats,pool", [(True, False), (False, True), (True, True),
+                                        (False, False)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [
     (2, 32, 64, 256, 1),   # the decoder's width, the batch-norm form
     (2, 32, 64, 256, 4),   # group statistics in and out
-    (3, 37, 70, 24, 3),    # ragged: an odd height, a column segment of 6
+    (3, 37, 70, 24, 3),    # ragged: an odd height, a column strip of 6, a part channel tile
     (1, 2, 2, 8, 1),       # the smallest map: every tap reflects
-    (2, 5, 130, 16, 2),    # three column segments, the last of 2
+    (2, 5, 130, 16, 2),    # five column strips, the last of 2
 ])
-def test_norm_gelu_dwconv_kernel_matches_plain(cuda, rng, shape, dtype):
+def test_norm_gelu_dwconv_kernel_matches_plain(cuda, rng, shape, dtype, stats, pool):
     N, H, W, C, G = shape
     args = _k4_args(rng, cuda, N, H, W, C, G, dtype)
+    f = lambda *s: _t(rng.standard_normal(s), cuda)
+    kw = dict(groups_in=G, groups_out=G, do_stats=stats,
+              pool_affine=(f(C), f(C)) if pool else None)
     n = tops.norm_gelu_dwconv3x3.launches
-    got = tops.norm_gelu_dwconv3x3(*args, groups_in=G, groups_out=G)
+    got = tops.norm_gelu_dwconv3x3(*args, **kw)
     torch.cuda.synchronize()
     assert tops.norm_gelu_dwconv3x3.launches == n + 1
-    ref = tops.norm_gelu_dwconv3x3_plain(*args, groups_in=G, groups_out=G)
+    ref = tops.norm_gelu_dwconv3x3_plain(*args, **kw)
+    assert len(got) == len(ref) == (4 if pool else 3)
     assert got[0].dtype == dtype and got[0].shape == (N, H, W, C)
-    # the kernel keeps the plain version's fp32 roundings; erff against
-    # torch's erf and then the cast may move one bf16 ulp, or 1e-5 in fp32
+    # one fused multiply-add per tap against the plain version's product
+    # and sum rounded apart, then the cast: one bf16 ulp of the largest
+    # output, or 1e-5 of it in fp32
     top = ref[0].float().abs().max()
     tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * top
     assert (got[0].float() - ref[0].float()).abs().max() <= tol
-    # fp32 sums in another order: 1e-5 of the sum of magnitudes
-    abs_sum = ref[0].float().abs().view(N, H * W, G, C // G).sum(dim=(1, 3))
-    assert ((got[1] - ref[1]).abs() <= 1e-5 * abs_sum).all()
-    assert ((got[2] - ref[2]).abs() <= 1e-5 * ref[2]).all()
-    again = tops.norm_gelu_dwconv3x3(*args, groups_in=G, groups_out=G)
+    if stats:
+        # fp32 sums in another order: 1e-5 of the sum of magnitudes
+        abs_sum = ref[0].float().abs().view(N, H * W, G, C // G).sum(dim=(1, 3))
+        assert ((got[1] - ref[1]).abs() <= 1e-5 * abs_sum).all()
+        assert ((got[2] - ref[2]).abs() <= 1e-5 * ref[2]).all()
+    else:
+        assert not got[1].any() and not got[2].any()
+    if pool:
+        # the pooled sum of the kernel's own rounded output: 1e-5 of sum|gelu|
+        act = torch.nn.functional.gelu(got[0].float() * kw["pool_affine"][0]
+                                       + kw["pool_affine"][1])
+        assert got[3].dtype == torch.float32 and got[3].shape == (N, C)
+        assert ((got[3] - act.sum(dim=(1, 2))).abs() <= 1e-5 * act.abs().sum(dim=(1, 2))).all()
+    again = tops.norm_gelu_dwconv3x3(*args, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
 
 
@@ -416,8 +492,10 @@ def test_fused_mbconv_chain_on_card(cuda, rng):
         y0 = tm(x).float()
         tm.fused_eval = True
         n3, n4 = tops.norm_gelu_matmul.launches, tops.norm_gelu_dwconv3x3.launches
+        nw = tops.norm_gelu_matmul.wgmma_launches
         y1 = tm(x).float()
     assert tops.norm_gelu_matmul.launches == n3 + 2
+    assert tops.norm_gelu_matmul.wgmma_launches == nw + 2  # both GEMMs pipelined
     assert tops.norm_gelu_dwconv3x3.launches == n4 + 1
     d = (y0 - y1).abs()
     assert d.max() <= 0.02 * y0.abs().max()

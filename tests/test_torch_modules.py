@@ -292,6 +292,79 @@ def test_mbconv_fused_chain_against_jax_standard(rng):
     assert norm_gelu_matmul.launches == 0 and norm_gelu_dwconv3x3.launches == 0  # CPU: plain
 
 
+def _seeded_bf16_mbconv(rng, fused=True):
+    from uncrtaints_tpu_torch.models.blocks import MBConv
+    tm = MBConv(128, 128, expansion=2, norm="batch", fused_eval=fused).eval()
+    tl.init_weights(tm, torch.Generator().manual_seed(0))
+    for b in tm.buffers():
+        b.copy_(_t(np.abs(rng.standard_normal(b.shape) * 0.3) + 0.5))
+    for p in tm.parameters():
+        p.data = p.data.bfloat16()
+    return tm
+
+
+def test_mbconv_fused_se_gate_matches_the_eager_expression(rng):
+    """The SE gate of the fused body, whose pooled vector K4 sums in its own
+    pass (``pool_affine``), against the gate from the eager expression the
+    JAX body writes, ``gelu(h2.float() * c2 + o2).mean((1, 2))`` on the
+    same h2: 1e-6 (the same fp32 terms summed in another order, then two
+    small linears and a sigmoid)."""
+    tm = _seeded_bf16_mbconv(rng)
+    seen = {}
+    se = tm.conv.fn[6]
+    hook = se.register_forward_hook(
+        lambda mod, args, kwargs, out: seen.update(h2=args[0], mean=kwargs["mean"], gate=out),
+        with_kwargs=True)
+    with torch.no_grad():
+        tm(_t(rng.standard_normal((2, 3, 16, 16, 128))).bfloat16())
+        hook.remove()
+        c2, o2 = tm.conv.fn[4].fold()
+        m2 = torch.nn.functional.gelu(seen["h2"].float() * c2 + o2).mean(dim=(1, 2))
+        want = se(seen["h2"], mean=m2, scale_only=True)
+    assert seen["mean"].dtype == torch.float32 and seen["mean"].shape == (6, 256)
+    np.testing.assert_allclose(_np(seen["mean"]), _np(m2), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(_np(seen["gate"]), _np(want), rtol=0, atol=1e-6)
+
+
+def test_mbconv_fused_body_follows_its_parameters(rng):
+    """The fused body rebuilds its bf16 GEMM weights, the [3,3,C] depthwise
+    weight and the folded norms on every forward (the eval step hands it
+    fresh casts of the parameters each time): a change of a parameter or of
+    a running statistic shows in the next forward, to the bit of a module
+    built fresh from the same state, also through ``functional_call``."""
+    from torch.func import functional_call
+    from uncrtaints_tpu_torch.models.blocks import MBConv
+    tm = _seeded_bf16_mbconv(rng)
+    x = _t(rng.standard_normal((2, 8, 8, 128))).bfloat16()
+
+    def fresh():
+        m = MBConv(128, 128, expansion=2, norm="batch", fused_eval=True).eval()
+        for p in m.parameters():
+            p.data = p.data.bfloat16()
+        m.load_state_dict(tm.state_dict())
+        return m(x)
+
+    with torch.inference_mode():
+        last = tm(x)
+        assert torch.equal(tm(x), last)
+        changes = (lambda: tm.conv.fn[0].weight.mul_(1.5),          # pw1, in place
+                   lambda: tm.conv.fn[3].weight.add_(0.25),         # depthwise, in place
+                   lambda: tm.conv.fn[4].running_var.mul_(2.0),     # bn2 statistic
+                   lambda: tm.load_state_dict({k: v * 1.25 if k.endswith("fn.8.weight") else v
+                                               for k, v in tm.state_dict().items()}))
+        for change in changes:
+            change()
+            y = tm(x)
+            assert not torch.equal(y, last)
+            assert torch.equal(y, fresh())
+            last = y
+        # fresh tensors in place of the parameters, as the eval step passes them
+        params = {k: (p * 0.5).to(torch.bfloat16) for k, p in tm.named_parameters()}
+        y = functional_call(tm, params, (x,))
+        assert not torch.equal(y, last) and torch.equal(functional_call(tm, params, (x,)), y)
+        assert torch.equal(tm(x), last)
+
+
 # ---------------------------------------------------- ResidualConvBlock --
 
 def _tree_state(variables, cfg, root_flax, root_torch):

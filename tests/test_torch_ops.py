@@ -506,6 +506,127 @@ def test_norm_gelu_dwconv_wrapper_rejects_bad_input():
     assert out.requires_grad and tops.norm_gelu_dwconv3x3.launches == n
 
 
+def _jax_pool(out, c2, o2):
+    """The SE reduction of the JAX fused body before its division by H*W
+    (uncrtaints_tpu/models/blocks.py, _fused_body): fp32 exact-erf GELU of the
+    affine of the depthwise output, summed over the pixels."""
+    import jax
+    g = jax.nn.gelu(jnp.asarray(out).astype(jnp.float32) * c2 + o2, approximate=False)
+    return np.asarray(g.sum(axis=(1, 2)))
+
+
+@pytest.mark.parametrize("shape,tile_h", [((1, 32, 256, 256, 1), 16), ((2, 24, 16, 128, 4), 8)])
+def test_norm_gelu_dwconv_pool_matches_jax_expression_bf16(rng, shape, tile_h):
+    """``pool_affine`` against the JAX expression, bf16. On the port's own
+    output the two are the same fp32 reduction in another order: 1e-5 of
+    sum|gelu|. On the JAX kernel's own output (interpret mode) the inputs
+    of the reduction differ by the two kernels' erf (A&S against exact), so
+    that comparison holds the statistics' tolerance of the JAX package's
+    kernel test, rtol 2e-3 with atol 2e-3 of sum|gelu|."""
+    from uncrtaints_tpu.ops.pallas_mbconv import norm_gelu_dwconv3x3
+    N, H, W, C, G = shape
+    args = _k4_case(rng, *shape)
+    c2 = rng.standard_normal(C).astype(np.float32)
+    o2 = rng.standard_normal(C).astype(np.float32)
+    ref, _, _ = norm_gelu_dwconv3x3(
+        jnp.asarray(args[0]).astype(jnp.bfloat16), *(jnp.asarray(a) for a in args[1:]),
+        groups_in=G, groups_out=G, tile_h=tile_h, interpret=True)
+    out, s1, s2, pool = tops.norm_gelu_dwconv3x3(
+        _t(args[0]).bfloat16(), *(_t(a) for a in args[1:]), groups_in=G, groups_out=G,
+        pool_affine=(_t(c2), _t(o2)))
+    assert pool.dtype == torch.float32 and pool.shape == (N, C)
+    own = _jax_pool(_np(out), c2, o2)
+    scale = np.abs(np.asarray(jax_gelu_abs(_np(out), c2, o2))).max()
+    np.testing.assert_allclose(_np(pool), own, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(_np(pool), _jax_pool(ref, c2, o2), rtol=2e-3, atol=2e-3 * scale)
+
+
+def jax_gelu_abs(out, c2, o2):
+    """sum over the pixels of |gelu(out * c2 + o2)|: the scale of the pooled
+    sum's rounding error."""
+    import jax
+    return jnp.abs(jax.nn.gelu(jnp.asarray(out, jnp.float32) * c2 + o2,
+                               approximate=False)).sum(axis=(1, 2))
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 7, 12, 3), (1, 2, 2, 8, 1), (2, 16, 16, 32, 4)])
+def test_norm_gelu_dwconv_pool_matches_jax_expression_fp32(rng, shape):
+    """fp32: the pooled sum against the JAX expression on an independent
+    output (exact-erf GELU, jnp reflect pad, lax depthwise conv): 1e-5 of
+    sum|gelu| (fp32 sums in another order on outputs that agree to 1e-5)."""
+    import jax
+    N, H, W, C, G = shape
+    x, mean, coef, scale, bias, w = _k4_case(rng, *shape)
+    x = x + 1e-3 * rng.standard_normal(x.shape).astype(np.float32)
+    c2 = rng.standard_normal(C).astype(np.float32)
+    o2 = rng.standard_normal(C).astype(np.float32)
+    mb = np.repeat(mean, C // G, -1)[:, None, None]
+    cb = np.repeat(coef, C // G, -1)[:, None, None]
+    h = jax.nn.gelu((jnp.asarray(x) - mb) * cb * scale + bias, approximate=False)
+    hp = jnp.pad(h, [(0, 0), (1, 1), (1, 1), (0, 0)], mode="reflect")
+    ref = np.asarray(jax.lax.conv_general_dilated(
+        hp, jnp.asarray(w)[:, :, None, :], (1, 1), "VALID",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), feature_group_count=C,
+        precision=jax.lax.Precision.HIGHEST))
+    out, s1, s2, pool = tops.norm_gelu_dwconv3x3(
+        *(_t(a) for a in (x, mean, coef, scale, bias, w)), groups_in=G, groups_out=G,
+        pool_affine=(_t(c2), _t(o2)))
+    top = np.abs(ref).max()
+    # |d gelu / d q| <= 1.13, so an output gap of 1e-5 top moves a term by
+    # at most 1.13e-5 top |c2|
+    slack = 1.13e-5 * top * np.abs(c2) * H * W
+    np.testing.assert_allclose(_np(pool), _jax_pool(ref, c2, o2), rtol=0,
+                               atol=float((1e-5 * np.asarray(jax_gelu_abs(ref, c2, o2)) + slack).max()))
+
+
+def test_norm_gelu_dwconv_pool_is_of_the_rounded_output(rng):
+    """The pooled sum takes the output after its cast to bf16, as the JAX
+    body applies its reduction to the bf16 h2."""
+    args = [_t(a) for a in _k4_case(rng, 2, 8, 8, 16, 4)]
+    c2, o2 = _t(rng.standard_normal(16)).float(), _t(rng.standard_normal(16)).float()
+    out, _, _, pool = tops.norm_gelu_dwconv3x3(args[0].bfloat16(), *args[1:],
+                                               pool_affine=(c2, o2))
+    want = torch.nn.functional.gelu(out.float() * c2 + o2).sum(dim=(1, 2))
+    assert torch.equal(pool, want)
+    exact, _, _, pool32 = tops.norm_gelu_dwconv3x3(args[0].bfloat16().float(), *args[1:],
+                                                   pool_affine=(c2, o2))
+    assert not torch.equal(pool, pool32)  # fp32 outputs: another sum
+    np.testing.assert_allclose(_np(pool), _np(pool32), rtol=0,
+                               atol=0.02 * float(exact.abs().max()) * 64)
+
+
+@pytest.mark.parametrize("pooled", [False, True])
+def test_norm_gelu_dwconv_without_stats(rng, pooled):
+    """``do_stats=False``: zeros for the statistics, the same output (and
+    pooled sum) to the bit; the tuple has four values only with
+    ``pool_affine``."""
+    args = [_t(a) for a in _k4_case(rng, 2, 6, 5, 16, 4)]
+    kw = dict(pool_affine=(_t(rng.standard_normal(16)), _t(rng.standard_normal(16)))) if pooled else {}
+    full = tops.norm_gelu_dwconv3x3(args[0].bfloat16(), *args[1:], **kw)
+    bare = tops.norm_gelu_dwconv3x3(args[0].bfloat16(), *args[1:], do_stats=False, **kw)
+    assert len(full) == len(bare) == (4 if pooled else 3)
+    assert torch.equal(full[0], bare[0])
+    assert full[1].any() and full[2].any()
+    assert bare[1].shape == (2, 4) and not bare[1].any() and not bare[2].any()
+    if pooled:
+        assert torch.equal(full[3], bare[3])
+
+
+def test_norm_gelu_dwconv_wrapper_rejects_bad_pool_affine():
+    x = torch.zeros(2, 4, 4, 16)
+    m, c, s, b = torch.zeros(2, 4), torch.ones(2, 4), torch.ones(16), torch.zeros(16)
+    w = torch.zeros(3, 3, 16)
+    with pytest.raises(ValueError, match=r"pool_affine\[0\]"):
+        tops.norm_gelu_dwconv3x3(x, m, c, s, b, w, pool_affine=(torch.ones(8), torch.zeros(16)))
+    with pytest.raises(ValueError, match=r"pool_affine\[1\]"):
+        tops.norm_gelu_dwconv3x3(x, m, c, s, b, w, pool_affine=(torch.ones(16), torch.zeros(2, 16)))
+    with pytest.raises(ValueError, match="scale, bias"):
+        tops.norm_gelu_dwconv3x3(x, m, c, s, b, w, pool_affine=(torch.ones(16),))
+    out = tops.norm_gelu_dwconv3x3(x, m, c, s, b, w,
+                                   pool_affine=(torch.ones(16).double(), torch.zeros(16)))
+    assert out[3].dtype == torch.float32  # the affine is taken as fp32
+
+
 # ------------------------------------------------------- plain torch ops --
 
 @pytest.mark.parametrize("hw,out", [((16, 16), (4, 4)), ((10, 7), (4, 3))])

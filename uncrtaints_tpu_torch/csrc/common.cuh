@@ -1,6 +1,7 @@
 // Helpers shared by the port's kernels: dtype codes, 16-byte vector loads
 // and stores with fp32 conversion, raw vectors, the depthwise geometry and
-// border modes, the exact (erf) GELU, and the second pass of the per-group output statistics.
+// border modes, the exact (erf) GELU, cp.async copies, and the second passes of the per-group
+// output statistics and of the per-channel pooled sum.
 #pragma once
 
 #include <cstdint>
@@ -122,11 +123,29 @@ __device__ __forceinline__ float gelu_exact(float v) {
   return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-// Second pass of the per-(frame, group) output statistics of K3 and K4. The
-// first pass leaves per-block, per-channel partial sums psum/psq
-// [N * blocks_per_frame, C]; one block per (frame n, group g) adds the
-// frame's partials over the group's channels in a fixed order (a strided
-// walk, then shuffle trees), so two runs give the same bits: no atomics.
+// 16 bytes from device to shared memory without passing registers; with
+// valid false nothing is read and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most PENDING of this thread's committed groups are in flight
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Last pass of the per-(frame, group) output statistics of K3 and K4. Given
+// per-channel partial sums psum/psq [N * blocks_per_frame, C], one block per
+// (frame n, group g) adds the frame's partials over the group's channels in
+// a fixed order (a strided walk, then shuffle trees), so two runs give the
+// same bits: no atomics. (launch_group_stats below first brings the rows of
+// a frame down to one.)
 // A template so that a source that does not launch it compiles nothing; in
 // an unnamed namespace so that each source that does gets its own copy.
 namespace {
@@ -167,6 +186,50 @@ __global__ void group_stats_kernel(const float* __restrict__ psum, const float* 
       sumsq[blockIdx.x] = q;
     }
   }
+}
+
+// The per-channel sibling of group_stats_kernel, for K4's pooled sum:
+// out[n, c] = the sum over frame n's partial rows of part[row, c], part
+// [N * rows_per_frame, C]. A block takes 32 channels of one frame; its
+// THREADS / 32 row lanes walk the rows with that stride and are added in a
+// fixed order, so two runs give the same bits.
+template <int THREADS>
+__global__ void channel_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                   int rows_per_frame, int C) {
+  constexpr int LANES = THREADS / 32;
+  __shared__ float sh[LANES][32];
+  const int cblocks = (C + 31) / 32;
+  const int n = blockIdx.x / cblocks, c = (blockIdx.x % cblocks) * 32 + (threadIdx.x & 31);
+  const int lane = threadIdx.x >> 5;
+  float s = 0.0f;
+  if (c < C)
+    for (int r = lane; r < rows_per_frame; r += LANES)
+      s += part[(static_cast<long long>(n) * rows_per_frame + r) * C + c];
+  sh[lane][threadIdx.x & 31] = s;
+  __syncthreads();
+  if (lane == 0 && c < C) {
+    float t = 0.0f;
+#pragma unroll
+    for (int l = 0; l < LANES; ++l) t += sh[l][threadIdx.x];
+    out[static_cast<long long>(n) * C + c] = t;
+  }
+}
+
+// Both second passes of the statistics, launched behind the kernel that
+// wrote the partial rows: first the rows of each frame are added per
+// channel (many blocks, coalesced), then each (frame, group) adds its
+// channels. psum and psq hold N more rows than the N * rows_per_frame
+// partial rows; the per-channel sums go there. (A template for the same
+// reason as the kernels: only a source that calls it compiles them.)
+template <int THREADS = 256>
+void launch_group_stats(float* psum, float* psq, float* sum, float* sumsq, int N,
+                               int rows_per_frame, int C, int groups, cudaStream_t s) {
+  const long long tail = static_cast<long long>(N) * rows_per_frame * C;
+  const int blocks = N * ((C + 31) / 32);
+  channel_sum_kernel<512><<<blocks, 512, 0, s>>>(psum, psum + tail, rows_per_frame, C);
+  channel_sum_kernel<512><<<blocks, 512, 0, s>>>(psq, psq + tail, rows_per_frame, C);
+  group_stats_kernel<THREADS><<<N * groups, THREADS, 0, s>>>(psum + tail, psq + tail, sum, sumsq,
+                                                             1, C, groups);
 }
 }  // namespace
 

@@ -73,36 +73,19 @@ struct DwPatch {
   static_assert(DW_THREADS % TC == 0 && DW_WT % LANES == 0, "patch layout");
 };
 
-// 16 bytes from device to shared memory without passing registers; with
-// valid false nothing is read and the 16 bytes are zero-filled
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most PENDING of this thread's committed groups are in flight
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
 // Start the copies of tile rows [t0, t1) into a ring of SLOTS row slabs of
 // COLS pixels. Tile row t, column p is the pixel (row0 + t, col0 + p) of
 // frame n of src [N,H,W,C], channels c0 .. c0 + CB. With reflect the pixel
 // is mirrored into the map; otherwise a pixel outside it (and a channel
-// chunk past C) is zero-filled. All threads of the block call it.
-template <typename T, int COLS, int SLOTS>
+// chunk past C) is zero-filled. All THREADS threads of the block call it.
+template <typename T, int COLS, int SLOTS, int THREADS = DW_THREADS>
 __device__ __forceinline__ void dw_stage_rows(unsigned char* ring, const T* __restrict__ src,
                                               bool reflect, int n, int H, int W, int C, int row0,
                                               int col0, int c0, int t0, int t1) {
   constexpr int EPC = 16 / sizeof(T);
   constexpr int PER_ROW = COLS * DW_CPP;
   const int total = (t1 - t0) * PER_ROW;
-  for (int i = threadIdx.x; i < total; i += DW_THREADS) {
+  for (int i = threadIdx.x; i < total; i += THREADS) {
     const int t = t0 + i / PER_ROW, rem = i % PER_ROW;
     const int p = rem / DW_CPP, q = rem % DW_CPP;
     int r = row0 + t, s = col0 + p;
@@ -120,16 +103,16 @@ __device__ __forceinline__ void dw_stage_rows(unsigned char* ring, const T* __re
 }
 
 // blocks of a persistent grid: as many as the card holds at once (SM count
-// x resident blocks of this kernel), asked of the device, never more than
-// there are items
+// x resident blocks of this kernel at `threads` a block), asked of the
+// device, never more than there are items
 template <typename Kernel>
-int dw_resident_blocks(Kernel kernel, size_t smem, long long items) {
+int dw_resident_blocks(Kernel kernel, size_t smem, long long items, int threads = DW_THREADS) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DW_THREADS, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   return static_cast<int>(fit < items ? fit : (items > 0 ? items : 1));
 }

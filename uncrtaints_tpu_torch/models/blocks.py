@@ -118,9 +118,13 @@ class MBConv(nn.Module):
         reflect depthwise 3x3 in one K4 launch, bn1's folded affine being
         its norm; then bn3(pw2(se * gelu(bn2(h2)))) with bn2 + GELU + the SE
         gate as K3's prologue and bn3 as its epilogue. The SE pooled vector
-        is the fp32 mean of gelu(bn2(h2)). The GEMM weights go to K3 as
-        bf16; K4 takes the depthwise weight as [3,3,C]. K4's group
-        statistics are not consumed here (batch norm needs none)."""
+        is the fp32 mean of gelu(bn2(h2)): K4 sums it per channel in the
+        pass that writes h2 (``pool_affine``), so h2 is not read again. The
+        GEMM weights go to K3 as bf16 [C,C2]; K4 takes the depthwise weight
+        as [3,3,C]. K4's group statistics are not asked for (batch norm
+        needs none). The small weight transforms and folds are redone every
+        forward: the eval step hands the module fresh casts of its
+        parameters each time, so there is nothing stable to key a cache on."""
         fn = self.conv.fn
         NF, H, W, C = a.shape
         P, hidden = H * W, self.hidden
@@ -134,14 +138,12 @@ class MBConv(nn.Module):
             do_gelu=False, do_stats=False)
 
         c1, o1 = fn[1].fold()
-        wd = fn[3].weight[:, 0].permute(1, 2, 0)  # [C,1,3,3] -> [3,3,C]
-        h2, _, _ = norm_gelu_dwconv3x3(
-            h1.view(NF, H, W, hidden), zero, one, c1, o1, wd, groups_in=1,
-            groups_out=1)
-
         c2, o2 = fn[4].fold()
-        m2 = F.gelu(h2.float() * c2 + o2).mean(dim=(1, 2))
-        s = fn[6](h2, mean=m2, scale_only=True)
+        wd = fn[3].weight[:, 0].permute(1, 2, 0)  # [C,1,3,3] -> [3,3,C]
+        h2, _, _, pool = norm_gelu_dwconv3x3(
+            h1.view(NF, H, W, hidden), zero, one, c1, o1, wd, groups_in=1,
+            groups_out=1, do_stats=False, pool_affine=(c2, o2))
+        s = fn[6](h2, mean=pool / (H * W), scale_only=True)
 
         w2 = fn[7].weight[:, :, 0, 0].t().to(torch.bfloat16).contiguous()
         y, _, _ = norm_gelu_matmul(

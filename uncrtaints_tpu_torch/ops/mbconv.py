@@ -12,6 +12,7 @@ pointwise convolutions through K3 and its depthwise convolution through K4
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -19,7 +20,7 @@ import torch.nn.functional as F
 
 from uncrtaints_tpu_torch import _build
 
-BLOCK_M = 128  # rows per CUDA block; a block must not straddle two frames
+BLOCK_M = 128  # P must be a multiple: a CUDA block's rows must not straddle two frames
 
 
 def norm_gelu_matmul_plain(x, mean, coef, scale, bias, w, se=None,
@@ -71,6 +72,14 @@ def _refuse_grad(name: str, tensors) -> None:
             "is for eval), or with inputs that do not require grad")
 
 
+@functools.lru_cache(maxsize=None)
+def _tile_rows(dtype_code: int, C: int, C2: int, groups_in: int) -> int:
+    """Rows of x behind one partial row of K3's statistics: 64 where the
+    wgmma kernel runs, else 128. Asked of the library once per shape."""
+    ci = ctypes.c_int
+    return _build.kernel("uncr_ngm_tile_rows", [ci, ci, ci, ci])(dtype_code, C, C2, groups_in)
+
+
 def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
                      scale: torch.Tensor, bias: torch.Tensor, w: torch.Tensor,
                      se: Optional[torch.Tensor] = None, groups_in: int = 4,
@@ -86,10 +95,14 @@ def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
     [N,groups_out]): the per-(frame, group) sum and sum of squares of the
     output after rounding, or zeros when ``do_stats`` is False.
 
-    A CUDA tensor launches the CUDA kernel, which needs P % 128 == 0,
+    A CUDA tensor launches a CUDA kernel, which needs P % 128 == 0,
     C % 32 == 0 and C2 % 16 == 0 (anything else raises); a CPU tensor runs
-    :func:`norm_gelu_matmul_plain`. ``norm_gelu_matmul.launches`` counts
-    the kernel launches. The kernel has no backward (the JAX kernel has no
+    :func:`norm_gelu_matmul_plain`. bf16 x with C and C2 of 128 or 256 (not
+    both 256) and input groups of whole 8-channel chunks runs the pipelined
+    wgmma kernel, everything else the tiled WMMA kernel.
+    ``norm_gelu_matmul.launches`` counts the launches of either,
+    ``norm_gelu_matmul.wgmma_launches`` those of the first. The kernel has
+    no backward (the JAX kernel has no
     VJP either; it serves the eval step only), so on the card it raises
     when grad is enabled and an input requires grad, rather than return a
     result detached from the graph."""
@@ -142,12 +155,15 @@ def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
     s2 = torch.zeros((N, groups_out), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, s1, s2
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    # rows of x behind one partial row: 64 under the wgmma kernel, else 128
+    # (N more rows serve the statistics' second pass)
+    tile_rows = _tile_rows(_build.DTYPE_CODES[x.dtype], C, C2, groups_in)
     psum = psq = None
     if do_stats:
-        psum = torch.empty((N * P // BLOCK_M, C2), dtype=torch.float32, device=dev)
+        psum = torch.empty((N * P // tile_rows + N, C2), dtype=torch.float32, device=dev)
         psq = torch.empty_like(psum)
     ptr = lambda t: t.data_ptr() if t is not None else None
-    vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = _build.kernel("uncr_norm_gelu_matmul", [
         vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, vp, ci,
         ctypes.c_longlong, ci, ci, vp, vp, vp, vp, ci, vp])
@@ -160,20 +176,26 @@ def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "uncr_norm_gelu_matmul")
     norm_gelu_matmul.launches += 1
+    norm_gelu_matmul.wgmma_launches += tile_rows != BLOCK_M
     return out, s1, s2
 
 
 norm_gelu_matmul.launches = 0
+norm_gelu_matmul.wgmma_launches = 0
 
 
 # ------------------------------------------------------------------- K4 --
 
 def norm_gelu_dwconv3x3_plain(x, mean, coef, scale, bias, w,
-                              groups_in: int = 4, groups_out: int = 4):
+                              groups_in: int = 4, groups_out: int = 4,
+                              do_stats: bool = True, pool_affine=None):
     """The plain PyTorch version of kernel K4: the prologue and the exact
     GELU in fp32, a reflect pad of one pixel, then the nine fp32 shifted
     multiply-adds in the JAX kernel's order (dx-major, dy-minor; product
-    and sum rounded separately), one cast, and the sums of the cast output."""
+    and sum rounded separately), one cast, and the sums of the cast output
+    (zeros when ``do_stats`` is False). With ``pool_affine=(scale, bias)``
+    a fourth value: the per-(frame, channel) sum over the pixels of
+    ``gelu(q * scale + bias)``, q the cast output taken back to fp32."""
     N, H, W, C = x.shape
     m = mean.float().repeat_interleave(C // groups_in, -1)[:, None, None, :]
     cf = coef.float().repeat_interleave(C // groups_in, -1)[:, None, None, :]
@@ -186,20 +208,38 @@ def norm_gelu_dwconv3x3_plain(x, mean, coef, scale, bias, w,
         for dy in range(3):
             acc = acc + hp[:, dy:dy + H, dx:dx + W] * w9[dy * 3 + dx]
     out = acc.to(x.dtype)
-    og = out.float().view(N, H * W, groups_out, C // groups_out)
-    return out, og.sum(dim=(1, 3)), og.square().sum(dim=(1, 3))
+    if do_stats:
+        og = out.float().view(N, H * W, groups_out, C // groups_out)
+        s1, s2 = og.sum(dim=(1, 3)), og.square().sum(dim=(1, 3))
+    else:
+        s1 = torch.zeros((N, groups_out), dtype=torch.float32, device=x.device)
+        s2 = s1.clone()
+    if pool_affine is None:
+        return out, s1, s2
+    pool = F.gelu(out.float() * pool_affine[0].float()
+                  + pool_affine[1].float()).sum(dim=(1, 2))
+    return out, s1, s2, pool
 
 
 def norm_gelu_dwconv3x3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
                         scale: torch.Tensor, bias: torch.Tensor, w: torch.Tensor,
-                        groups_in: int = 4, groups_out: int = 4):
+                        groups_in: int = 4, groups_out: int = 4,
+                        do_stats: bool = True,
+                        pool_affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """dw3x3(gelu(norm(x))) with reflect borders, fused.
 
     x [N,H,W,C] (bf16 or fp32, NHWC contiguous, H and W >= 2); mean/coef
     [N,groups_in]; scale/bias [C]; w [3,3,C] (tap dy, dx). The small
     tensors are taken as fp32. Returns (out [N,H,W,C] in x's dtype, sum
     [N,groups_out], sumsq [N,groups_out]): the per-(frame, group) sum and
-    sum of squares of the output after rounding.
+    sum of squares of the output after rounding, or zeros when ``do_stats``
+    is False (the kernel then skips them).
+
+    ``pool_affine=(pscale, pbias)``, each [C], adds a fourth return value
+    ``pool`` [N,C] fp32: the sum over the frame's pixels of
+    ``gelu(q * pscale + pbias)``, q the output after rounding to x's dtype.
+    Divided by H*W it is the squeeze-and-excitation mean of the fused MBConv
+    body, taken in the same pass over the output.
 
     A CUDA tensor launches the CUDA kernel, which moves 16-byte channel
     vectors and so needs C % 8 == 0 in bf16 and C % 4 == 0 in fp32
@@ -221,25 +261,31 @@ def norm_gelu_dwconv3x3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
                          f"{groups_in} and groups_out={groups_out}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous")
+    if pool_affine is not None:
+        if len(pool_affine) != 2:
+            raise ValueError(f"{name}: pool_affine must be (scale, bias)")
+        pool_affine = tuple(_f32(t, (C,), f"{name}: pool_affine[{i}]")
+                            for i, t in enumerate(pool_affine))
     if x.device.type == "cpu":
-        return norm_gelu_dwconv3x3_plain(x, mean, coef, scale, bias, w,
-                                         groups_in=groups_in, groups_out=groups_out)
+        return norm_gelu_dwconv3x3_plain(
+            x, mean, coef, scale, bias, w, groups_in=groups_in,
+            groups_out=groups_out, do_stats=do_stats, pool_affine=pool_affine)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    _refuse_grad(name, (x, mean, coef, scale, bias, w))
+    _refuse_grad(name, (x, mean, coef, scale, bias, w,
+                        *(pool_affine if pool_affine is not None else ())))
     vec = 16 // x.element_size()
     if C % vec:
         raise ValueError(f"{name} kernel needs C % {vec} == 0 for {x.dtype} "
                          f"(16-byte channel vectors), got C={C}")
-    if N > 65535:
-        raise ValueError(f"{name} kernel takes at most 65535 frames, got {N}")
 
     mean = _f32(mean, (N, groups_in), f"{name}: mean")
     coef = _f32(coef, (N, groups_in), f"{name}: coef")
     scale = _f32(scale, (C,), f"{name}: scale")
     bias = _f32(bias, (C,), f"{name}: bias")
     w9 = w.to(torch.float32).reshape(9, C).contiguous()
-    if any(t.device != x.device for t in (mean, coef, scale, bias, w9)):
+    small = (mean, coef, scale, bias, w9, *(pool_affine or ()))
+    if any(t.device != x.device for t in small):
         raise ValueError(f"{name}: all tensors must be on x's device")
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: x must be 16-byte aligned")
@@ -248,24 +294,38 @@ def norm_gelu_dwconv3x3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
     out = torch.empty_like(x)
     s1 = torch.zeros((N, groups_out), dtype=torch.float32, device=dev)
     s2 = torch.zeros((N, groups_out), dtype=torch.float32, device=dev)
+    pool = None
+    result = (out, s1, s2)
+    if pool_affine is not None:
+        pool = torch.zeros((N, C), dtype=torch.float32, device=dev)
+        result = (out, s1, s2, pool)
     if out.numel() == 0:
-        return out, s1, s2
+        return result
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    blocks = _build.kernel("uncr_ngd_blocks", [ci, ci])(H, W)
-    psum = torch.empty((N * blocks, C), dtype=torch.float32, device=dev)
-    psq = torch.empty_like(psum)
+    # one partial row per item of the kernel's grid walk (and N more for
+    # the statistics' second pass)
+    rows = N * _build.kernel("uncr_ngd_blocks", [ci, ci])(H, W)
+    psum = psq = ppool = pscale = pbias = None
+    if do_stats:
+        psum = torch.empty((rows + N, C), dtype=torch.float32, device=dev)
+        psq = torch.empty_like(psum)
+    if pool_affine is not None:
+        pscale, pbias = pool_affine
+        ppool = torch.empty((rows, C), dtype=torch.float32, device=dev)
+    ptr = lambda t: t.data_ptr() if t is not None else None
     fn = _build.kernel("uncr_norm_gelu_dwconv3x3", [
         vp, ci, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, ci,
-        vp])
+        vp, vp, vp, vp, vp])
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), _build.DTYPE_CODES[x.dtype], mean.data_ptr(),
                  coef.data_ptr(), groups_in, scale.data_ptr(), bias.data_ptr(),
-                 w9.data_ptr(), out.data_ptr(), N, H, W, C, psum.data_ptr(),
-                 psq.data_ptr(), s1.data_ptr(), s2.data_ptr(), groups_out,
+                 w9.data_ptr(), out.data_ptr(), N, H, W, C, ptr(psum),
+                 ptr(psq), s1.data_ptr(), s2.data_ptr(), groups_out,
+                 ptr(pscale), ptr(pbias), ptr(ppool), ptr(pool),
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "uncr_norm_gelu_dwconv3x3")
     norm_gelu_dwconv3x3.launches += 1
-    return out, s1, s2
+    return result
 
 
 norm_gelu_dwconv3x3.launches = 0
