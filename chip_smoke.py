@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, scene-inference and training paths on
-one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, scene-inference and training paths and
+its train / test command-line entry points on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          (from the root of a checkout, one card)
 
@@ -57,17 +57,43 @@ runs under ``torch.profiler``: no ``reflection_pad`` kernel may appear (the
 reflect border lives in K5 and K2), and the device time is printed by kind.
 Phase 5 compares one fp32 train step on the card with the same step on
 the CPU on a small input.
+Phase 6 runs the entry points a user starts, in a temporary directory, at
+the paper recipe's full width (bf16, B=4, T=3, 256x256, synthetic data, 8
+samples a split, gamma 0.8): ``cli.train.main`` for one epoch, the same run
+resumed to two epochs through ``apply_resume``, and ``cli.test.main`` twice.
+It checks the files (conf.json, trainlog.json, the best and the per-epoch
+checkpoints, the metrics files, the exported pred / target / covar arrays),
+finite test metrics, that the two test runs equal each other and the train
+run's final test to the bit, that the resumed epoch continued Adam's count
+and the step and ran at the lr the schedule sets there, and that the
+launches over the chain are exactly (train steps) x (1 K1 + 1 K1-bwd + 12 K5
++ 6 K2) + (eval forwards) x (1 K1 + 10 K3 + 5 K4). After the counters are
+read it holds what only a card runs: a checkpoint saved from the card and
+loaded into a fresh model gives the same eval step to the bit; the batches
+the side-stream prefetch hands out equal the host's; a val epoch with the
+prefetch equals one without it to the bit, and so does a one-step train
+epoch (longer train epochs within 5e-3: the bilinear upsample's backward
+sums with atomics, and the steps drift apart); and it prints the epochs'
+sequences/s beside the bare steps' of phases 2 and 4, the host
+synchronizations PyTorch reports in each epoch by the line that made them,
+and the time of one ``save_checkpoint``.
 
 Any failed check raises. The last line of stdout is the JSON result; the
 line before it lists the kernels. Without a CUDA device the script exits
 with an error and prints no result.
 """
 
+import collections
+import importlib.util
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -665,7 +691,7 @@ def phase2_slice(dev):
     print(f"  eval step: {ms:.3f} ms median of {n_fwd} (min {min(times):.3f}, "
           f"max {max(times):.3f}), {B / ms * 1e3:.2f} sequences/s")
     profile_eval_step(step, model, batches[0], ms)
-    return cfg, model, batches, {"K1": k1, "K3": k3, "K4": k4}
+    return cfg, model, batches, {"K1": k1, "K3": k3, "K4": k4}, ms
 
 
 # device kernels of an eval step by kind, as KERNEL_KINDS below
@@ -964,7 +990,7 @@ def phase4_train(dev, batches):
           f"max {max(times):.3f}), {B / ms * 1e3:.2f} sequences/s, peak device memory "
           f"{peak / 2**30:.2f} GiB ({peak} bytes)")
     profile_train_step(step, state, batches[0], gen)
-    return counts
+    return counts, ms
 
 
 # device kernels of a train step by kind: the first fragment found in a
@@ -1046,6 +1072,230 @@ def phase5_train_reference(dev):
     check(worst <= 1e-3, f"card/CPU gradient gap in {worst_name}")
 
 
+class count_syncs:
+    """Record the host synchronizations PyTorch reports while the block
+    runs (``torch.cuda.set_sync_debug_mode("warn")``): ``by_line`` counts
+    them by the Python line that made them."""
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        self.by_line = collections.Counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        for w in self._seen:
+            if "synchroniz" in str(w.message):
+                self.by_line[f"{os.path.basename(w.filename)}:{w.lineno}"] += 1
+        return self._catch.__exit__(*exc)
+
+    @property
+    def n(self):
+        return sum(self.by_line.values())
+
+
+def phase6_cli(dev, eval_ms, train_ms):
+    """The train and test CLIs at the paper recipe's full width, in a
+    temporary directory; returns the launches of the chain."""
+    from uncrtaints_tpu_torch.cli import test as cli_test, train as cli_train
+    from uncrtaints_tpu_torch.config import Config, apply_resume, derive
+    from uncrtaints_tpu_torch.data import (BatchLoader, Subset, SyntheticSEN12MSCRTS,
+                                           select_collate)
+    from uncrtaints_tpu_torch.models import get_generator
+    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv
+    from uncrtaints_tpu_torch.train import (create_train_state, epoch_lr, make_eval_step,
+                                            make_train_step)
+    from uncrtaints_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from uncrtaints_tpu_torch.train.loop import _device_batches, iterate
+
+    print("phase 6: optional packages on this machine: " + ", ".join(
+        f"{m} {'found' if importlib.util.find_spec(m) else 'missing'}"
+        for m in ("tensorboard", "matplotlib")))
+    kernels = {"K1": aggregate.att_group_aggregate, "K1-bwd": aggregate.att_group_aggregate_bwd,
+               "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad,
+               "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3}
+    n_samples, gamma = 8, 0.8
+    n_batches = math.ceil(n_samples / B)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = os.path.join(tmp, "results")
+        exp = os.path.join(res, "smoke")
+
+        def recipe(**kw):  # the paper recipe, as the train CLI's flags would give it
+            return derive(Config(
+                use_sar=True, scale_by=10.0, gamma=gamma, synthetic_data=True,
+                synthetic_patch=PATCH, batch_size=B, input_t=T, max_samples_count=n_samples,
+                num_workers=4, plot_every=-1, export_every=4, res_dir=res,
+                experiment_name="smoke", **kw))
+
+        cfg = recipe(epochs=1)
+        check(cfg.device == "cuda" and cfg.compute_dtype == "bfloat16"
+              and cfg.encoder_widths == [128] and cfg.decoder_widths == [128] * 5,
+              "phase 6 runs the paper recipe at full width on the card")
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        first = cli_train.main(cfg)
+        ckpt1 = os.path.join(exp, "model_epoch_1.pth.tar")
+        resumed = apply_resume(recipe(epochs=2, resume_from=True, trained_checkp=ckpt1,
+                                      resume_at=1))
+        second = cli_train.main(resumed)
+        argv = ["--experiment_name", "smoke", "--weight_folder", res, "--res_dir",
+                os.path.join(tmp, "inference"), "--max_samples_count", str(n_samples),
+                "--batch_size", str(B), "--input_t", str(T), "--num_workers", "4",
+                "--export_every", "4"]
+        tests = [cli_test.main(cli_test.load_test_config(argv)) for _ in range(2)]
+        chain_s = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in kernels.items()}
+
+        train_steps = 2 * n_batches
+        evals = (2 * 2 + 2) * n_batches  # a val and a test epoch per train run, two test runs
+        want = {"K1": train_steps + evals, "K1-bwd": train_steps, "K5": 12 * train_steps,
+                "K2": 6 * train_steps, "K3": 10 * evals, "K4": 5 * evals}
+        print(f"phase 6: cli.train (1 epoch), cli.train resumed to 2 epochs, cli.test twice, paper "
+              f"recipe (bf16), {n_samples} samples a split in batches of {B}: {chain_s:.1f} s, "
+              f"{train_steps} train steps and {evals} eval forwards, launches {counts}")
+        check(counts == want, f"the CLI chain launched {counts}, expected {want}")
+
+        files = ["conf.json", "trainlog.json", "model.pth.tar", "model_epoch_1.pth.tar",
+                 "model_epoch_2.pth.tar", "test_metrics.json", "val_epoch_1_metrics.json",
+                 "val_epoch_2_metrics.json"]
+        files += [os.path.join("export", f"epoch_{e}", mode, f"img-{i}_{m}.npy")
+                  for e, mode in ((1, "val"), (1, "test"), (2, "val"), (2, "test"))
+                  for i in (0, 4) for m in ("pred", "target", "covar")]
+        missing = [f for f in files if not os.path.isfile(os.path.join(exp, f))]
+        check(not missing, f"files the CLI chain did not write: {missing}")
+        covar = np.load(os.path.join(exp, "export", "epoch_2", "test", "img-4_covar.npy"))
+        check(covar.shape == (13, 13, PATCH, PATCH) and bool(np.isfinite(covar).all()),
+              f"exported covar {covar.shape}")
+        with open(os.path.join(exp, "test_metrics.json")) as f:
+            tm = json.load(f)
+        names = ("RMSE", "MAE", "PSNR", "SAM", "SSIM", "mean var", "UCE SE", "AUCE SE")
+        check(all(k in tm for k in names) and all(np.isfinite(v) for v in tm.values()),
+              f"test_metrics.json {tm}")
+        print(f"  test_metrics.json: { {k: round(v, 6) for k, v in tm.items()} }")
+        check(tests[0] == tests[1], f"two cli.test runs differ: {tests}")
+        check(tests[0] == second["test"],
+              f"cli.test {tests[0]} differs from the train run's final test {second['test']}")
+        check(tm == {k: float(v) for k, v in second["test"].items()},
+              "test_metrics.json is not the train run's final test")
+        print("  two cli.test runs and the train run's final test on model.pth.tar: equal to the bit")
+
+        # the resumed epoch: Adam's count and the step go on, the lr is the schedule's
+        one = torch.load(ckpt1, weights_only=True)
+        two = torch.load(os.path.join(exp, "model_epoch_2.pth.tar"), weights_only=True)
+        got = [(c["epoch"], c["step"], c["optimizer_G"]["count"], c["lr"]) for c in (one, two)]
+        want_lr = [epoch_lr(cfg, 0), epoch_lr(resumed, 1)]
+        print(f"  checkpoints (epoch, step, Adam count, lr): {got}; the schedule's lr {want_lr}")
+        check(got == [(1, n_batches, n_batches, want_lr[0]),
+                      (2, 2 * n_batches, 2 * n_batches, want_lr[1])]
+              and want_lr[1] == cfg.lr * gamma, "the resumed epoch's step, count or lr")
+        check(set(map(int, second["trainlog"])) == {2} and set(map(int, first["trainlog"])) == {1},
+              "the resumed run trained other epochs than the second")
+        with open(os.path.join(exp, "trainlog.json")) as f:
+            log2 = json.load(f)["2"]
+        check(all(np.isfinite(v) for v in log2.values()), f"trainlog.json {log2}")
+
+        # ---- after the counted chain: what only a card runs
+        rcfg = resumed.replace(export_every=-1)
+        state = create_train_state(rcfg, get_generator(rcfg))
+        state, meta = load_checkpoint(rcfg, res, state, "model_epoch_2")
+        check(meta["epoch"] == 2 and state.step == 2 * n_batches
+              and {p.device.type for p in state.model.parameters()} == {"cuda"},
+              "load_checkpoint on the card")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(rcfg.replace(experiment_name="round"), 2, state, "trip", 1e-3)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        print(f"  one save_checkpoint (model, moments, {os.path.getsize(path) / 2**20:.1f} MiB): "
+              f"{save_ms:.1f} ms")
+        fresh = create_train_state(rcfg, get_generator(rcfg.replace(rdm_seed=7)))
+        fresh, _ = load_checkpoint(rcfg.replace(experiment_name="round"), res, fresh, "trip")
+        ds = SyntheticSEN12MSCRTS(n_samples=32, n_input_t=T, patch_size=PATCH, seed=SEED + 8)
+        mk_loader = lambda n=None: BatchLoader(
+            Subset(ds, range(n or len(ds))), batch_size=B, collate=select_collate(rcfg),
+            num_workers=4, drop_last=False)
+        eval_step = make_eval_step(rcfg, with_metrics=True)
+        _, dev_batch = next(iter(_device_batches(mk_loader(), dev, False)))
+        a, b = eval_step(state.model, dev_batch), eval_step(fresh.model, dev_batch)
+        same = (torch.equal(a["loss"], b["loss"]) and torch.equal(a["pred"], b["pred"])
+                and torch.equal(a["var"], b["var"])
+                and all(torch.equal(a["metrics"][k], b["metrics"][k]) for k in a["metrics"]))
+        check(same and all(torch.equal(m, fresh.opt_state.mu[n]) for n, m in
+                           state.opt_state.mu.items()),
+              "save -> fresh model -> load changes the eval step or the moments")
+        print("  checkpoint round trip on the card (save, fresh model, load, one eval step): "
+              "equal to the bit")
+
+        # the side-stream prefetch hands out the host's batches, with the
+        # consumer's stream kept busy while the next copy runs
+        n_seen = 0
+        for host, devb in _device_batches(mk_loader(), dev, True):
+            torch.cuda._sleep(SPIN_CYCLES)
+            for k, v in host.items():
+                check(torch.equal(devb[k].cpu(), torch.from_numpy(v)),
+                      f"prefetched batch {n_seen}: {k} differs from the host's")
+            n_seen += 1
+        check(n_seen == len(ds) // B, f"the prefetch handed out {n_seen} of {len(ds) // B} batches")
+
+        def epoch(mode, prefetch, samples=None, **step):
+            model_state = create_train_state(rcfg, get_generator(rcfg))
+            load_checkpoint(rcfg, res, model_state, "model_epoch_2")
+            with count_syncs() as syncs:
+                _, m, img = iterate(model_state, mk_loader(samples), rcfg, None, mode, 3,
+                                    prefetch=prefetch, **step)
+            return m, img, syncs
+
+        eval_step = make_eval_step(rcfg, with_metrics=True,
+                                   return_outputs=cli_train.need_outputs(rcfg))
+        train_step = make_train_step(rcfg)
+        t0 = time.perf_counter()
+        n_loaded = sum(len(b["y"]) for b in mk_loader())
+        loader_s = time.perf_counter() - t0
+        check(n_loaded == len(ds), f"the loader yielded {n_loaded} of {len(ds)} samples")
+        print(f"  the loader alone (synthetic source, single-pass collate, 4 threads), {n_loaded} "
+              f"samples: {loader_s * 1e3:.1f} ms, {n_loaded / loader_s:.2f} sequences/s")
+        epoch("val", True, eval_step=eval_step)  # warm-up of the loop's own shapes
+        # with the prefetch, without, without, with: the host's load drifts
+        order = (True, False, False, True)
+        val = [epoch("val", p, eval_step=eval_step) for p in order]
+        train = [epoch("train", p, train_step=train_step) for p in order]
+        for (m, img, _) in val[1:]:
+            check(m["val_loss"] == val[0][0]["val_loss"] and img == val[0][1],
+                  f"val epoch with the prefetch {val[0][:2]} and without {m, img}")
+        # a train step's backward sums with atomics (the bilinear upsample's),
+        # so only the first step of an epoch repeats to the bit; later steps
+        # drift apart (1e-4 of the loss after 8 steps at this lr), while a
+        # wrong or stale batch would move the loss by percents
+        first = [epoch("train", p, train_step=train_step, samples=B)[0]["train_loss"]
+                 for p in (True, False)]
+        check(first[0] == first[1], f"one-step train epoch with the prefetch and without {first}")
+        losses = [m["train_loss"] for m, _, _ in train]
+        rel = max(abs(v / losses[0] - 1) for v in losses)
+        check(rel <= 5e-3, f"train epoch losses with and without the prefetch {losses}")
+        print(f"  prefetch on, off, off, on, {len(ds)} samples: val epoch loss and every metric "
+              f"equal to the bit; a one-step train epoch equal to the bit; the 8-step train "
+              f"epochs' losses within {rel:.3g} (<= 5e-3; bit-equal {len(set(losses)) == 1})")
+        n = len(ds)
+        for mode, runs, bare in (("train", train, train_ms), ("val", val, eval_ms)):
+            ms = [m[f"{mode}_epoch_time"] * 1e3 for m, _, _ in runs]
+            on, off = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+            print(f"  {mode} epoch through the loader and the loop, {n} samples, prefetch on, off, "
+                  f"off, on: {', '.join(f'{t:.1f}' for t in ms)} ms; on {n / on * 1e3:.2f}, off "
+                  f"{n / off * 1e3:.2f} sequences/s; the bare "
+                  f"{mode if mode == 'train' else 'eval'} step of phase "
+                  f"{4 if mode == 'train' else 2}: {bare:.2f} ms, {B / bare * 1e3:.2f} sequences/s")
+            syncs = runs[0][2]
+            print(f"  host synchronizations in the {mode} epoch ({n // B} steps): {syncs.n}, by "
+                  f"line {dict(syncs.by_line)}")
+        cli_epochs = {k: round(n_samples / v, 2) for k, v in log2.items() if k.endswith("_time")}
+        print(f"  the CLI's own second epoch ({n_samples} samples, trainlog.json), sequences/s: "
+              f"{cli_epochs}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1071,22 +1321,25 @@ def main():
 
     kern = phase1_kernels(dev)
     took("phase 1")
-    cfg, model, batches, evalc = phase2_slice(dev)
+    cfg, model, batches, evalc, eval_ms = phase2_slice(dev)
     took("phase 2")
     off = phase3_references(dev, cfg, model, batches[0])
     took("phase 3")
     scene = phase_scene(dev, cfg, model, off)
     took("the scene phase")
     del model, off
-    train = phase4_train(dev, batches)
+    train, train_ms = phase4_train(dev, batches)
     took("phase 4")
     phase5_train_reference(dev)
     took("phase 5")
-    print(f"launches by path: eval {evalc}; scene {scene}; train {train}")
+    del batches
+    cli = phase6_cli(dev, eval_ms, train_ms)
+    took("phase 6")
+    print(f"launches by path: eval {evalc}; scene {scene}; train {train}; CLIs {cli}")
 
-    # launches: the sum over the three paths' runs (eval, scene, train),
-    # each counted from 0 just before the path to just after it
-    paths = (evalc, scene, train)
+    # launches: the sum over the four paths' runs (eval, scene, train, the
+    # CLI chain), each counted from 0 just before the path to just after it
+    paths = (evalc, scene, train, cli)
     meta = {  # name: (source, the TPU kernel it replaces, its counter)
         "att_group_aggregate": ("aggregate.cu", "pallas_aggregate.py:268", "K1"),
         "att_group_aggregate_bwd": ("aggregate.cu", "pallas_aggregate.py:164", "K1-bwd"),

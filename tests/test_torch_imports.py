@@ -1,6 +1,8 @@
 """The port stands alone: ``uncrtaints_tpu_torch`` and ``chip_smoke.py``
-import nothing of JAX and nothing of the JAX package, and the port's own
-copies of the config, the synthetic data source and the collate equal the
+import nothing of JAX and nothing of the JAX package (nor tensorflow or
+orbax, which that package logs and checkpoints with), and the port's own
+copies of the config, the synthetic data source, the collates, the host
+radiometry, the calibration metrics and the checkpoint key rule equal the
 JAX package's.
 """
 
@@ -14,7 +16,10 @@ import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "uncrtaints_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow", "uncrtaints_tpu")
+# the entry points and what they stand on, which the walk must have found
+ENTRY_MODULES = ("cli.train", "cli.test", "train.loop", "train.checkpoint", "train.observe",
+                 "metrics.calibration", "metrics.image", "data.pipeline", "data.preprocess")
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
@@ -30,7 +35,9 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 25, names\n"
+        "assert len(names) >= 32, names\n"
+        f"missing = [m for m in {ENTRY_MODULES!r} if 'uncrtaints_tpu_torch.' + m not in names]\n"
+        "assert not missing, missing\n"
         "print('ok', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -50,7 +57,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     (comments and docstrings naming the counterpart file are fine)."""
     pat = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(FORBIDDEN) + r")(?:[\s.,]|$)", re.M)
     files = _port_sources()
-    assert len(files) >= 30
+    assert len(files) >= 37
     hits = {os.path.relpath(f, REPO): pat.findall(open(f).read()) for f in files}
     assert not {f: h for f, h in hits.items() if h}
 
@@ -149,3 +156,63 @@ def test_collate_multi_is_bit_identical(seed, use_sar):
     _same_tree(got, ref)
     assert got["x"].shape == (3, 3, 24, 24, 15 if use_sar else 13)
     assert got["x"].flags["C_CONTIGUOUS"]
+
+
+# ------------------------------------------- the other numpy copies --
+
+def _copy_calibration(rng):
+    from uncrtaints_tpu.metrics import calibration as ref
+    from uncrtaints_tpu_torch.metrics import calibration as got
+    var = rng.uniform(0.01, 1.0, 60)
+    err = np.sqrt(var) * rng.standard_normal(60)
+    np.testing.assert_array_equal(got.compute_ece(var, err ** 2, 60), ref.compute_ece(var, err ** 2, 60))
+    (gu, ga, gd), (ru, ra, rd) = got.compute_uce_auce(var, err, 60), ref.compute_uce_auce(var, err, 60)
+    assert (gu, ga) == (ru, ra)
+    _same_tree(gd, rd)
+
+
+def _copy_collates(rng):
+    from uncrtaints_tpu.data import pipeline as ref, synthetic
+    from uncrtaints_tpu_torch.data import pipeline as got
+    ds = synthetic.SyntheticSEN12MSCRTS(n_samples=2, n_input_t=3, patch_size=16,
+                                        seed=int(rng.integers(1, 99)))
+    samples = [ds[0], ds[1]]
+    raw = []
+    for s in samples:
+        dn = lambda f: rng.integers(0, 12000, f.shape).astype(np.uint16)
+        raw.append({**s, "input": dict(s["input"], S2=[dn(f) for f in s["input"]["S2"]]),
+                    "target": dict(s["target"], S2=[dn(s["target"]["S2"][0])])})
+    _same_tree(got.make_fast_collate()(samples), ref.make_fast_collate()(samples))
+    _same_tree(got.make_fast_collate()(raw), ref.make_fast_collate()(raw))
+    _same_tree(got.make_raw_collate()(raw), ref.make_raw_collate()(raw))
+    _same_tree(got.pad_collate_multi(samples), ref.pad_collate_multi(samples))
+    mono = synthetic.SyntheticSEN12MSCR(n_samples=2, patch_size=16, seed=3)
+    _same_tree(got.collate_mono([mono[0], mono[1]]), ref.collate_mono([mono[0], mono[1]]))
+
+
+def _copy_process_ms(rng):
+    from uncrtaints_tpu.data.preprocess import process_MS as ref
+    from uncrtaints_tpu_torch.data.preprocess import process_MS as got
+    img = (rng.random((13, 6, 6)) * 12000 - 500).astype(np.float32)
+    dn = np.clip(img, 0, 65535).astype(np.uint16)
+    img[0, 0, 0] = np.nan
+    for method in ("default", "resnet"):
+        _same_tree(got(img, method), ref(img, method))
+        _same_tree(got(dn, method), ref(dn, method))
+
+
+def _copy_legacy_keys(rng):
+    from uncrtaints_tpu.models.torch_import import normalize_legacy_keys as ref
+    from uncrtaints_tpu_torch.train.checkpoint import normalize_legacy_keys as got
+    for first in (0, 1):
+        sd = {f"{b}.{i}.conv.fn.0.weight": rng.random(2) for b in ("in_block", "out_block")
+              for i in range(first, first + 2)}
+        sd["in_conv.conv.conv.0.weight"] = rng.random(2)
+        _same_tree(got(sd), ref(sd))
+
+
+@pytest.mark.parametrize("copy", [_copy_calibration, _copy_collates, _copy_process_ms,
+                                  _copy_legacy_keys], ids=lambda f: f.__name__[6:])
+@pytest.mark.parametrize("seed", [1, 7])
+def test_numpy_copies_equal_their_originals(copy, seed):
+    copy(np.random.default_rng(seed))

@@ -2,15 +2,19 @@
 
 The JAX package beside it is the reference every module here is tested
 against. The tree mirrors it (``models/``, ``ops/``, ``losses/``,
-``metrics/``, ``data/``, ``train/``) with the same module and class names.
+``metrics/``, ``data/``, ``train/``, ``cli/``) with the same module and class names.
 The TPU's Pallas kernels become hand-written CUDA kernels (``csrc/``, built
 at first use by ``_build``); each has a plain PyTorch version beside it,
 which runs for CPU tensors. This package imports neither JAX nor the JAX
-package: it keeps its own copies of the config, the synthetic data source
-and the collate.
+package: it keeps its own copies of the config, the synthetic data source,
+the collates and the loader, the host radiometry and the calibration
+metrics.
 
 Ported so far: every UnCRtainTS configuration, the eval step, the train
-step and whole-scene inference. Library use::
+step, whole-scene inference, and the entry points around them: the loader
+(``data/pipeline.py``), the epoch loop, checkpoints and the observer
+(``train/``), and the commands ``python -m uncrtaints_tpu_torch.cli.train``
+and ``cli.test``. Library use::
 
     from uncrtaints_tpu_torch.config import Config, derive
     from uncrtaints_tpu_torch.infer import predict_scene

@@ -8,6 +8,15 @@ fields), so a conf.json written by either package loads in the other
 for a CUDA device); ``remat``, ``prng_impl`` and ``debug_nans`` name JAX/TPU
 mechanisms without a counterpart here and are not carried.
 
+Fields that name what this package does not have yet are kept, so that the
+files stay interchangeable, and the CLIs refuse them at start
+(:func:`reject_unported`), never ignore them: ``mesh_shape`` other than
+None or 1 (multi-GPU data parallel), ``ckpt_backend="orbax"`` (the default
+"msgpack" means the package's one single-file format, the reference's
+``.pth.tar``; train/checkpoint.py), ``trace_dir`` and ``profile``. Real
+datasets (without ``synthetic_data``) and ``use_custom`` raise where the
+CLIs would build them.
+
 Flag-for-flag parity with the reference argparse parser (parse_args.py:5-95)
 and the post-parse derived-rule pass (train_reconstruct.py:36-84), on a
 dataclass so library users get a typed config while CLI users keep the exact
@@ -383,6 +392,23 @@ def apply_resume(cfg: Config) -> Config:
     if cfg.resume_at >= 0:
         cfg = cfg.replace(lr=cfg.lr * cfg.gamma ** cfg.resume_at)
     return cfg
+
+
+def reject_unported(cfg: Config) -> None:
+    """Raise for a field that asks for what this package does not have yet
+    (the CLIs call it first)."""
+    if cfg.mesh_shape not in (None, 1):
+        raise NotImplementedError(
+            f"mesh_shape={cfg.mesh_shape}: multi-GPU data parallel is not ported yet "
+            "(one device; leave --mesh_shape unset)")
+    if cfg.ckpt_backend == "orbax":
+        raise NotImplementedError(
+            "ckpt_backend='orbax' is not ported: checkpoints are single .pth.tar files "
+            "(keep the default)")
+    if cfg.trace_dir:
+        raise NotImplementedError("trace_dir (a profiler trace of the run) is not ported yet")
+    if cfg.profile:
+        raise NotImplementedError("profile (the FLOP count of a step) is not ported yet")
 
 
 def input_dim(cfg: Config) -> int:

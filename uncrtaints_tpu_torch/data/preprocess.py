@@ -1,5 +1,7 @@
-"""Radiometric preprocessing on tensors: S2 multispectral and S1 SAR
-rescaling (port of the on-device half of uncrtaints_tpu/data/preprocess.py).
+"""Radiometric preprocessing: S2 multispectral and S1 SAR rescaling (port of
+uncrtaints_tpu/data/preprocess.py: its on-device half on tensors, and the
+host's ``process_MS`` in numpy, which the collates apply to raw uint16 S2
+frames; the tests hold it equal to the original).
 
 - MS 'default': clip to [0, 10000], rescale to [0, 1]
 - MS 'resnet' : clip to [0, 10000], divide by 2000
@@ -10,11 +12,22 @@ rescaling (port of the on-device half of uncrtaints_tpu/data/preprocess.py).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 def rescale(img, old_min, old_max):
     return (img - old_min) / (old_max - old_min)
+
+
+def process_MS(img: np.ndarray, method: str = "default") -> np.ndarray:
+    """Host (numpy) S2 rescale; img any layout."""
+    img = img.astype(np.float32)
+    if method == "default":
+        img = rescale(np.clip(img, 0.0, 10000.0), 0.0, 10000.0)
+    elif method == "resnet":
+        img = np.clip(img, 0.0, 10000.0) / 2000.0
+    return np.nan_to_num(img)
 
 
 def process_MS_device(img: torch.Tensor, method: str = "default") -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Whole-batch image metrics: RMSE, MAE, PSNR, SAM, SSIM, and the error and
-uncertainty statistics (port of img_metrics_batch in
-uncrtaints_tpu/metrics/image.py; values per sample, as the reference's
-per-item metrics give them).
+"""Image metrics: RMSE, MAE, PSNR, SAM, SSIM, and the error and uncertainty
+statistics (port of uncrtaints_tpu/metrics/image.py): ``img_metrics`` for one
+sample with its pixelwise vectors, ``img_metrics_batch`` for a whole batch on
+its device (values per sample, as the per-item metrics give them) and the
+NaN-skipping running mean ``AvgImgMetrics``.
 """
 
 from __future__ import annotations
@@ -9,9 +10,43 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from uncrtaints_tpu_torch.ops.ssim import ssim
+
+
+def img_metrics(target: torch.Tensor, pred: torch.Tensor,
+                var: Optional[torch.Tensor] = None,
+                pixelwise: bool = True) -> Dict:
+    """Metric dict of one sample. target, pred (and var): [1, H, W, C] (T=1
+    collapsed). Scalars are Python floats; with ``var`` and ``pixelwise``
+    the per-pixel error statistics, averaged over the leading axis and the
+    channels, come as flat numpy vectors [H*W]."""
+    error = target - pred
+    rmse = torch.sqrt(torch.mean(torch.square(error)))
+    dot = torch.sum(target * pred, dim=-1)
+    denom = torch.sqrt(torch.sum(target * target, dim=-1)) * \
+        torch.sqrt(torch.sum(pred * pred, dim=-1))
+    sam = torch.mean(torch.arccos(torch.clamp(dot / denom, -1.0, 1.0)) * 180.0 / math.pi)
+    out = {
+        "RMSE": float(rmse), "MAE": float(torch.mean(torch.abs(error))),
+        "PSNR": float(20.0 * torch.log10(1.0 / rmse)),
+        "SAM": float(sam), "SSIM": float(ssim(target, pred)),
+    }
+    if var is not None:
+        se, ae = torch.square(error), torch.abs(error)
+        out.update({
+            "error": float(error.nanmean()), "mean ae": float(ae.nanmean()),
+            "mean se": float(se.nanmean()), "mean var": float(var.nanmean()),
+        })
+        if pixelwise:
+            flat = lambda t: t.nanmean(dim=(0, -1)).reshape(-1).cpu().numpy()
+            out.update({
+                "pixelwise error": flat(error), "pixelwise ae": flat(ae),
+                "pixelwise se": flat(se), "pixelwise var": flat(var),
+            })
+    return out
 
 
 def img_metrics_batch(target: torch.Tensor, pred: torch.Tensor,
@@ -43,3 +78,40 @@ def img_metrics_batch(target: torch.Tensor, pred: torch.Tensor,
             "mean var": var.reshape(B, -1).nanmean(dim=1),
         })
     return out
+
+
+class AvgImgMetrics:
+    """NaN-skipping running mean of scalar metrics."""
+
+    def __init__(self):
+        self.metrics = ["RMSE", "MAE", "PSNR", "SAM", "SSIM",
+                        "error", "mean se", "mean ae", "mean var"]
+        self.reset()
+
+    def reset(self):
+        self.running = {m: float("nan") for m in self.metrics}
+        self.counts = {m: 0 for m in self.metrics}
+        self.extras = {}
+
+    def add(self, d: Dict):
+        for k, v in d.items():
+            if k not in self.metrics:
+                continue
+            if isinstance(v, (np.ndarray, torch.Tensor)) and v.ndim > 0:
+                continue
+            v = float(v)
+            if np.isnan(v):
+                continue
+            c = self.counts[k]
+            if c == 0:
+                self.running[k] = v
+            else:
+                self.running[k] = c / (c + 1) * self.running[k] + v / (c + 1)
+            self.counts[k] = c + 1
+
+    def value(self) -> Dict:
+        return {**self.running, **self.extras}
+
+    def __setitem__(self, key, val):
+        # values set after the epoch (UCE SE, AUCE SE) ride along in value()
+        self.extras[key] = val

@@ -11,7 +11,6 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -25,9 +24,10 @@ def positional_encoding_table(positions: torch.Tensor, d: int, T: int = 1000,
     """Sin/cos table over day offsets: positions [B,T_seq] -> [B,T_seq,
     d * (repeat or 1)]; denom_i = T^(2*(i//2)/d), sin on even channels, cos
     on odd ones."""
-    i = np.arange(d)
-    denom = torch.from_numpy(
-        np.power(float(T), 2.0 * (i // 2) / d).astype(np.float32)).to(positions.device)
+    # made on the positions' device (a copy of a host array would make the
+    # host wait for the device in every forward), in fp64 as numpy would
+    i = torch.arange(d, device=positions.device, dtype=torch.float64)
+    denom = torch.pow(float(T), 2.0 * torch.floor(i / 2) / d).float()
     table = positions[..., None] / denom
     out = torch.stack([torch.sin(table[..., 0::2]), torch.cos(table[..., 1::2])],
                       dim=-1).reshape(*table.shape[:-1], -1)

@@ -8,15 +8,8 @@ a [1,k] pass), with the same 1-D factor as the JAX package.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
-
-
-def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
-    g = np.exp(-((np.arange(size) - size // 2) ** 2) / (2.0 * sigma ** 2))
-    g = g / g.sum()
-    return np.outer(g, g).astype(np.float32)
 
 
 def _depthwise_blur(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -30,13 +23,20 @@ def _depthwise_blur(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def _gaussian_1d(size: int, device, sigma: float = 1.5) -> torch.Tensor:
+    """The normalized 1-D gaussian whose outer product is the window, made
+    on ``device`` in fp64 and rounded once (a copy of a host array would
+    make the host wait for the device in every call)."""
+    r = torch.arange(size, device=device, dtype=torch.float64) - size // 2
+    g = torch.exp(-(r * r) / (2.0 * sigma ** 2))
+    return (g / g.sum()).float()
+
+
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
          size_average: bool = True) -> torch.Tensor:
     """SSIM between two NHWC image batches in [0, 1]; a scalar, or one value
     per image when ``size_average`` is False."""
-    window = _gaussian_window(window_size)
-    c = window_size // 2
-    g = torch.from_numpy(window[:, c] / np.sqrt(window[c, c])).to(img1.device)
+    g = _gaussian_1d(window_size, img1.device)
     img1 = img1.to(torch.float32)
     img2 = img2.to(torch.float32)
     C = img1.shape[-1]

@@ -35,12 +35,20 @@ from uncrtaints_tpu_torch.losses import calc_loss, get_loss
 from uncrtaints_tpu_torch.models.registry import mean_vars_idx
 
 
-def batch_to_device(batch: Dict, device) -> Dict:
+def batch_to_device(batch: Dict, device, non_blocking: bool = False) -> Dict:
     """numpy batch (collate output) -> tensors on ``device``. Arrays keep
     their dtype, raw uint16 DN codes included; other values pass as they
-    are."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            if isinstance(v, np.ndarray) else v for k, v in batch.items()}
+    are. ``non_blocking`` (a CUDA device only) stages each array in pinned
+    host memory and enqueues its copy on the current stream without waiting
+    for it: the caller orders the stream that reads the tensors behind the
+    copy (``train/loop.py`` does, on a side stream)."""
+    def to(v):
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if non_blocking:
+            t = t.pin_memory()
+        return t.to(device, non_blocking=non_blocking)
+
+    return {k: to(v) if isinstance(v, np.ndarray) else v for k, v in batch.items()}
 
 
 def _split_out(out: torch.Tensor, cfg: Config):
