@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's serving, scene-inference and training paths and
-its train / test command-line entry points on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, scene-inference and training paths, its
+train / test command-line entry points and its real-data path on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py          (from the root of a checkout, one card)
 
@@ -77,6 +78,23 @@ sums with atomics, and the steps drift apart); and it prints the epochs'
 sequences/s beside the bare steps' of phases 2 and 4, the host
 synchronizations PyTorch reports in each epoch by the line that made them,
 and the time of one ``save_checkpoint``.
+Phase 7 runs the real-data path in a temporary directory: it writes a
+SEN12MS-CR-TS tree with the port's TIFF writer (256x256 patches, 30 time
+points, uint16 S2 and float32 S1 with bright blobs and dark patches, 4
+patches in a train, a val and a test ROI, the test ROI deflate-compressed,
+and the nine ROIs1868/73 patches of ``--use_custom``), masks the 30-frame
+stack of one patch on the card and through the plain path on the CPU (at
+most 1e-4 of the pixels may differ), runs ``cli.precompute`` on the train
+split on the card and on the CPU (coverage within 1e-6), ``cli.train`` for
+one epoch at the paper recipe's full width with those statistics and then
+``cli.test`` (files, finite and bit-equal metrics, launches exactly 1 train
+step and 3 eval forwards), the train and val epochs once more through the
+loop with the host synchronizations by line (the step loop's must be the
+one fetch of ``loop.py``; the masks' from the loader threads are printed
+apart) beside the loader alone and the bare steps, ``cli.test
+--use_custom`` on the 768x768 mosaic (1 K1 + 10 K3 + 5 K4), and
+``cli.train`` with the default s2cloudless detector and no weights, which
+must stop with its error.
 
 Any failed check raises. The last line of stdout is the JSON result; the
 line before it lists the kernels. Without a CUDA device the script exits
@@ -1097,6 +1115,20 @@ class count_syncs:
         return sum(self.by_line.values())
 
 
+def kernel_wrappers():
+    """The six kernels' wrappers by counter name (each counts its launches)."""
+    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv
+    return {"K1": aggregate.att_group_aggregate, "K1-bwd": aggregate.att_group_aggregate_bwd,
+            "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad,
+            "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3}
+
+
+def chain_launches(train_steps, eval_forwards):
+    """The launches a run of that many train steps and eval forwards makes."""
+    return {"K1": train_steps + eval_forwards, "K1-bwd": train_steps, "K5": 12 * train_steps,
+            "K2": 6 * train_steps, "K3": 10 * eval_forwards, "K4": 5 * eval_forwards}
+
+
 def phase6_cli(dev, eval_ms, train_ms):
     """The train and test CLIs at the paper recipe's full width, in a
     temporary directory; returns the launches of the chain."""
@@ -1105,7 +1137,6 @@ def phase6_cli(dev, eval_ms, train_ms):
     from uncrtaints_tpu_torch.data import (BatchLoader, Subset, SyntheticSEN12MSCRTS,
                                            select_collate)
     from uncrtaints_tpu_torch.models import get_generator
-    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv
     from uncrtaints_tpu_torch.train import (create_train_state, epoch_lr, make_eval_step,
                                             make_train_step)
     from uncrtaints_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
@@ -1114,9 +1145,7 @@ def phase6_cli(dev, eval_ms, train_ms):
     print("phase 6: optional packages on this machine: " + ", ".join(
         f"{m} {'found' if importlib.util.find_spec(m) else 'missing'}"
         for m in ("tensorboard", "matplotlib")))
-    kernels = {"K1": aggregate.att_group_aggregate, "K1-bwd": aggregate.att_group_aggregate_bwd,
-               "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad,
-               "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3}
+    kernels = kernel_wrappers()
     n_samples, gamma = 8, 0.8
     n_batches = math.ceil(n_samples / B)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1152,8 +1181,7 @@ def phase6_cli(dev, eval_ms, train_ms):
 
         train_steps = 2 * n_batches
         evals = (2 * 2 + 2) * n_batches  # a val and a test epoch per train run, two test runs
-        want = {"K1": train_steps + evals, "K1-bwd": train_steps, "K5": 12 * train_steps,
-                "K2": 6 * train_steps, "K3": 10 * evals, "K4": 5 * evals}
+        want = chain_launches(train_steps, evals)
         print(f"phase 6: cli.train (1 epoch), cli.train resumed to 2 epochs, cli.test twice, paper "
               f"recipe (bf16), {n_samples} samples a split in batches of {B}: {chain_s:.1f} s, "
               f"{train_steps} train steps and {evals} eval forwards, launches {counts}")
@@ -1296,6 +1324,246 @@ def phase6_cli(dev, eval_ms, train_ms):
     return counts
 
 
+# phase 7's SEN12MS-CR-TS tree: 4 patches in a train, a val and a test ROI of
+# the official splits, the test ROI deflate-compressed (S2 with the predictor)
+REAL_ROIS = {"ROIs1868/114": range(4), "ROIs1868/17": range(4), "ROIs1158/106": range(4)}
+DEFLATE_ROI = "ROIs1158/106"
+THRESHOLD_MASKS = "cloud_cloudshadow_mask"
+
+
+def phase7_real_data(dev, eval_ms, train_ms):
+    """The real-data path on a SEN12MS-CR-TS tree written in a temporary
+    directory: the masks card against CPU, cli.precompute, cli.train and
+    cli.test, cli.test --use_custom and the default detector without its
+    weights. Returns the launches of the CLI runs."""
+    from uncrtaints_tpu_torch.cli import precompute, test as cli_test, train as cli_train
+    from uncrtaints_tpu_torch.cli.test import CUSTOM_DATES, CUSTOM_PATCHES
+    from uncrtaints_tpu_torch.config import apply_resume, derive, parse_config
+    from uncrtaints_tpu_torch.data import BatchLoader, get_cloud_map, masks, select_collate
+    from uncrtaints_tpu_torch.data.sen12mscrts import SEN12MSCRTS, read_tif_bounds, read_tif_img
+    from uncrtaints_tpu_torch.data.synthetic_tree import write_sen12mscrts_tree
+    from uncrtaints_tpu_torch.models import get_generator
+    from uncrtaints_tpu_torch.train import create_train_state, make_eval_step, make_train_step
+    from uncrtaints_tpu_torch.train.checkpoint import load_checkpoint
+    from uncrtaints_tpu_torch.train.loop import iterate
+
+    kernels = kernel_wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (a) the tree, written with the port's TIFF writer
+        root, custom_root = os.path.join(tmp, "SEN12MSCRTS"), os.path.join(tmp, "custom")
+        t0 = time.perf_counter()
+        size = write_sen12mscrts_tree(root, REAL_ROIS, hw=PATCH, deflate=[DEFLATE_ROI], seed=SEED)
+        size += write_sen12mscrts_tree(custom_root, {"ROIs1868/73": CUSTOM_PATCHES}, hw=PATCH,
+                                       time_points=sorted(CUSTOM_DATES), dates=CUSTOM_DATES,
+                                       seed=SEED)
+        print(f"phase 7: a SEN12MS-CR-TS tree of {PATCH}x{PATCH} patches, 30 time points, "
+              f"{', '.join(f'{r} x{len(p)}' for r, p in REAL_ROIS.items())} ({DEFLATE_ROI} "
+              f"deflate), and ROIs1868/73 x{len(CUSTOM_PATCHES)} at time points "
+              f"{sorted(CUSTOM_DATES)}: {size / 2**30:.2f} GiB in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # ---- (b) the 30-frame stack of one patch, masked on the card and on the CPU
+        raw = SEN12MSCRTS(root, split="train", cloud_masks=None, device=dev).get_imgs(0)[1]
+        stack = np.moveaxis(np.stack(raw), 1, -1)  # [30, H, W, 13] raw DN
+        on_card, ms_card = [], []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            on_card.append(get_cloud_map(stack, THRESHOLD_MASKS, device=dev))
+            ms_card.append((time.perf_counter() - t0) * 1e3)
+        on_device = torch.from_numpy(stack).to(dev)
+        device_ms = time_ms(lambda: masks.get_cloud_cloudshadow_mask(on_device), runs=7)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            masks.get_cloud_cloudshadow_mask(on_device)
+            torch.cuda.synchronize()
+        del on_device
+        names = device_time_by_kind(prof, ())[1]
+        top = sorted(names.items(), key=lambda kv: -kv[1][1])[:4]
+        t0 = time.perf_counter()
+        on_cpu = get_cloud_map(stack, THRESHOLD_MASKS, device="cpu")
+        ms_cpu = (time.perf_counter() - t0) * 1e3
+        differ = int((on_card[0] != on_cpu).sum())
+        cov = on_cpu.mean(axis=(1, 2))
+        print(f"  masks of a 30-frame stack [{', '.join(map(str, stack.shape))}]: card "
+              f"{statistics.median(ms_card[1:]):.1f} ms (median of 5 after one warm-up, host "
+              f"clock, the copies included; the masks alone on a stack already on the card "
+              f"{device_ms:.2f} ms, CUDA events), CPU {ms_cpu:.1f} ms; {differ} of "
+              f"{on_cpu.size} pixels differ; coverage per frame {cov.min():.3f}.."
+              f"{cov.max():.3f}, {int((cov < 1e-3).sum())} frames clear")
+        print(f"    the masks under torch.profiler: {sum(n for n, _ in names.values())} kernels, "
+              f"device busy {sum(ms for _, ms in names.values()):.2f} ms; the largest: "
+              + "; ".join(f"{k[:48]} x{n} {ms:.2f} ms" for k, (n, ms) in top))
+        check(all(np.array_equal(m, on_card[0]) for m in on_card), "masks on the card repeat")
+        check(on_card[0].shape == on_cpu.shape and differ <= 1e-4 * on_cpu.size,
+              f"card and CPU masks differ in {differ} of {on_cpu.size} pixels")
+        check(cov.min() < 1e-3 and cov.max() > 0.05, f"coverage per frame {cov}")
+
+        # ---- (c) cli.precompute on the train split, on the card and on the CPU
+        pre = {}
+        for where in (dev.type, "cpu"):
+            args = precompute.create_parser().parse_args(
+                ["--root", root, "--split", "train", "--cloud_masks", THRESHOLD_MASKS,
+                 "--out_dir", os.path.join(tmp, f"precomputed_{where}"), "--device", where])
+            t0 = time.perf_counter()
+            pre[where] = np.load(precompute.main(args), allow_pickle=True).item()
+            sec = time.perf_counter() - t0
+            print(f"  cli.precompute --device {where}, {len(pre[where])} train patches: "
+                  f"{sec:.2f} s, {len(pre[where]) / sec:.2f} patches/s")
+        a, b = pre[dev.type], pre["cpu"]
+        gap = max(float(np.abs(a[k]["coverage"] - b[k]["coverage"]).max()) for k in a)
+        check(sorted(a) == sorted(b) == list(range(len(REAL_ROIS["ROIs1868/114"])))
+              and all(a[k]["paths"] == b[k]["paths"] for k in a) and gap <= 1e-6,
+              f"precompute card vs CPU: coverage gap {gap}")
+        print(f"  precompute card vs CPU: the same patches and paths, coverage within {gap:.3g}")
+
+        # ---- (d) cli.train one epoch on the tree with the statistics, then cli.test
+        res = os.path.join(tmp, "results")
+        common = ["--batch_size", str(B), "--input_t", str(T), "--num_workers", "4",
+                  "--plot_every", "-1", "--export_every", "4", "--device", dev.type]
+        argv = ["--experiment_name", "real", "--res_dir", res, "--root1", root, "--root2", root,
+                "--precomputed", os.path.join(tmp, f"precomputed_{dev.type}"), "--use_sar",
+                "--scale_by", "10", "--epochs", "1"] + common
+        cfg = apply_resume(derive(parse_config(argv + ["--cloud_masks", THRESHOLD_MASKS])))
+        check(cfg.device == dev.type and cfg.compute_dtype == "bfloat16" and not cfg.synthetic_data
+              and cfg.encoder_widths == [128] and cfg.decoder_widths == [128] * 5,
+              "phase 7 runs the paper recipe at full width on the card")
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = cli_train.main(cfg)
+        tested = cli_test.main(cli_test.load_test_config(
+            ["--experiment_name", "real", "--weight_folder", res, "--res_dir",
+             os.path.join(tmp, "inference"), "--root1", root, "--root2", root] + common))
+        chain_s = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in kernels.items()}
+        n_split = len(REAL_ROIS["ROIs1868/114"])
+        steps = math.ceil(n_split / B)
+        want = chain_launches(steps, 3 * steps)  # val and test in cli.train, cli.test
+        print(f"  cli.train (1 epoch, the train split's statistics imported) and cli.test: "
+              f"{chain_s:.1f} s, {steps} train step(s) and {3 * steps} eval forwards, "
+              f"launches {counts}")
+        check(counts == want, f"the real-data chain launched {counts}, expected {want}")
+        exp = os.path.join(res, "real")
+        files = ["conf.json", "trainlog.json", "model.pth.tar", "model_epoch_1.pth.tar",
+                 "test_metrics.json", "val_epoch_1_metrics.json"]
+        files += [os.path.join("export", "epoch_1", mode, f"img-0_{m}.npy")
+                  for mode in ("val", "test") for m in ("pred", "target", "covar")]
+        missing = [f for f in files if not os.path.isfile(os.path.join(exp, f))]
+        check(not missing, f"files the real-data chain did not write: {missing}")
+        names = ("RMSE", "MAE", "PSNR", "SAM", "SSIM", "mean var", "UCE SE", "AUCE SE")
+        check(all(k in tested and np.isfinite(tested[k]) for k in names),
+              f"cli.test metrics {tested}")
+        check(tested == out["test"], f"cli.test {tested} differs from cli.train's test "
+                                     f"{out['test']}")
+        print(f"  cli.test on the tree: { {k: round(v, 6) for k, v in tested.items()} }, equal "
+              f"to the bit to cli.train's final test")
+
+        # the epochs again, through the loop, with the host synchronizations by
+        # line (no export, whose copies are the loop's cadence, not its steps)
+        cfg = cfg.replace(export_every=-1)
+        dt_train, dt_val, _ = cli_train.build_datasets(cfg)
+        # where a sample's host time goes: one online val sample in this thread
+        paths = [os.path.join(root, p) for m in ("S1", "S2") for p in dt_val.paths[0][m]]
+        t0 = time.perf_counter()
+        frames = [read_tif_img(p) for p in paths]
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for p in paths[len(paths) // 2:]:
+            read_tif_bounds(p)
+        bounds_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        get_cloud_map(np.moveaxis(np.stack(frames[len(frames) // 2:]), 1, -1), THRESHOLD_MASKS,
+                      device=dev)
+        mask_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        dt_val[0]
+        sample_ms = (time.perf_counter() - t0) * 1e3
+        print(f"  one online val sample in the main thread: {sample_ms:.1f} ms, of which the "
+              f"decode of its {len(paths)} GeoTIFFs {decode_ms:.1f} ms, their 30 S2 bounds "
+              f"{bounds_ms:.1f} ms, the stack and its mask call {mask_ms:.1f} ms")
+        mk_loader = lambda ds: BatchLoader(ds, batch_size=B, collate=select_collate(cfg),
+                                           num_workers=4, drop_last=False)
+        state = create_train_state(cfg, get_generator(cfg))
+        state, _ = load_checkpoint(cfg, res, state, "model_epoch_1")
+        runs = {"train": (dt_train, dict(train_step=make_train_step(cfg)), train_ms),
+                "val": (dt_val, dict(eval_step=make_eval_step(
+                    cfg, with_metrics=True, return_outputs=cli_train.need_outputs(cfg))),
+                    eval_ms)}
+        for mode, (ds, step, bare) in runs.items():
+            t0 = time.perf_counter()
+            n_loaded = sum(len(b["y"]) for b in mk_loader(ds))
+            loader_s = time.perf_counter() - t0
+            with count_syncs() as syncs:
+                _, m, _ = iterate(state, mk_loader(ds), cfg, None, mode, 2, **step)
+            # the masks' from the loader threads apart from the step loop's
+            mask_lines = {k: v for k, v in syncs.by_line.items() if k.startswith("masks.py:")}
+            rest = {k: v for k, v in syncs.by_line.items() if k not in mask_lines}
+            n = len(ds)
+            print(f"  {mode} split ({n} samples, {'imported coverage' if ds.data_pairs else 'online: 30 frames a sample'}): "
+                  f"epoch {m[f'{mode}_epoch_time'] * 1e3:.1f} ms, "
+                  f"{n / m[f'{mode}_epoch_time']:.2f} sequences/s; the loader alone (decode + mask "
+                  f"+ collate, 4 threads) {n_loaded / loader_s:.2f} sequences/s; the bare "
+                  f"{'train' if mode == 'train' else 'eval'} step {B / bare * 1e3:.2f} sequences/s")
+            print(f"    host synchronizations of the step loop {sum(rest.values())}, by line "
+                  f"{rest}; of the masks in the loader threads {sum(mask_lines.values())}, "
+                  f"by line {mask_lines}")
+            check(n_loaded == n and sum(rest.values()) == 1
+                  and all(k.startswith("loop.py:") for k in rest),
+                  f"the {mode} epoch's step loop synchronized {rest}")
+        log = {k: round(n_split / v, 2) for k, v in out["trainlog"][1].items()
+               if k.endswith("_time")}
+        print(f"  cli.train's own epoch ({n_split} samples a split, trainlog), sequences/s: {log}")
+
+        # ---- (e) cli.test --use_custom: the 3x3 mosaic of ROIs1868/73
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        custom = cli_test.main(cli_test.load_test_config(
+            ["--experiment_name", "real", "--weight_folder", res, "--res_dir",
+             os.path.join(tmp, "custom_inference"), "--root1", custom_root, "--use_custom",
+             "--input_t", str(T), "--num_workers", "4", "--export_every", "1", "--device",
+             dev.type]))
+        custom_s = time.perf_counter() - t0
+        custom_counts = {k: f.launches for k, f in kernels.items()}
+        pred = np.load(os.path.join(tmp, "custom_inference", "real", "export", "epoch_1", "test",
+                                    "img-0_pred.npy"))
+        side = 3 * PATCH
+        print(f"  cli.test --use_custom ({side}x{side} mosaic): {custom_s:.1f} s, launches "
+              f"{custom_counts}, RMSE {custom['RMSE']:.6f}")
+        check(custom_counts == chain_launches(0, 1),
+              f"--use_custom launched {custom_counts}")
+        check(pred.shape == (13, side, side) and bool(np.isfinite(pred).all())
+              and all(np.isfinite(custom[k]) for k in names), f"--use_custom output {pred.shape}")
+
+        # ---- (f) the default detector without its weights: a hard error
+        saved = {k: os.environ.get(k) for k in ("S2CLOUDLESS_MODEL_PATH", "XDG_CACHE_HOME")}
+        os.environ["S2CLOUDLESS_MODEL_PATH"] = os.path.join(tmp, "absent.txt")
+        os.environ["XDG_CACHE_HOME"] = tmp
+        masks._S2C_CACHE.update(detector=None, tried=False)
+        dcfg = apply_resume(derive(parse_config(
+            [a if a != "real" else "default_detector" for a in argv])))
+        check(dcfg.cloud_masks == "s2cloudless_mask", "the default detector is s2cloudless")
+        error = None
+        try:
+            cli_train.main(dcfg)
+        except RuntimeError as e:
+            error = str(e)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+            masks._S2C_CACHE.update(detector=None, tried=False)
+        check(error is not None and "s2cloudless LightGBM weights" in error,
+              f"cli.train without the s2cloudless weights: {error or 'no error'}")
+        check(not os.path.exists(os.path.join(res, "default_detector", "trainlog.json")),
+              "an epoch ran without the s2cloudless weights")
+        print("  cli.train with the default --cloud_masks s2cloudless_mask and no weights: "
+              "the hard error, no epoch")
+    return {k: counts[k] + custom_counts[k] for k in counts}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1335,11 +1603,15 @@ def main():
     del batches
     cli = phase6_cli(dev, eval_ms, train_ms)
     took("phase 6")
-    print(f"launches by path: eval {evalc}; scene {scene}; train {train}; CLIs {cli}")
+    real = phase7_real_data(dev, eval_ms, train_ms)
+    took("phase 7")
+    print(f"launches by path: eval {evalc}; scene {scene}; train {train}; CLIs {cli}; "
+          f"real data {real}")
 
-    # launches: the sum over the four paths' runs (eval, scene, train, the
-    # CLI chain), each counted from 0 just before the path to just after it
-    paths = (evalc, scene, train, cli)
+    # launches: the sum over the five paths' runs (eval, scene, train, the
+    # CLI chain, the real-data CLIs), each counted from 0 just before the
+    # path to just after it
+    paths = (evalc, scene, train, cli, real)
     meta = {  # name: (source, the TPU kernel it replaces, its counter)
         "att_group_aggregate": ("aggregate.cu", "pallas_aggregate.py:268", "K1"),
         "att_group_aggregate_bwd": ("aggregate.cu", "pallas_aggregate.py:164", "K1-bwd"),

@@ -243,12 +243,10 @@ def test_the_default_device_raises_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("mesh_shape", 2), ("ckpt_backend", "orbax"), ("trace_dir", "trace"),
-    ("profile", True), ("synthetic_data", False), ("use_custom", True)])
+    ("mesh_shape", 2), ("ckpt_backend", "orbax"), ("trace_dir", "trace"), ("profile", True)])
 def test_the_clis_refuse_what_is_not_ported(tmp_path, field, value):
     cfg = _tiny_cfg(tmp_path).replace(**{field: value})
-    mains = [cli_test.main] if field == "use_custom" else [cli_train.main, cli_test.main]
-    for main in mains:
+    for main in (cli_train.main, cli_test.main):
         with pytest.raises(NotImplementedError, match="not ported"):
             main(cfg)
     assert not os.path.exists(os.path.join(cfg.res_dir, "smoke", "conf.json"))
@@ -259,3 +257,102 @@ def test_a_foreign_checkpoint_suffix_is_refused():
     for path in ("results/run/model.ckpt", "results/run/model.orbax/"):
         with pytest.raises(ValueError, match=".pth.tar"):
             cli_train.checkpoint_name(path)
+
+
+# ------------------------------------------------ on a SEN12MS-CR-TS tree --
+
+TREE_ROIS = {"ROIs1868/114": range(4), "ROIs1868/17": range(2), "ROIs1158/106": range(2)}
+MASKS = "cloud_cloudshadow_mask"
+
+
+@pytest.fixture(scope="module")
+def real_run(tmp_path_factory):
+    """cli.precompute on the train split of a written tree, then cli.train
+    on the tree (no --synthetic_data) with the statistics imported."""
+    from uncrtaints_tpu_torch.cli import precompute
+    from uncrtaints_tpu_torch.data.synthetic_tree import write_sen12mscrts_tree
+    tmp = tmp_path_factory.mktemp("real")
+    root = str(tmp / "SEN12MSCRTS")
+    write_sen12mscrts_tree(root, TREE_ROIS, hw=16, deflate=["ROIs1158/106"], workers=2)
+    pre = str(tmp / "precomputed")
+    precompute.main(precompute.create_parser().parse_args(
+        ["--root", root, "--split", "train", "--cloud_masks", MASKS, "--out_dir", pre,
+         "--device", "cpu"]))
+    cfg = _tiny_cfg(tmp, synthetic_data=False, root1=root, root2=root, precomputed=pre,
+                    cloud_masks=MASKS, batch_size=2, max_samples_count=4, low_res_size=16,
+                    plot_every=-1, export_every=2, experiment_name="real")
+    return tmp, cfg, cli_train.main(cfg)
+
+
+def test_cli_train_runs_on_a_sen12mscrts_tree(real_run):
+    tmp, cfg, out = real_run
+    dt_train, dt_val, dt_test = cli_train.build_datasets(cfg)
+    assert (len(dt_train), len(dt_val), len(dt_test)) == (4, 2, 2)
+    assert dt_train.data_pairs is not None and dt_val.data_pairs is None  # the import is read
+    assert dt_train.sampling == "random" and dt_train.device.type == "cpu"
+    exp = os.path.join(cfg.res_dir, "real")
+    for name in ("conf.json", "trainlog.json", "model.pth.tar", "model_epoch_1.pth.tar",
+                 "test_metrics.json", "val_epoch_1_metrics.json"):
+        assert os.path.isfile(os.path.join(exp, name)), name
+    for key in METRICS:
+        assert np.isfinite(out["test"][key]), key
+    assert _params(os.path.join(exp, "model_epoch_1.pth.tar"))["step"] == 2
+    exports = _walk(os.path.join(exp, "export", "epoch_1", "test"), ".npy")
+    assert exports == [f"img-0_{m}.npy" for m in ("covar", "pred", "target")]
+    assert np.load(os.path.join(exp, "export", "epoch_1", "test", "img-0_pred.npy")).shape == (
+        13, 16, 16)
+
+
+def test_cli_test_on_the_tree_reproduces_the_train_runs_test(real_run, tmp_path):
+    tmp, cfg, out = real_run
+    # root2 is a flag the stored conf.json does not overwrite: the user names it
+    argv = ["--experiment_name", "real", "--weight_folder", cfg.res_dir, "--res_dir",
+            str(tmp_path / "inference"), "--batch_size", "2", "--input_t", "3",
+            "--device", "cpu", "--export_every", "-1", "--root2", cfg.root2]
+    tcfg = cli_test.load_test_config(argv)
+    assert not tcfg.synthetic_data and tcfg.cloud_masks == MASKS
+    metrics = cli_test.main(tcfg)
+    assert {k: metrics[k] for k in METRICS} == {k: out["test"][k] for k in METRICS}
+
+
+def test_cli_test_use_custom(real_run, tmp_path):
+    """--use_custom (mirrors tests/test_cli_use_custom.py): the 3x3 mosaic of
+    ROIs1868/73 (48 x 48) under --root1, through the trained checkpoint."""
+    from uncrtaints_tpu_torch.cli.test import CUSTOM_DATES, CUSTOM_PATCHES
+    from uncrtaints_tpu_torch.data.synthetic_tree import write_sen12mscrts_tree
+    tmp, cfg, _ = real_run
+    root = str(tmp_path / "custom")
+    write_sen12mscrts_tree(root, {"ROIs1868/73": CUSTOM_PATCHES}, hw=16,
+                           time_points=sorted(CUSTOM_DATES), dates=CUSTOM_DATES, workers=2)
+    tcfg = cli_test.load_test_config(
+        ["--experiment_name", "real", "--weight_folder", cfg.res_dir, "--res_dir",
+         str(tmp_path / "inference"), "--root1", root, "--use_custom", "--device", "cpu",
+         "--export_every", "1"])
+    assert tcfg.use_custom and tcfg.root1 == root
+    metrics = cli_test.main(tcfg)
+    for key in METRICS:
+        assert key in metrics and np.isfinite(metrics[key]), key
+    exp = tmp_path / "inference" / "real"
+    with open(exp / "test_metrics.json") as f:
+        assert json.load(f)["RMSE"] == pytest.approx(metrics["RMSE"])
+    pred = np.load(exp / "export" / "epoch_1" / "test" / "img-0_pred.npy")
+    assert pred.shape == (13, 48, 48) and np.isfinite(pred).all()
+
+
+def test_the_default_detector_without_weights_is_a_hard_error(tmp_path, monkeypatch):
+    """cli.train on a tree with the default --cloud_masks s2cloudless_mask and
+    no weights raises the detector's error, with no fallback."""
+    from uncrtaints_tpu_torch.data import masks
+    from uncrtaints_tpu_torch.data.synthetic_tree import write_sen12mscrts_tree
+    monkeypatch.setenv("S2CLOUDLESS_MODEL_PATH", str(tmp_path / "nope.txt"))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(masks, "_S2C_CACHE", {"detector": None, "tried": False})
+    root = str(tmp_path / "tree")
+    write_sen12mscrts_tree(root, {"ROIs1868/114": range(1)}, hw=8, workers=2)
+    cfg = _tiny_cfg(tmp_path, synthetic_data=False, root1=root, root2=root, batch_size=1,
+                    max_samples_count=1, plot_every=-1, export_every=-1, experiment_name="s2c")
+    assert cfg.cloud_masks == "s2cloudless_mask"
+    with pytest.raises(RuntimeError, match="s2cloudless LightGBM weights"):
+        cli_train.main(cfg)
+    assert not os.path.exists(os.path.join(cfg.res_dir, "s2c", "trainlog.json"))

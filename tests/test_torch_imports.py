@@ -2,8 +2,9 @@
 import nothing of JAX and nothing of the JAX package (nor tensorflow or
 orbax, which that package logs and checkpoints with), and the port's own
 copies of the config, the synthetic data source, the collates, the host
-radiometry, the calibration metrics and the checkpoint key rule equal the
-JAX package's.
+radiometry, the calibration metrics, the checkpoint key rule, the TIFF
+codec, the samplers, the ROI tables, the s2cloudless reader and
+``natsorted`` equal the JAX package's.
 """
 
 import dataclasses
@@ -18,8 +19,12 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow", "uncrtaints_tpu")
 # the entry points and what they stand on, which the walk must have found
-ENTRY_MODULES = ("cli.train", "cli.test", "train.loop", "train.checkpoint", "train.observe",
-                 "metrics.calibration", "metrics.image", "data.pipeline", "data.preprocess")
+ENTRY_MODULES = ("cli.train", "cli.test", "cli.precompute", "cli.convert", "cli.download",
+                 "train.loop", "train.checkpoint", "train.observe", "metrics.calibration",
+                 "metrics.image", "data.pipeline", "data.preprocess", "data.masks",
+                 "data.samplers", "data.rois", "data.tiff", "data.s2cloudless",
+                 "data.sen12mscrts", "data.sen12mscr", "data.hdf5", "data.synthetic_tree",
+                 "ops.filters")
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
@@ -35,7 +40,7 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 32, names\n"
+        "assert len(names) >= 49, names\n"
         f"missing = [m for m in {ENTRY_MODULES!r} if 'uncrtaints_tpu_torch.' + m not in names]\n"
         "assert not missing, missing\n"
         "print('ok', len(names))\n")
@@ -57,7 +62,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     (comments and docstrings naming the counterpart file are fine)."""
     pat = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(FORBIDDEN) + r")(?:[\s.,]|$)", re.M)
     files = _port_sources()
-    assert len(files) >= 37
+    assert len(files) >= 51
     hits = {os.path.relpath(f, REPO): pat.findall(open(f).read()) for f in files}
     assert not {f: h for f, h in hits.items() if h}
 
@@ -100,8 +105,9 @@ def test_config_defaults_flags_and_json_round_trip(tmp_path):
         got = dataclasses.asdict(tc.parse_config(argv, mode))
         shared = set(got) - PORT_ONLY_DIFFERENCES
         assert {k: got[k] for k in shared} == {k: ref[k] for k in shared}
+    # the port also keeps --use_custom over the stored run's (cli.test)
     assert (tc.NO_OVERWRITE_RESUME, tc.NO_OVERWRITE_TEST) == (
-        jc.NO_OVERWRITE_RESUME, jc.NO_OVERWRITE_TEST)
+        jc.NO_OVERWRITE_RESUME, jc.NO_OVERWRITE_TEST + ["use_custom"])
     # a conf.json written by the JAX package loads in the port (the fields
     # it does not carry are dropped) and the other way round
     path = str(tmp_path / "conf.json")
@@ -201,6 +207,92 @@ def _copy_process_ms(rng):
         _same_tree(got(dn, method), ref(dn, method))
 
 
+def _copy_process_sar(rng):
+    from uncrtaints_tpu.data.preprocess import process_SAR as ref
+    from uncrtaints_tpu_torch.data.preprocess import process_SAR as got
+    img = (rng.random((2, 6, 6)) * 40 - 35).astype(np.float32)
+    img[1, 0, 0] = np.nan
+    for method in ("default", "resnet"):
+        _same_tree(got(img, method), ref(img, method))
+        _same_tree(got(np.moveaxis(img, 0, -1), method, pol_axis=-1),
+                   ref(np.moveaxis(img, 0, -1), method, pol_axis=-1))
+
+
+def _copy_tiff(rng):
+    """Each codec reads the other's files to the same arrays and bounds; the
+    intended differences are the port's writer (every strip, tag array and
+    the IFD on an even offset, so the bytes differ) and the unused
+    ``_undo_predictor``, which the copy leaves out."""
+    import tempfile
+    from uncrtaints_tpu.data import tiff as ref
+    from uncrtaints_tpu_torch.data import tiff as got
+    arrays = [rng.integers(0, 10000, (13, 9, 7)).astype(np.uint16),
+              rng.standard_normal((2, 5, 11)).astype(np.float32)]
+    bounds = [500000.0, 4099930.0, 500070.0, 4100020.0]
+    with tempfile.TemporaryDirectory() as d:
+        for i, arr in enumerate(arrays):
+            for comp, pred in (("none", 1), ("deflate", 2 if arr.dtype.kind == "u" else 1)):
+                for name, writer in (("ref", ref.write_tiff), ("got", got.write_tiff)):
+                    path = os.path.join(d, f"{name}{i}{comp}.tif")
+                    writer(path, arr, compression=comp, predictor=pred, bounds=bounds)
+                    _same_tree(got.read_tiff(path), ref.read_tiff(path))
+                    assert got.read_tiff_bounds(path) == ref.read_tiff_bounds(path)
+                    np.testing.assert_array_equal(got.read_tiff(path), arr)
+    assert hasattr(ref, "_undo_predictor") and not hasattr(got, "_undo_predictor")
+    tiles = [rng.random((2, 4, 4)).astype(np.float32) for _ in range(3)]
+    tb = [[0.0, 0.0, 4.0, 4.0], [4.0, 0.0, 8.0, 4.0], [2.0, 2.0, 6.0, 6.0]]
+    _same_tree(got.merge_arrays(tiles, tb), ref.merge_arrays(tiles, tb))
+
+
+def _copy_samplers(rng):
+    from uncrtaints_tpu.data import samplers as ref
+    from uncrtaints_tpu_torch.data import samplers as got
+    cov = list(rng.random(30) * (rng.random(30) > 0.2))
+    for n in (1, 3, 5):
+        for lo, hi in ((0.0, 1.0), (0.1, 0.5)):
+            _same_tree(got.fixed_sampler(cov, n, lo, hi), ref.fixed_sampler(cov, n, lo, hi))
+            _same_tree(got.fixedsubset_sampler(cov, n, 4, 20, lo, hi),
+                       ref.fixedsubset_sampler(cov, n, 4, 20, lo, hi))
+        seed = int(rng.integers(1 << 30))
+        _same_tree(got.random_sampler(cov, n, np.random.default_rng(seed)),
+                   ref.random_sampler(cov, n, np.random.default_rng(seed)))
+        _same_tree(got.sliding_windows(30, n + 1), ref.sliding_windows(30, n + 1))
+
+
+def _copy_rois(rng):
+    from uncrtaints_tpu.data import rois as ref
+    from uncrtaints_tpu_torch.data import rois as got
+    assert got.ROI_TS == ref.ROI_TS and got.splits_cr() == ref.splits_cr()
+    for region in ("all", "africa", "america", "asiaEast", "asiaWest", "europa"):
+        assert got.splits_ts(region) == ref.splits_ts(region), region
+
+
+def _copy_s2cloudless(rng):
+    from tests.test_s2cloudless import MODEL_TEXT
+    from uncrtaints_tpu.data import s2cloudless as ref
+    from uncrtaints_tpu_torch.data import s2cloudless as got
+    x = rng.random((50, 3))
+    x[0, 1] = np.nan
+    mg, mr = got.LightGBMModel.from_text(MODEL_TEXT), ref.LightGBMModel.from_text(MODEL_TEXT)
+    _same_tree(mg.raw_score(x), mr.raw_score(x))
+    _same_tree(mg.predict_proba(x), mr.predict_proba(x))
+    for r in (1, 2, 4):
+        _same_tree(got.disk(r), ref.disk(r))
+    if got._ndi is not None:  # the disk post-processing needs scipy
+        p = rng.random((12, 12))
+        _same_tree(got.average_disk(p, 2), ref.average_disk(p, 2))
+        _same_tree(got.dilate_disk(p > 0.8, 2), ref.dilate_disk(p > 0.8, 2))
+
+
+def _copy_natsorted(rng):
+    from uncrtaints_tpu.data.sen12mscrts import natsorted as ref
+    from uncrtaints_tpu_torch.data.sen12mscrts import natsorted as got
+    names = [f"s2_ROIs1868_73_ImgNo_{t}_2018-01-0{t % 9 + 1}_patch_{p}.tif"
+             for t in rng.permutation(12) for p in rng.permutation(25)[:4]]
+    names += ["B10", "b9", "a", "A2", "a10"]
+    assert got(names) == ref(names)
+
+
 def _copy_legacy_keys(rng):
     from uncrtaints_tpu.models.torch_import import normalize_legacy_keys as ref
     from uncrtaints_tpu_torch.train.checkpoint import normalize_legacy_keys as got
@@ -212,7 +304,9 @@ def _copy_legacy_keys(rng):
 
 
 @pytest.mark.parametrize("copy", [_copy_calibration, _copy_collates, _copy_process_ms,
-                                  _copy_legacy_keys], ids=lambda f: f.__name__[6:])
+                                  _copy_process_sar, _copy_legacy_keys, _copy_tiff,
+                                  _copy_samplers, _copy_rois, _copy_s2cloudless,
+                                  _copy_natsorted], ids=lambda f: f.__name__[6:])
 @pytest.mark.parametrize("seed", [1, 7])
 def test_numpy_copies_equal_their_originals(copy, seed):
     copy(np.random.default_rng(seed))

@@ -8,8 +8,8 @@ or ``model_epoch_{k}`` per --resume_at, run the test split, save
     python -m uncrtaints_tpu_torch.cli.test --experiment_name my_run \
         --weight_folder ./results --synthetic_data --export_every 1
 
-``--use_custom`` (user-specified mosaiced patches) needs the real dataset
-and raises until that is ported.
+``--use_custom`` tests the reference's README sample instead: a 3x3 mosaic
+of ``ROIs1868/73`` patches under ``--root1`` (see :func:`custom_dataset`).
 """
 
 from __future__ import annotations
@@ -41,11 +41,27 @@ def load_test_config(argv=None) -> Config:
     return cfg
 
 
+CUSTOM_PATCHES = [171, 172, 173, 187, 188, 189, 203, 204, 205]
+# the input time points and the target's, with their acquisition dates
+CUSTOM_DATES = {1: "2017-07-16", 2: "2017-07-16", 3: "2017-07-16", 30: "2018-06-21"}
+
+
 def custom_dataset(cfg: Config):
-    """--use_custom: a mosaiced 3x3-patch sample of the real dataset."""
-    raise NotImplementedError(
-        "--use_custom needs the SEN12MS-CR-TS dataset, which is not ported yet "
-        "(ROADMAP.md section 1, the datasets item)")
+    """--use_custom: the mosaiced 3x3-patch sample of ROIs1868/73 at time
+    points 1-3, target at 30 (the reference's test_reconstruct.py:27-36)."""
+    from uncrtaints_tpu_torch.data.sen12mscrts import SEN12MSCRTS, get_pairedS1
+    root = os.path.expanduser(cfg.root1)
+    s2 = lambda i: [f"ROIs1868/73/S2/{i}/s2_ROIs1868_73_ImgNo_{i}_{CUSTOM_DATES[i]}_patch_{j}.tif"
+                    for j in CUSTOM_PATCHES]
+    s2_in, s2_t = [s2(i) for i in (1, 2, 3)], s2(30)
+    s1 = [get_pairedS1(pair, root, mod="s1") for pair in s2_in]
+    s1_t = get_pairedS1(s2_t, root, mod="s1")
+    custom = [{"input": {"S1": s1, "S2": s2_in},
+               "target": {"S1": [s1_t], "S2": [s2_t]}}]
+    return SEN12MSCRTS(root, split="test", region=cfg.region,
+                       sample_type=cfg.sample_type, cloud_masks=cfg.cloud_masks,
+                       n_input_samples=cfg.input_t, custom_samples=custom,
+                       device=cfg.device)
 
 
 def main(cfg: Config) -> dict:

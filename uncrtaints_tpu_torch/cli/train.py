@@ -8,9 +8,16 @@ port's steps and one device. Usage:
         --synthetic_data --max_samples_count 8 --epochs 1 --lr 1e-3 \
         --batch_size 4 --scale_by 10 --loss MGNLL --covmode diag --use_sar
 
-The run is on ``--device`` ("cuda" by default; without a card it raises, it
-never moves to the CPU; pass ``--device cpu`` for a CPU run). Only the
-synthetic data source is ported so far (``--synthetic_data``).
+or, on a SEN12MS-CR-TS tree (coverage statistics from cli/precompute.py):
+
+    python -m uncrtaints_tpu_torch.cli.train --experiment_name my_run \
+        --root1 ~/data/SEN12MSCRTS --root2 ~/data/SEN12MSCRTS \
+        --precomputed ./precomputed --cloud_masks cloud_cloudshadow_mask \
+        --use_sar --scale_by 10 --loss MGNLL --covmode diag
+
+The run, and the cloud masks of the datasets, are on ``--device`` ("cuda"
+by default; without a card it raises, it never moves to the CPU; pass
+``--device cpu`` for a CPU run).
 """
 
 from __future__ import annotations
@@ -65,9 +72,30 @@ def build_datasets(cfg: Config):
             mk = lambda seed: SyntheticSEN12MSCRTS(
                 n_samples=n, n_input_t=cfg.input_t, patch_size=ps, seed=seed)
         return mk(1), mk(2), mk(3)
-    raise NotImplementedError(
-        "the SEN12MS-CR and SEN12MS-CR-TS datasets are not ported yet (ROADMAP.md "
-        "section 1, the datasets item): run with --synthetic_data")
+
+    if cfg.pretrain:
+        from uncrtaints_tpu_torch.data.sen12mscr import SEN12MSCR
+        root = os.path.expanduser(cfg.root3)
+        mk = lambda split: SEN12MSCR(root, split=split, region=cfg.region,
+                                     sample_type=cfg.sample_type,
+                                     cloud_masks=cfg.cloud_masks, device=cfg.device)
+        return mk("train"), mk("val"), mk("test")
+
+    from uncrtaints_tpu_torch.data.sen12mscrts import SEN12MSCRTS
+    dt_train = SEN12MSCRTS(
+        os.path.expanduser(cfg.root1), split="train", region=cfg.region,
+        sample_type=cfg.sample_type, cloud_masks=cfg.cloud_masks,
+        sampler="random" if cfg.vary_samples else "fixed",
+        n_input_samples=cfg.input_t,
+        import_data_path=import_from_path("train", cfg),
+        min_cov=cfg.min_cov, max_cov=cfg.max_cov, seed=cfg.rdm_seed, device=cfg.device)
+    dt_val, dt_test = (SEN12MSCRTS(
+        os.path.expanduser(cfg.root2), split=split, region="all",
+        sample_type=cfg.sample_type, cloud_masks=cfg.cloud_masks,
+        n_input_samples=cfg.input_t,
+        import_data_path=import_from_path(split, cfg), device=cfg.device)
+        for split in ("val", "test"))
+    return dt_train, dt_val, dt_test
 
 
 def need_outputs(cfg: Config) -> bool:
