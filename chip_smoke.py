@@ -1,13 +1,14 @@
 """Drive the PyTorch port's serving, scene-inference and training paths, its
-train / test command-line entry points and its real-data path on one NVIDIA
-GPU and check them.
+train / test command-line entry points, its real-data path, its baseline
+model families and its deep-ensemble tool on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          (from the root of a checkout, one card)
 
 Phase 1 builds the six hand-written CUDA kernels of ``uncrtaints_tpu_torch``
 from ``csrc/`` (one nvcc per source, in parallel) and holds each against its
-plain PyTorch version on the card, at the shapes the paths give it and at a
-ragged shape, and times both (CUDA events: a kernel or library call as the
+plain PyTorch version on the card, at the shapes the paths give it (K1 and
+K1-bwd also at U-TAE's three skip levels, [4,3,s,s,64] with 16 heads of 4
+channels for s = 64, 128, 256) and at a ragged shape, and times both (CUDA events: a kernel or library call as the
 median of 7 samples of 8 calls queued behind a 3 ms spin on the device, so
 that the host's launch path is not in the number; a plain version as the
 median of 15 single calls, 7 for the slow ones of K5, K2 and K4). K3 is
@@ -95,6 +96,24 @@ apart) beside the loader alone and the bare steps, ``cli.test
 --use_custom`` on the 768x768 mosaic (1 K1 + 10 K3 + 5 K4), and
 ``cli.train`` with the default s2cloudless detector and no weights, which
 must stop with its error.
+Phase 8 runs U-TAE at its published widths (encoder [64,64,64,128], decoder
+[32,32,64,128], 16 heads, d_model 256; the MSE loss ``derive`` sets) through
+``cli.train`` (one epoch, 8 samples a split) and ``cli.test`` at B=4, T=3,
+256x256, bf16 (files, no variance export, bit-equal test metrics, launches
+exactly 3 K1 a forward and 3 K1 + 3 K1-bwd a train step and nothing else),
+then its bare steps (launches per step, step times, peak memory, a finite
+gradient for every parameter, non-zero but for those zero in exact
+arithmetic, one train step under ``torch.profiler`` by kind) and the card
+against the CPU at 32x32 (fp32: eval RMSE and one train step's loss). Every
+other family (U-Net pretrain, UNet3D at T=4, the two recurrent U-Nets,
+ConvLSTM, ConvGRU, FPN + ConvLSTM, at the JAX package's default widths and
+the MSE loss) runs three eval forwards and train steps at 256x256 (finite
+outputs and gradients, no kernel launch) and is held card against CPU at
+32x32. Last, a second paper-recipe member is trained at another seed, both
+members' test splits are exported by ``cli.test --export_every 1``, and
+``cli.ensemble`` fuses them in its three modes: the fused mean and variance
+must equal numpy's fusion of the exported files to 1e-6, the metrics be
+finite.
 
 Any failed check raises. The last line of stdout is the JSON result; the
 line before it lists the kernels. Without a CUDA device the script exits
@@ -123,6 +142,9 @@ TRAIN_STEPS = 4
 # the paths' shapes: the paper batch, and the kernels as the paths call them
 B, T, PATCH = 4, 3, 256
 K1_SHAPES = [(B, T, PATCH, PATCH, 128, 16), (2, 3, 7, 9, 20, 4)]  # + ragged
+# U-TAE's three skip levels at its published widths: 64 channels, 16 heads of
+# 4 channels (the bf16 backward's scalar path), at 64^2, 128^2 and 256^2
+UTAE_K1_SHAPES = [(B, T, s, s, 64, 16) for s in (64, 128, 256)]
 HIDDEN = 256  # the MBConv depthwise width (expansion 2 of 128)
 # K5 and K2 on the train path: the encoder's depthwise conv over B*T frames
 # and the decoder's over B maps, in reflect mode on the unpadded 256x256 input
@@ -257,9 +279,10 @@ def phase1_kernels(dev):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms)
 
-    # ---- K1: main path [4,3,256,256,128] heads 16, and a ragged shape
+    # ---- K1: main path [4,3,256,256,128] heads 16, a ragged shape, and
+    # U-TAE's three skip levels (timed too)
     k1_err, k1_ms = 0.0, {}
-    for shape in K1_SHAPES:
+    for shape in K1_SHAPES + UTAE_K1_SHAPES:
         B, T, H, W, C, heads = shape
         for dtype in (torch.bfloat16, torch.float32):
             x = randn(B, T, H, W, C).to(dtype)
@@ -274,7 +297,7 @@ def phase1_kernels(dev):
             tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * top
             line = (f"K1 att_group_aggregate {str(dtype)[6:]} {list(shape[:5])} "
                     f"heads={heads}: max_abs_err={err:.3g} (tol {tol:.3g})")
-            if shape == K1_SHAPES[0]:
+            if shape == K1_SHAPES[0] or (shape in UTAE_K1_SHAPES and dtype == BF16):
                 kms = time_kernel(lambda: aggregate.att_group_aggregate(x, a))
                 pms = time_ms(lambda: aggregate.att_group_aggregate_plain(x, a))
                 # the one library call of the same function: an einsum over
@@ -285,16 +308,17 @@ def phase1_kernels(dev):
                 lerr = float((lib().reshape(ref.shape).float() - ref.float()).abs().max())
                 check(lerr <= 4 * tol, f"K1 {dtype}: the einsum computes another function")
                 # one multiply-add per (b, t, pixel, channel), fp32
-                k1_ms[dtype] = (kms, pms,
-                                *bound(nbytes(x, a, got), (2 * x.numel(), PEAK_FP32)),
-                                lms)
-                line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
-                         f"{k1_ms[dtype][2]:.4f} ms, torch.einsum {lms:.4f} ms "
-                         f"(max_abs_err {lerr:.3g})")
+                k1_ms[shape, dtype] = (kms, pms,
+                                       *bound(nbytes(x, a, got), (2 * x.numel(), PEAK_FP32)),
+                                       lms)
+                bms = k1_ms[shape, dtype][2]
+                line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+                         f"({nbytes(x, a, got) / 1e6:.1f} MB; kernel at {bms / kms:.0%} of it), "
+                         f"torch.einsum {lms:.4f} ms (max_abs_err {lerr:.3g})")
             print(line)
             check(err <= tol, f"K1 {dtype} {shape} disagrees with its plain version")
             k1_err = max(k1_err, err)
-    out["att_group_aggregate"] = result(k1_err, *k1_ms[torch.bfloat16])
+    out["att_group_aggregate"] = result(k1_err, *k1_ms[K1_SHAPES[0], BF16])
 
     # ---- K3: the two decoder GEMMs of the fused MBConv (N=4 frames of
     # 256x256), a statistics case, and a ragged shape
@@ -485,8 +509,8 @@ def phase1_kernels(dev):
     out["norm_gelu_dwconv3x3"]["max_abs_err"] = k4_err
 
     # ---- K1-bwd: the aggregator's backward at the main path shape, ragged
-    kb_err = 0.0
-    for shape in K1_SHAPES:
+    kb_err, kb_ms = 0.0, {}
+    for shape in K1_SHAPES + UTAE_K1_SHAPES:
         B_, T_, H, W, C, heads = shape
         for dtype in (torch.bfloat16, torch.float32):
             x = randn(B_, T_, H, W, C).to(dtype)
@@ -503,7 +527,7 @@ def phase1_kernels(dev):
             tol = (1e-6 if dtype == torch.float32 else 2 ** -7) * top
             line = (f"K1-bwd att_group_aggregate_bwd {str(dtype)[6:]} {list(shape[:5])} "
                     f"heads={heads}: max_abs_err={err:.3g} (tol {tol:.3g})")
-            if shape == K1_SHAPES[0] and dtype == torch.bfloat16:
+            if (shape == K1_SHAPES[0] or shape in UTAE_K1_SHAPES) and dtype == BF16:
                 kms = time_kernel(lambda: aggregate.att_group_aggregate_bwd(x, a, gy))
                 pms = time_ms(lambda: aggregate.att_group_aggregate_bwd_plain(x, a, gy))
                 # the library's way to the same two results: one einsum each
@@ -520,15 +544,17 @@ def phase1_kernels(dev):
                            float((lda.float() - rda.float()).abs().max()))
                 check(lerr <= 4 * tol, "K1-bwd: the einsums compute another function")
                 # per (b, t, pixel, channel): dx = a * gy and one term of da
-                kb_ms = (kms, pms,
-                         *bound(nbytes(x, a, gy, dx, da), (4 * x.numel(), PEAK_FP32)),
-                         lms)
-                line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {kb_ms[2]:.4f} ms, "
-                         f"two torch.einsum {lms:.4f} ms (max_abs_err {lerr:.3g})")
+                kb_ms[shape] = (kms, pms,
+                                *bound(nbytes(x, a, gy, dx, da), (4 * x.numel(), PEAK_FP32)),
+                                lms)
+                bms = kb_ms[shape][2]
+                line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+                         f"({nbytes(x, a, gy, dx, da) / 1e6:.1f} MB; kernel at {bms / kms:.0%} of "
+                         f"it), two torch.einsum {lms:.4f} ms (max_abs_err {lerr:.3g})")
             print(line)
             check(err <= tol, f"K1-bwd {dtype} {shape} disagrees with its plain version")
             kb_err = max(kb_err, err)
-    out["att_group_aggregate_bwd"] = result(kb_err, *kb_ms)
+    out["att_group_aggregate_bwd"] = result(kb_err, *kb_ms[K1_SHAPES[0]])
 
     # ---- K5 (forward, folded adjoint, zero-pad shapes) and K2 (weight gradient)
     Fn = torch.nn.functional
@@ -1028,23 +1054,33 @@ KERNEL_KINDS = (
 )
 
 
-def profile_train_step(step, state, batch, gen):
-    """One more train step under ``torch.profiler``: fails if a reflect-pad
-    kernel runs, prints the device time by kind."""
+def profile_train_step(step, state, batch, gen, paper_recipe=True, step_ms=None):
+    """One more train step under ``torch.profiler``; prints the device time
+    by kind (and, given the unprofiled ``step_ms``, the device's idle share
+    and the largest kernels). For the paper recipe it fails if a reflect-pad
+    kernel runs or K5 or K2 is missing (U-TAE pads its 3x3 convolutions for
+    cuDNN)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(state, batch, gen)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-    kinds, _, others = device_time_by_kind(prof, KERNEL_KINDS)
+    kinds, names, others = device_time_by_kind(prof, KERNEL_KINDS)
     busy = sum(t for t, _ in kinds.values())
     check(busy > 0, "the profiler recorded no device time")
+    idle = f"; against the unprofiled step of {step_ms:.2f} ms the device idles " \
+           f"{1 - busy / step_ms:.1%}" if step_ms else ""
     print(f"  profile of one train step ({host_ms:.1f} ms on the host under the profiler): "
-          f"device busy {busy:.2f} ms in {sum(n for _, n in kinds.values())} kernels")
+          f"device busy {busy:.2f} ms in {sum(n for _, n in kinds.values())} kernels{idle}")
     for kind, (t, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
         print(f"    {kind}: {t:.3f} ms, {n} launches")
     print(f"    the largest of 'other': {others}")
+    if not paper_recipe:
+        top = sorted(names.items(), key=lambda kv: -kv[1][1])[:6]
+        print("    the largest kernels: " + "; ".join(f"{k[:64]} x{n} {ms:.3f} ms"
+                                                     for k, (n, ms) in top))
+        return
     check("reflect pad" not in kinds, "the train step ran a reflection_pad kernel: "
           "the differentiated reflect depthwise conv must not pad")
     check(kinds.get("K5 depthwise stencil", (0, 0))[1] >= 12
@@ -1129,9 +1165,10 @@ def chain_launches(train_steps, eval_forwards):
             "K2": 6 * train_steps, "K3": 10 * eval_forwards, "K4": 5 * eval_forwards}
 
 
-def phase6_cli(dev, eval_ms, train_ms):
-    """The train and test CLIs at the paper recipe's full width, in a
-    temporary directory; returns the launches of the chain."""
+def phase6_cli(dev, eval_ms, train_ms, tmp):
+    """The train and test CLIs at the paper recipe's full width, in the
+    directory ``tmp`` (phase 8 fuses its test exports with a second
+    member's); returns the launches of the chain."""
     from uncrtaints_tpu_torch.cli import test as cli_test, train as cli_train
     from uncrtaints_tpu_torch.config import Config, apply_resume, derive
     from uncrtaints_tpu_torch.data import (BatchLoader, Subset, SyntheticSEN12MSCRTS,
@@ -1148,179 +1185,178 @@ def phase6_cli(dev, eval_ms, train_ms):
     kernels = kernel_wrappers()
     n_samples, gamma = 8, 0.8
     n_batches = math.ceil(n_samples / B)
-    with tempfile.TemporaryDirectory() as tmp:
-        res = os.path.join(tmp, "results")
-        exp = os.path.join(res, "smoke")
+    res = os.path.join(tmp, "results")
+    exp = os.path.join(res, "smoke")
 
-        def recipe(**kw):  # the paper recipe, as the train CLI's flags would give it
-            return derive(Config(
-                use_sar=True, scale_by=10.0, gamma=gamma, synthetic_data=True,
-                synthetic_patch=PATCH, batch_size=B, input_t=T, max_samples_count=n_samples,
-                num_workers=4, plot_every=-1, export_every=4, res_dir=res,
-                experiment_name="smoke", **kw))
+    def recipe(**kw):  # the paper recipe, as the train CLI's flags would give it
+        return derive(Config(
+            use_sar=True, scale_by=10.0, gamma=gamma, synthetic_data=True,
+            synthetic_patch=PATCH, batch_size=B, input_t=T, max_samples_count=n_samples,
+            num_workers=4, plot_every=-1, export_every=4, res_dir=res,
+            experiment_name="smoke", **kw))
 
-        cfg = recipe(epochs=1)
-        check(cfg.device == "cuda" and cfg.compute_dtype == "bfloat16"
-              and cfg.encoder_widths == [128] and cfg.decoder_widths == [128] * 5,
-              "phase 6 runs the paper recipe at full width on the card")
-        for f in kernels.values():
-            f.launches = 0
-        t0 = time.perf_counter()
-        first = cli_train.main(cfg)
-        ckpt1 = os.path.join(exp, "model_epoch_1.pth.tar")
-        resumed = apply_resume(recipe(epochs=2, resume_from=True, trained_checkp=ckpt1,
-                                      resume_at=1))
-        second = cli_train.main(resumed)
-        argv = ["--experiment_name", "smoke", "--weight_folder", res, "--res_dir",
-                os.path.join(tmp, "inference"), "--max_samples_count", str(n_samples),
-                "--batch_size", str(B), "--input_t", str(T), "--num_workers", "4",
-                "--export_every", "4"]
-        tests = [cli_test.main(cli_test.load_test_config(argv)) for _ in range(2)]
-        chain_s = time.perf_counter() - t0
-        counts = {k: f.launches for k, f in kernels.items()}
+    cfg = recipe(epochs=1)
+    check(cfg.device == "cuda" and cfg.compute_dtype == "bfloat16"
+          and cfg.encoder_widths == [128] and cfg.decoder_widths == [128] * 5,
+          "phase 6 runs the paper recipe at full width on the card")
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    first = cli_train.main(cfg)
+    ckpt1 = os.path.join(exp, "model_epoch_1.pth.tar")
+    resumed = apply_resume(recipe(epochs=2, resume_from=True, trained_checkp=ckpt1,
+                                  resume_at=1))
+    second = cli_train.main(resumed)
+    argv = ["--experiment_name", "smoke", "--weight_folder", res, "--res_dir",
+            os.path.join(tmp, "inference"), "--max_samples_count", str(n_samples),
+            "--batch_size", str(B), "--input_t", str(T), "--num_workers", "4",
+            "--export_every", "4"]
+    tests = [cli_test.main(cli_test.load_test_config(argv)) for _ in range(2)]
+    chain_s = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in kernels.items()}
 
-        train_steps = 2 * n_batches
-        evals = (2 * 2 + 2) * n_batches  # a val and a test epoch per train run, two test runs
-        want = chain_launches(train_steps, evals)
-        print(f"phase 6: cli.train (1 epoch), cli.train resumed to 2 epochs, cli.test twice, paper "
-              f"recipe (bf16), {n_samples} samples a split in batches of {B}: {chain_s:.1f} s, "
-              f"{train_steps} train steps and {evals} eval forwards, launches {counts}")
-        check(counts == want, f"the CLI chain launched {counts}, expected {want}")
+    train_steps = 2 * n_batches
+    evals = (2 * 2 + 2) * n_batches  # a val and a test epoch per train run, two test runs
+    want = chain_launches(train_steps, evals)
+    print(f"phase 6: cli.train (1 epoch), cli.train resumed to 2 epochs, cli.test twice, paper "
+          f"recipe (bf16), {n_samples} samples a split in batches of {B}: {chain_s:.1f} s, "
+          f"{train_steps} train steps and {evals} eval forwards, launches {counts}")
+    check(counts == want, f"the CLI chain launched {counts}, expected {want}")
 
-        files = ["conf.json", "trainlog.json", "model.pth.tar", "model_epoch_1.pth.tar",
-                 "model_epoch_2.pth.tar", "test_metrics.json", "val_epoch_1_metrics.json",
-                 "val_epoch_2_metrics.json"]
-        files += [os.path.join("export", f"epoch_{e}", mode, f"img-{i}_{m}.npy")
-                  for e, mode in ((1, "val"), (1, "test"), (2, "val"), (2, "test"))
-                  for i in (0, 4) for m in ("pred", "target", "covar")]
-        missing = [f for f in files if not os.path.isfile(os.path.join(exp, f))]
-        check(not missing, f"files the CLI chain did not write: {missing}")
-        covar = np.load(os.path.join(exp, "export", "epoch_2", "test", "img-4_covar.npy"))
-        check(covar.shape == (13, 13, PATCH, PATCH) and bool(np.isfinite(covar).all()),
-              f"exported covar {covar.shape}")
-        with open(os.path.join(exp, "test_metrics.json")) as f:
-            tm = json.load(f)
-        names = ("RMSE", "MAE", "PSNR", "SAM", "SSIM", "mean var", "UCE SE", "AUCE SE")
-        check(all(k in tm for k in names) and all(np.isfinite(v) for v in tm.values()),
-              f"test_metrics.json {tm}")
-        print(f"  test_metrics.json: { {k: round(v, 6) for k, v in tm.items()} }")
-        check(tests[0] == tests[1], f"two cli.test runs differ: {tests}")
-        check(tests[0] == second["test"],
-              f"cli.test {tests[0]} differs from the train run's final test {second['test']}")
-        check(tm == {k: float(v) for k, v in second["test"].items()},
-              "test_metrics.json is not the train run's final test")
-        print("  two cli.test runs and the train run's final test on model.pth.tar: equal to the bit")
+    files = ["conf.json", "trainlog.json", "model.pth.tar", "model_epoch_1.pth.tar",
+             "model_epoch_2.pth.tar", "test_metrics.json", "val_epoch_1_metrics.json",
+             "val_epoch_2_metrics.json"]
+    files += [os.path.join("export", f"epoch_{e}", mode, f"img-{i}_{m}.npy")
+              for e, mode in ((1, "val"), (1, "test"), (2, "val"), (2, "test"))
+              for i in (0, 4) for m in ("pred", "target", "covar")]
+    missing = [f for f in files if not os.path.isfile(os.path.join(exp, f))]
+    check(not missing, f"files the CLI chain did not write: {missing}")
+    covar = np.load(os.path.join(exp, "export", "epoch_2", "test", "img-4_covar.npy"))
+    check(covar.shape == (13, 13, PATCH, PATCH) and bool(np.isfinite(covar).all()),
+          f"exported covar {covar.shape}")
+    with open(os.path.join(exp, "test_metrics.json")) as f:
+        tm = json.load(f)
+    names = ("RMSE", "MAE", "PSNR", "SAM", "SSIM", "mean var", "UCE SE", "AUCE SE")
+    check(all(k in tm for k in names) and all(np.isfinite(v) for v in tm.values()),
+          f"test_metrics.json {tm}")
+    print(f"  test_metrics.json: { {k: round(v, 6) for k, v in tm.items()} }")
+    check(tests[0] == tests[1], f"two cli.test runs differ: {tests}")
+    check(tests[0] == second["test"],
+          f"cli.test {tests[0]} differs from the train run's final test {second['test']}")
+    check(tm == {k: float(v) for k, v in second["test"].items()},
+          "test_metrics.json is not the train run's final test")
+    print("  two cli.test runs and the train run's final test on model.pth.tar: equal to the bit")
 
-        # the resumed epoch: Adam's count and the step go on, the lr is the schedule's
-        one = torch.load(ckpt1, weights_only=True)
-        two = torch.load(os.path.join(exp, "model_epoch_2.pth.tar"), weights_only=True)
-        got = [(c["epoch"], c["step"], c["optimizer_G"]["count"], c["lr"]) for c in (one, two)]
-        want_lr = [epoch_lr(cfg, 0), epoch_lr(resumed, 1)]
-        print(f"  checkpoints (epoch, step, Adam count, lr): {got}; the schedule's lr {want_lr}")
-        check(got == [(1, n_batches, n_batches, want_lr[0]),
-                      (2, 2 * n_batches, 2 * n_batches, want_lr[1])]
-              and want_lr[1] == cfg.lr * gamma, "the resumed epoch's step, count or lr")
-        check(set(map(int, second["trainlog"])) == {2} and set(map(int, first["trainlog"])) == {1},
-              "the resumed run trained other epochs than the second")
-        with open(os.path.join(exp, "trainlog.json")) as f:
-            log2 = json.load(f)["2"]
-        check(all(np.isfinite(v) for v in log2.values()), f"trainlog.json {log2}")
+    # the resumed epoch: Adam's count and the step go on, the lr is the schedule's
+    one = torch.load(ckpt1, weights_only=True)
+    two = torch.load(os.path.join(exp, "model_epoch_2.pth.tar"), weights_only=True)
+    got = [(c["epoch"], c["step"], c["optimizer_G"]["count"], c["lr"]) for c in (one, two)]
+    want_lr = [epoch_lr(cfg, 0), epoch_lr(resumed, 1)]
+    print(f"  checkpoints (epoch, step, Adam count, lr): {got}; the schedule's lr {want_lr}")
+    check(got == [(1, n_batches, n_batches, want_lr[0]),
+                  (2, 2 * n_batches, 2 * n_batches, want_lr[1])]
+          and want_lr[1] == cfg.lr * gamma, "the resumed epoch's step, count or lr")
+    check(set(map(int, second["trainlog"])) == {2} and set(map(int, first["trainlog"])) == {1},
+          "the resumed run trained other epochs than the second")
+    with open(os.path.join(exp, "trainlog.json")) as f:
+        log2 = json.load(f)["2"]
+    check(all(np.isfinite(v) for v in log2.values()), f"trainlog.json {log2}")
 
-        # ---- after the counted chain: what only a card runs
-        rcfg = resumed.replace(export_every=-1)
-        state = create_train_state(rcfg, get_generator(rcfg))
-        state, meta = load_checkpoint(rcfg, res, state, "model_epoch_2")
-        check(meta["epoch"] == 2 and state.step == 2 * n_batches
-              and {p.device.type for p in state.model.parameters()} == {"cuda"},
-              "load_checkpoint on the card")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        path = save_checkpoint(rcfg.replace(experiment_name="round"), 2, state, "trip", 1e-3)
-        save_ms = (time.perf_counter() - t0) * 1e3
-        print(f"  one save_checkpoint (model, moments, {os.path.getsize(path) / 2**20:.1f} MiB): "
-              f"{save_ms:.1f} ms")
-        fresh = create_train_state(rcfg, get_generator(rcfg.replace(rdm_seed=7)))
-        fresh, _ = load_checkpoint(rcfg.replace(experiment_name="round"), res, fresh, "trip")
-        ds = SyntheticSEN12MSCRTS(n_samples=32, n_input_t=T, patch_size=PATCH, seed=SEED + 8)
-        mk_loader = lambda n=None: BatchLoader(
-            Subset(ds, range(n or len(ds))), batch_size=B, collate=select_collate(rcfg),
-            num_workers=4, drop_last=False)
-        eval_step = make_eval_step(rcfg, with_metrics=True)
-        _, dev_batch = next(iter(_device_batches(mk_loader(), dev, False)))
-        a, b = eval_step(state.model, dev_batch), eval_step(fresh.model, dev_batch)
-        same = (torch.equal(a["loss"], b["loss"]) and torch.equal(a["pred"], b["pred"])
-                and torch.equal(a["var"], b["var"])
-                and all(torch.equal(a["metrics"][k], b["metrics"][k]) for k in a["metrics"]))
-        check(same and all(torch.equal(m, fresh.opt_state.mu[n]) for n, m in
-                           state.opt_state.mu.items()),
-              "save -> fresh model -> load changes the eval step or the moments")
-        print("  checkpoint round trip on the card (save, fresh model, load, one eval step): "
-              "equal to the bit")
+    # ---- after the counted chain: what only a card runs
+    rcfg = resumed.replace(export_every=-1)
+    state = create_train_state(rcfg, get_generator(rcfg))
+    state, meta = load_checkpoint(rcfg, res, state, "model_epoch_2")
+    check(meta["epoch"] == 2 and state.step == 2 * n_batches
+          and {p.device.type for p in state.model.parameters()} == {"cuda"},
+          "load_checkpoint on the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(rcfg.replace(experiment_name="round"), 2, state, "trip", 1e-3)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  one save_checkpoint (model, moments, {os.path.getsize(path) / 2**20:.1f} MiB): "
+          f"{save_ms:.1f} ms")
+    fresh = create_train_state(rcfg, get_generator(rcfg.replace(rdm_seed=7)))
+    fresh, _ = load_checkpoint(rcfg.replace(experiment_name="round"), res, fresh, "trip")
+    ds = SyntheticSEN12MSCRTS(n_samples=32, n_input_t=T, patch_size=PATCH, seed=SEED + 8)
+    mk_loader = lambda n=None: BatchLoader(
+        Subset(ds, range(n or len(ds))), batch_size=B, collate=select_collate(rcfg),
+        num_workers=4, drop_last=False)
+    eval_step = make_eval_step(rcfg, with_metrics=True)
+    _, dev_batch = next(iter(_device_batches(mk_loader(), dev, False)))
+    a, b = eval_step(state.model, dev_batch), eval_step(fresh.model, dev_batch)
+    same = (torch.equal(a["loss"], b["loss"]) and torch.equal(a["pred"], b["pred"])
+            and torch.equal(a["var"], b["var"])
+            and all(torch.equal(a["metrics"][k], b["metrics"][k]) for k in a["metrics"]))
+    check(same and all(torch.equal(m, fresh.opt_state.mu[n]) for n, m in
+                       state.opt_state.mu.items()),
+          "save -> fresh model -> load changes the eval step or the moments")
+    print("  checkpoint round trip on the card (save, fresh model, load, one eval step): "
+          "equal to the bit")
 
-        # the side-stream prefetch hands out the host's batches, with the
-        # consumer's stream kept busy while the next copy runs
-        n_seen = 0
-        for host, devb in _device_batches(mk_loader(), dev, True):
-            torch.cuda._sleep(SPIN_CYCLES)
-            for k, v in host.items():
-                check(torch.equal(devb[k].cpu(), torch.from_numpy(v)),
-                      f"prefetched batch {n_seen}: {k} differs from the host's")
-            n_seen += 1
-        check(n_seen == len(ds) // B, f"the prefetch handed out {n_seen} of {len(ds) // B} batches")
+    # the side-stream prefetch hands out the host's batches, with the
+    # consumer's stream kept busy while the next copy runs
+    n_seen = 0
+    for host, devb in _device_batches(mk_loader(), dev, True):
+        torch.cuda._sleep(SPIN_CYCLES)
+        for k, v in host.items():
+            check(torch.equal(devb[k].cpu(), torch.from_numpy(v)),
+                  f"prefetched batch {n_seen}: {k} differs from the host's")
+        n_seen += 1
+    check(n_seen == len(ds) // B, f"the prefetch handed out {n_seen} of {len(ds) // B} batches")
 
-        def epoch(mode, prefetch, samples=None, **step):
-            model_state = create_train_state(rcfg, get_generator(rcfg))
-            load_checkpoint(rcfg, res, model_state, "model_epoch_2")
-            with count_syncs() as syncs:
-                _, m, img = iterate(model_state, mk_loader(samples), rcfg, None, mode, 3,
-                                    prefetch=prefetch, **step)
-            return m, img, syncs
+    def epoch(mode, prefetch, samples=None, **step):
+        model_state = create_train_state(rcfg, get_generator(rcfg))
+        load_checkpoint(rcfg, res, model_state, "model_epoch_2")
+        with count_syncs() as syncs:
+            _, m, img = iterate(model_state, mk_loader(samples), rcfg, None, mode, 3,
+                                prefetch=prefetch, **step)
+        return m, img, syncs
 
-        eval_step = make_eval_step(rcfg, with_metrics=True,
-                                   return_outputs=cli_train.need_outputs(rcfg))
-        train_step = make_train_step(rcfg)
-        t0 = time.perf_counter()
-        n_loaded = sum(len(b["y"]) for b in mk_loader())
-        loader_s = time.perf_counter() - t0
-        check(n_loaded == len(ds), f"the loader yielded {n_loaded} of {len(ds)} samples")
-        print(f"  the loader alone (synthetic source, single-pass collate, 4 threads), {n_loaded} "
-              f"samples: {loader_s * 1e3:.1f} ms, {n_loaded / loader_s:.2f} sequences/s")
-        epoch("val", True, eval_step=eval_step)  # warm-up of the loop's own shapes
-        # with the prefetch, without, without, with: the host's load drifts
-        order = (True, False, False, True)
-        val = [epoch("val", p, eval_step=eval_step) for p in order]
-        train = [epoch("train", p, train_step=train_step) for p in order]
-        for (m, img, _) in val[1:]:
-            check(m["val_loss"] == val[0][0]["val_loss"] and img == val[0][1],
-                  f"val epoch with the prefetch {val[0][:2]} and without {m, img}")
-        # a train step's backward sums with atomics (the bilinear upsample's),
-        # so only the first step of an epoch repeats to the bit; later steps
-        # drift apart (1e-4 of the loss after 8 steps at this lr), while a
-        # wrong or stale batch would move the loss by percents
-        first = [epoch("train", p, train_step=train_step, samples=B)[0]["train_loss"]
-                 for p in (True, False)]
-        check(first[0] == first[1], f"one-step train epoch with the prefetch and without {first}")
-        losses = [m["train_loss"] for m, _, _ in train]
-        rel = max(abs(v / losses[0] - 1) for v in losses)
-        check(rel <= 5e-3, f"train epoch losses with and without the prefetch {losses}")
-        print(f"  prefetch on, off, off, on, {len(ds)} samples: val epoch loss and every metric "
-              f"equal to the bit; a one-step train epoch equal to the bit; the 8-step train "
-              f"epochs' losses within {rel:.3g} (<= 5e-3; bit-equal {len(set(losses)) == 1})")
-        n = len(ds)
-        for mode, runs, bare in (("train", train, train_ms), ("val", val, eval_ms)):
-            ms = [m[f"{mode}_epoch_time"] * 1e3 for m, _, _ in runs]
-            on, off = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
-            print(f"  {mode} epoch through the loader and the loop, {n} samples, prefetch on, off, "
-                  f"off, on: {', '.join(f'{t:.1f}' for t in ms)} ms; on {n / on * 1e3:.2f}, off "
-                  f"{n / off * 1e3:.2f} sequences/s; the bare "
-                  f"{mode if mode == 'train' else 'eval'} step of phase "
-                  f"{4 if mode == 'train' else 2}: {bare:.2f} ms, {B / bare * 1e3:.2f} sequences/s")
-            syncs = runs[0][2]
-            print(f"  host synchronizations in the {mode} epoch ({n // B} steps): {syncs.n}, by "
-                  f"line {dict(syncs.by_line)}")
-        cli_epochs = {k: round(n_samples / v, 2) for k, v in log2.items() if k.endswith("_time")}
-        print(f"  the CLI's own second epoch ({n_samples} samples, trainlog.json), sequences/s: "
-              f"{cli_epochs}")
+    eval_step = make_eval_step(rcfg, with_metrics=True,
+                               return_outputs=cli_train.need_outputs(rcfg))
+    train_step = make_train_step(rcfg)
+    t0 = time.perf_counter()
+    n_loaded = sum(len(b["y"]) for b in mk_loader())
+    loader_s = time.perf_counter() - t0
+    check(n_loaded == len(ds), f"the loader yielded {n_loaded} of {len(ds)} samples")
+    print(f"  the loader alone (synthetic source, single-pass collate, 4 threads), {n_loaded} "
+          f"samples: {loader_s * 1e3:.1f} ms, {n_loaded / loader_s:.2f} sequences/s")
+    epoch("val", True, eval_step=eval_step)  # warm-up of the loop's own shapes
+    # with the prefetch, without, without, with: the host's load drifts
+    order = (True, False, False, True)
+    val = [epoch("val", p, eval_step=eval_step) for p in order]
+    train = [epoch("train", p, train_step=train_step) for p in order]
+    for (m, img, _) in val[1:]:
+        check(m["val_loss"] == val[0][0]["val_loss"] and img == val[0][1],
+              f"val epoch with the prefetch {val[0][:2]} and without {m, img}")
+    # a train step's backward sums with atomics (the bilinear upsample's),
+    # so only the first step of an epoch repeats to the bit; later steps
+    # drift apart (1e-4 of the loss after 8 steps at this lr), while a
+    # wrong or stale batch would move the loss by percents
+    first = [epoch("train", p, train_step=train_step, samples=B)[0]["train_loss"]
+             for p in (True, False)]
+    check(first[0] == first[1], f"one-step train epoch with the prefetch and without {first}")
+    losses = [m["train_loss"] for m, _, _ in train]
+    rel = max(abs(v / losses[0] - 1) for v in losses)
+    check(rel <= 5e-3, f"train epoch losses with and without the prefetch {losses}")
+    print(f"  prefetch on, off, off, on, {len(ds)} samples: val epoch loss and every metric "
+          f"equal to the bit; a one-step train epoch equal to the bit; the 8-step train "
+          f"epochs' losses within {rel:.3g} (<= 5e-3; bit-equal {len(set(losses)) == 1})")
+    n = len(ds)
+    for mode, runs, bare in (("train", train, train_ms), ("val", val, eval_ms)):
+        ms = [m[f"{mode}_epoch_time"] * 1e3 for m, _, _ in runs]
+        on, off = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+        print(f"  {mode} epoch through the loader and the loop, {n} samples, prefetch on, off, "
+              f"off, on: {', '.join(f'{t:.1f}' for t in ms)} ms; on {n / on * 1e3:.2f}, off "
+              f"{n / off * 1e3:.2f} sequences/s; the bare "
+              f"{mode if mode == 'train' else 'eval'} step of phase "
+              f"{4 if mode == 'train' else 2}: {bare:.2f} ms, {B / bare * 1e3:.2f} sequences/s")
+        syncs = runs[0][2]
+        print(f"  host synchronizations in the {mode} epoch ({n // B} steps): {syncs.n}, by "
+              f"line {dict(syncs.by_line)}")
+    cli_epochs = {k: round(n_samples / v, 2) for k, v in log2.items() if k.endswith("_time")}
+    print(f"  the CLI's own second epoch ({n_samples} samples, trainlog.json), sequences/s: "
+          f"{cli_epochs}")
     return counts
 
 
@@ -1564,6 +1600,292 @@ def phase7_real_data(dev, eval_ms, train_ms):
     return {k: counts[k] + custom_counts[k] for k in counts}
 
 
+# phase 8: U-TAE at its published widths (UTAE's own defaults), through the CLIs
+UTAE_FLAGS = ["--model", "utae", "--encoder_widths", "[64,64,64,128]",
+              "--decoder_widths", "[32,32,64,128]", "--out_conv", "[13]", "--n_head", "16",
+              "--d_model", "256", "--d_k", "4", "--use_sar"]
+# every other family at the JAX package's default widths; the MSE loss, as the
+# JAX package's tests drive them (no variance nonlinearity: a negative raw
+# variance makes the MGNLL loss -inf in both packages)
+FAMILIES = {"unet (pretrain)": dict(model="unet", encoder_widths=[64, 64, 64, 128],
+                                    decoder_widths=[32, 32, 64, 128]),
+            "unet3d": dict(model="unet3d", input_t=4), "uconvlstm": dict(model="uconvlstm"),
+            "buconvlstm": dict(model="buconvlstm"), "convlstm": dict(model="convlstm"),
+            "convgru": dict(model="convgru"), "fpn": dict(model="fpn")}
+
+
+def exact_zero_gradients(model):
+    """The parameters whose gradient is zero in exact arithmetic in a train
+    step: a bias that feeds a batch norm in training (the norm takes out its
+    mean) and the L-TAE's key bias (a shift of every logit of a pixel, under
+    the softmax over T). Rounding leaves noise there, or an exact zero."""
+    from uncrtaints_tpu_torch.models.layers import Norm2d
+    from uncrtaints_tpu_torch.models.ltae import BatchNorm1d
+    names = set()
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, torch.nn.Sequential):
+            kids = list(mod.children())
+            for i, (a, b) in enumerate(zip(kids, kids[1:])):
+                batch_norm = isinstance(b, BatchNorm1d) or (isinstance(b, Norm2d)
+                                                            and b.norm == "batch")
+                if batch_norm and getattr(a, "bias", None) is not None:
+                    names.add(f"{prefix}.{i}.bias")
+    return names | {n for n, _ in model.named_parameters()
+                    if n.endswith("attention_heads.fc1_k.bias")}
+
+
+def _synthetic_batches(cfg, n, patch, seed, dev):
+    from uncrtaints_tpu_torch.data import (SyntheticSEN12MSCR, SyntheticSEN12MSCRTS,
+                                           select_collate)
+    from uncrtaints_tpu_torch.train import batch_to_device
+    if cfg.pretrain:
+        ds = SyntheticSEN12MSCR(n_samples=n * B, patch_size=patch, seed=seed)
+    else:
+        ds = SyntheticSEN12MSCRTS(n_samples=n * B, n_input_t=cfg.input_t, patch_size=patch,
+                                  seed=seed)
+    collate = select_collate(cfg)
+    return [batch_to_device(collate([ds[i * B + j] for j in range(B)]), dev) for i in range(n)]
+
+
+def _card_vs_cpu(dev, cfg, name):
+    """fp32 at 32x32: one eval step and one train step of the same seeded
+    model and batch on the card and on the CPU (dropout off)."""
+    from uncrtaints_tpu_torch.train import create_train_state, make_eval_step, make_train_step
+    small = cfg.replace(compute_dtype="float32", lr=1e-3)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        model = seeded_model(small, d)
+        te = getattr(model, "temporal_encoder", None)
+        if te is not None and hasattr(te, "use_dropout"):  # the two generators differ
+            te.use_dropout, te.dropout = False, 0.0
+        b = _synthetic_batches(small, 1, 32, SEED + 9, d)[0]
+        ev = make_eval_step(small)(model, b)
+        _, aux = make_train_step(small)(create_train_state(small, model), b)
+        out.append((ev["pred"].cpu(), float(aux["loss"])))
+    (pg, lg), (pc, lc) = out
+    rmse = float((pg - pc).square().mean().sqrt())
+    rel = abs(lg / lc - 1)
+    print(f"  {name}: card vs CPU, fp32 {B}x{small.input_t}x32x32: eval pred RMSE {rmse:.3g} "
+          f"(<= 1e-3), train loss rel {rel:.3g} (<= 1e-3)")
+    check(rmse <= 1e-3 and rel <= 1e-3, f"{name}: card/CPU gap")
+
+
+def phase8_utae(dev, tmp):
+    """U-TAE at its published widths: cli.train one epoch and cli.test at
+    256x256, B=4, T=3, bf16; the bare steps with their launches, step times,
+    memory, gradients and a profile; card vs CPU. Returns the launches."""
+    from uncrtaints_tpu_torch.cli import test as cli_test, train as cli_train
+    from uncrtaints_tpu_torch.config import apply_resume, derive, parse_config
+    from uncrtaints_tpu_torch.train import create_train_state, make_eval_step, make_train_step
+
+    kernels = kernel_wrappers()
+    res, n_samples = os.path.join(tmp, "utae_results"), 8
+    argv = UTAE_FLAGS + ["--synthetic_data", "--synthetic_patch", str(PATCH), "--batch_size",
+                         str(B), "--input_t", str(T), "--max_samples_count", str(n_samples),
+                         "--epochs", "1", "--num_workers", "4", "--plot_every", "-1",
+                         "--export_every", "4", "--res_dir", res, "--experiment_name", "utae"]
+    cfg = apply_resume(derive(parse_config(argv)))
+    check(cfg.device == "cuda" and cfg.compute_dtype == "bfloat16" and cfg.loss == "l2"
+          and cfg.encoder_widths == [64, 64, 64, 128] and cfg.n_head == 16,
+          "phase 8 runs U-TAE at its published widths on the card")
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = cli_train.main(cfg)
+    tested = cli_test.main(cli_test.load_test_config(
+        ["--experiment_name", "utae", "--weight_folder", res, "--res_dir",
+         os.path.join(tmp, "utae_inference"), "--max_samples_count", str(n_samples),
+         "--batch_size", str(B), "--input_t", str(T), "--num_workers", "4"]))
+    chain_s = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in kernels.items()}
+    steps = n_samples // B
+    evals = 3 * steps  # val and test in cli.train, cli.test
+    want = {"K1": 3 * (steps + evals), "K1-bwd": 3 * steps, "K5": 0, "K2": 0, "K3": 0, "K4": 0}
+    print(f"phase 8: U-TAE (encoder [64,64,64,128], decoder [32,32,64,128], 16 heads, d_model "
+          f"256; bf16, B={B}, T={T}, {PATCH}x{PATCH}): cli.train 1 epoch and cli.test, "
+          f"{chain_s:.1f} s, {steps} train steps and {evals} eval forwards, launches {counts}")
+    check(counts == want, f"the U-TAE chain launched {counts}, expected {want} (3 K1 a forward, "
+                          "3 K1-bwd a train step, nothing else)")
+    exp = os.path.join(res, "utae")
+    files = ["conf.json", "trainlog.json", "model.pth.tar", "model_epoch_1.pth.tar",
+             "test_metrics.json"] + [os.path.join("export", "epoch_1", "test", f"img-{i}_{m}.npy")
+                                     for i in (0, 4) for m in ("pred", "target")]
+    missing = [f for f in files if not os.path.isfile(os.path.join(exp, f))]
+    check(not missing, f"files the U-TAE chain did not write: {missing}")
+    check(not any("_var" in f or "_covar" in f for f in os.listdir(
+        os.path.join(exp, "export", "epoch_1", "test"))), "U-TAE (MSE) exported a variance")
+    names = ("RMSE", "MAE", "PSNR", "SAM", "SSIM")
+    check(all(np.isfinite(tested[k]) and tested[k] == out["test"][k] for k in names)
+          and "UCE SE" not in tested, f"U-TAE cli.test {tested} against cli.train's {out['test']}")
+    print(f"  cli.test: { {k: round(tested[k], 6) for k in names} }, equal to the bit to "
+          f"cli.train's final test; no variance, no calibration")
+
+    # the bare steps: launches per step, times, memory, gradients, profile
+    model = seeded_model(cfg, dev)
+    state = create_train_state(cfg, model)
+    batches = _synthetic_batches(cfg, 2, PATCH, SEED + 10, dev)
+    eval_step, train_step = make_eval_step(cfg, with_metrics=True), make_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    eval_step(model, batches[0])
+    train_step(state, batches[0], gen)
+    torch.cuda.synchronize()
+    for f in kernels.values():
+        f.launches = 0
+    ev_ms = []
+    for i in range(6):
+        t0 = time.perf_counter()
+        aux = eval_step(model, batches[i % 2])
+        torch.cuda.synchronize()
+        ev_ms.append((time.perf_counter() - t0) * 1e3)
+        check(finite(aux["pred"]) and "var" not in aux, "U-TAE eval output")
+    ev_counts = {k: f.launches for k, f in kernels.items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr_ms, grads = [], None
+    for i in range(4):
+        t0 = time.perf_counter()
+        state, aux = train_step(state, batches[i % 2], gen)
+        torch.cuda.synchronize()
+        tr_ms.append((time.perf_counter() - t0) * 1e3)
+        check(np.isfinite(float(aux["loss"])), "U-TAE train loss not finite")
+        grads = grads or {n: (bool(torch.isfinite(g).all()), float(g.abs().max()))
+                          for n, g in aux["grads"].items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    all_counts = {k: f.launches for k, f in kernels.items()}
+    tr_counts = {k: all_counts[k] - ev_counts[k] for k in all_counts}
+    check(ev_counts == {"K1": 18, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 0, "K4": 0}
+          and tr_counts == {"K1": 12, "K1-bwd": 12, "K5": 0, "K2": 0, "K3": 0, "K4": 0},
+          f"U-TAE bare steps launched {ev_counts} in 6 eval forwards and {tr_counts} in 4 train "
+          "steps (3 K1 a forward, 3 K1-bwd a train step)")
+    zero_ok = exact_zero_gradients(model)
+    bad = [n for n, (fin, mx) in grads.items() if not fin or (mx == 0 and n not in zero_ok)]
+    zeros = sorted(n for n, (_, mx) in grads.items() if n in zero_ok)
+    print(f"  bare steps: eval {statistics.median(ev_ms):.3f} ms (median of 6; "
+          f"{B / statistics.median(ev_ms) * 1e3:.2f} sequences/s), train "
+          f"{statistics.median(tr_ms):.3f} ms (median of 4; "
+          f"{B / statistics.median(tr_ms) * 1e3:.2f} sequences/s), peak device memory of the "
+          f"train steps {peak / 2**30:.2f} GiB; launches per eval forward "
+          f"{ {k: v // 6 for k, v in ev_counts.items() if v} }, per train step "
+          f"{ {k: v // 4 for k, v in tr_counts.items() if v} }")
+    print(f"  step 1: {len(grads)} parameter gradients, none zero or not finite but the "
+          f"{len(zeros)} zero in exact arithmetic (biases feeding a batch norm in training, the "
+          f"L-TAE key bias): max|g| there {max(grads[n][1] for n in zeros):.3g}")
+    check(not bad, f"U-TAE parameters without a finite non-zero gradient: {bad[:8]}")
+    profile_train_step(train_step, state, batches[0], gen, paper_recipe=False,
+                       step_ms=statistics.median(tr_ms))
+    _card_vs_cpu(dev, derive(parse_config(
+        ["--model", "utae", "--encoder_widths", "[16,16,16,32]", "--decoder_widths",
+         "[16,16,16,32]", "--n_head", "4", "--d_model", "32", "--use_sar"])), "U-TAE")
+    del model, state, batches
+    return {k: counts[k] + all_counts[k] for k in counts}
+
+
+def phase8_families(dev):
+    """One train step and one eval forward of every other family at 256x256
+    (bf16), finite outputs and no kernel launch; card vs CPU at 32x32."""
+    from uncrtaints_tpu_torch.config import Config, derive
+    from uncrtaints_tpu_torch.train import create_train_state, make_eval_step, make_train_step
+
+    kernels = kernel_wrappers()
+    for f in kernels.values():
+        f.launches = 0
+    for name, kw in FAMILIES.items():
+        cfg = derive(Config(use_sar=True, loss="l2", **kw))
+        model = seeded_model(cfg, dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        b = _synthetic_batches(cfg, 1, PATCH, SEED + 12, dev)[0]
+        state = create_train_state(cfg, model)
+        eval_step, train_step = make_eval_step(cfg), make_train_step(cfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        times = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(3):  # the first of each is the warm-up
+            t0 = time.perf_counter()
+            ev = eval_step(model, b)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, aux = train_step(state, b, gen)
+            torch.cuda.synchronize()
+            times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        peak = torch.cuda.max_memory_allocated(dev)
+        grads_ok = all(bool(torch.isfinite(g).all()) for g in aux["grads"].values())
+        print(f"phase 8: {name} ({n_params} parameters; bf16, B={B}, T={cfg.input_t}, "
+              f"{PATCH}x{PATCH}, MSE): eval {min(t[0] for t in times[1:]):.2f} ms, train step "
+              f"{min(t[1] for t in times[1:]):.2f} ms (best of 2 after a warm-up), peak "
+              f"{peak / 2**30:.2f} GiB; pred {tuple(ev['pred'].shape)}, loss "
+              f"{float(aux['loss']):.5f}, gradients finite {grads_ok}")
+        check(tuple(ev["pred"].shape) == (B, 1, PATCH, PATCH, 13) and finite(ev["pred"])
+              and np.isfinite(float(aux["loss"])) and grads_ok, f"{name}: outputs not finite")
+        del model, state, b
+        _card_vs_cpu(dev, cfg, name)
+    counts = {k: f.launches for k, f in kernels.items()}
+    check(not any(counts.values()), f"the baseline families launched kernels: {counts}")
+    return counts
+
+
+def phase8_ensemble(dev, tmp):
+    """Two members' test exports (phase 6's paper-recipe run, and one more
+    trained at another seed), fused by cli.ensemble in the three modes and
+    held against a numpy fusion of the exported files. Returns the launches
+    of the member runs."""
+    from uncrtaints_tpu_torch.cli import ensemble, test as cli_test, train as cli_train
+    from uncrtaints_tpu_torch.config import apply_resume, derive, parse_config
+
+    kernels = kernel_wrappers()
+    for f in kernels.values():
+        f.launches = 0
+    n = 4
+    common = ["--max_samples_count", str(n), "--batch_size", str(B), "--input_t", str(T),
+              "--num_workers", "4"]
+    res = os.path.join(tmp, "results")
+    argv = ["--synthetic_data", "--synthetic_patch", str(PATCH), "--use_sar", "--scale_by", "10",
+            "--epochs", "1", "--rdm_seed", "2", "--plot_every", "-1", "--export_every", "-1",
+            "--res_dir", res,
+            "--experiment_name", "member2"] + common
+    cli_train.main(apply_resume(derive(parse_config(argv))))
+    members = []
+    for exp in ("smoke", "member2"):  # phase 6's run, and the second member
+        out = os.path.join(tmp, "ensemble_members")
+        cli_test.main(cli_test.load_test_config(
+            ["--experiment_name", exp, "--weight_folder", res, "--res_dir", out,
+             "--export_every", "1"] + common))
+        export = os.path.join(out, exp, "export")
+        members.append(os.path.join(export, os.listdir(export)[0], "test"))
+    counts = {k: f.launches for k, f in kernels.items()}
+    want = chain_launches(1, 1 + 1 + 2)  # member2: 1 train step, val, test; two cli.test
+    check(counts == want, f"the ensemble members launched {counts}, expected {want}")
+    files = sorted(os.listdir(members[0]))
+    check(files == sorted(f"img-{i}_{m}.npy" for i in range(n) for m in ("pred", "target", "covar"))
+          and files == sorted(os.listdir(members[1])), f"member exports {files}")
+    for mode in ("aleatoric", "epistemic", "both"):
+        out = os.path.join(tmp, f"ensemble_{mode}")
+        t0 = time.perf_counter()
+        metrics = ensemble.main(ensemble.create_parser().parse_args(
+            ["--members", *members, "--synthetic_data", "--max_samples", str(n), "--uncertainty",
+             mode, "--export_path", out, "--device", dev.type]))
+        sec = time.perf_counter() - t0
+        fused = os.path.join(out, "export", "epoch_1", "test")
+        gap = 0.0
+        for i in range(n):
+            mean, var = ensemble.load_member_arrays(members, f"img-{i}_pred.npy")
+            # numpy's fusion of the member files, in float64
+            mu, v = mean.astype(np.float64), var.astype(np.float64)
+            want_m = mu.mean(0)
+            want_v = {"aleatoric": v.mean(0), "epistemic": (mu ** 2).mean(0) - want_m ** 2,
+                      "both": (v + mu ** 2).mean(0) - want_m ** 2}[mode]
+            for got, w in ((np.load(os.path.join(fused, f"img-{i}_pred.npy")), want_m),
+                           (np.load(os.path.join(fused, f"img-{i}_var.npy")), want_v)):
+                gap = max(gap, float(np.abs(got - w).max()))
+        print(f"phase 8: cli.ensemble --uncertainty {mode} over 2 members x {n} samples of "
+              f"{PATCH}x{PATCH}: {sec:.1f} s; fused mean and variance against numpy's fusion of "
+              f"the exported files: max abs {gap:.3g} (<= 1e-6); metrics "
+              f"{ {k: round(float(metrics[k]), 6) for k in ('RMSE', 'SSIM', 'mean var', 'UCE SE', 'AUCE SE')} }")
+        check(gap <= 1e-6, f"ensemble {mode}: fused arrays differ from numpy's by {gap}")
+        check(all(np.isfinite(float(metrics[k])) for k in
+                  ("RMSE", "MAE", "PSNR", "SAM", "SSIM", "mean var", "UCE SE", "AUCE SE")),
+              f"ensemble {mode}: metrics {metrics}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1601,17 +1923,26 @@ def main():
     phase5_train_reference(dev)
     took("phase 5")
     del batches
-    cli = phase6_cli(dev, eval_ms, train_ms)
-    took("phase 6")
-    real = phase7_real_data(dev, eval_ms, train_ms)
-    took("phase 7")
+    with tempfile.TemporaryDirectory() as work:
+        cli = phase6_cli(dev, eval_ms, train_ms, work)
+        took("phase 6")
+        real = phase7_real_data(dev, eval_ms, train_ms)
+        took("phase 7")
+        utae = phase8_utae(dev, work)
+        took("phase 8, U-TAE")
+        families = phase8_families(dev)
+        took("phase 8, the other families")
+        members = phase8_ensemble(dev, work)
+        took("phase 8, the ensemble")
     print(f"launches by path: eval {evalc}; scene {scene}; train {train}; CLIs {cli}; "
-          f"real data {real}")
+          f"real data {real}; U-TAE {utae}; other families {families}; ensemble members "
+          f"{members}")
 
-    # launches: the sum over the five paths' runs (eval, scene, train, the
-    # CLI chain, the real-data CLIs), each counted from 0 just before the
+    # launches: the sum over the paths' runs (eval, scene, train, the CLI
+    # chain, the real-data CLIs, U-TAE's CLIs and bare steps, the other
+    # families, the ensemble's members), each counted from 0 just before the
     # path to just after it
-    paths = (evalc, scene, train, cli, real)
+    paths = (evalc, scene, train, cli, real, utae, families, members)
     meta = {  # name: (source, the TPU kernel it replaces, its counter)
         "att_group_aggregate": ("aggregate.cu", "pallas_aggregate.py:268", "K1"),
         "att_group_aggregate_bwd": ("aggregate.cu", "pallas_aggregate.py:164", "K1-bwd"),

@@ -356,3 +356,50 @@ def test_the_default_detector_without_weights_is_a_hard_error(tmp_path, monkeypa
     with pytest.raises(RuntimeError, match="s2cloudless LightGBM weights"):
         cli_train.main(cfg)
     assert not os.path.exists(os.path.join(cfg.res_dir, "s2c", "trainlog.json"))
+
+
+def test_cli_utae_train_then_test(tmp_path):
+    """--model utae through cli.train and cli.test on the CPU: the
+    variance-free path (MSE, no variance head) through the loop, the
+    observer, the epoch-end calibration (none without a variance) and
+    --export_every; cli.test reproduces the train run's test to the bit."""
+    cfg = _tiny_cfg(tmp_path, model="utae", experiment_name="utae", encoder_widths=[8, 8, 16],
+                    decoder_widths=[8, 8, 16], n_head=4, d_model=16, plot_every=2,
+                    export_every=2)
+    assert cfg.loss == "l2" and cfg.out_conv == [13]
+    out = cli_train.main(cfg)
+    exp = os.path.join(cfg.res_dir, "utae")
+    for name in ("conf.json", "model.pth.tar", "model_epoch_1.pth.tar", "test_metrics.json"):
+        assert os.path.isfile(os.path.join(exp, name)), name
+    assert set(out["test"]) >= {"RMSE", "MAE", "PSNR", "SAM", "SSIM"}
+    assert "UCE SE" not in out["test"] and np.isfinite(out["test"]["RMSE"])
+    exports = _walk(os.path.join(exp, "export", "epoch_1", "test"), ".npy")
+    assert exports == [f"img-{i}_{m}.npy" for i in (0, 2, 4, 6) for m in ("pred", "target")]
+    plots = _walk(os.path.join(exp, "plots"), ".png")
+    assert any("_pred" in f for f in plots) and not any("_var" in f for f in plots)
+    sd = _params(os.path.join(exp, "model.pth.tar"))["state_dict_G"]
+    assert "temporal_encoder.attention_heads.Q" in sd and "up_blocks.1.up.0.weight" in sd
+    tested = cli_test.main(cli_test.load_test_config(
+        ["--experiment_name", "utae", "--weight_folder", cfg.res_dir, "--res_dir",
+         str(tmp_path / "inference"), "--max_samples_count", "8", "--batch_size", "4",
+         "--input_t", "3", "--device", "cpu", "--export_every", "-1"]))
+    finite = [k for k, v in out["test"].items() if np.isfinite(v)]  # no variance: NaN stays
+    assert finite and {k: tested[k] for k in finite} == {k: out["test"][k] for k in finite}
+
+
+@pytest.mark.parametrize("model, extra", [
+    ("unet", {}), ("unet3d", dict(input_t=4)), ("uconvlstm", {}), ("buconvlstm", {}),
+    ("convlstm", {}), ("convgru", {}), ("fpn", {})])
+def test_cli_trains_and_tests_every_baseline(tmp_path, model, extra):
+    """Every --model that get_generator builds runs one epoch of cli.train
+    and its test (at build_recurrent's own widths for the recurrent ones),
+    with the MSE loss, as the JAX package's tests drive them
+    (tests/test_baselines.py): they have no variance nonlinearity, and a
+    negative raw variance makes the MGNLL loss -inf in both packages
+    (ROADMAP section 3)."""
+    kw = dict(encoder_widths=[8, 8, 16], decoder_widths=[8, 8, 16]) if "unet" in model else {}
+    cfg = _tiny_cfg(tmp_path, model=model, experiment_name=model, max_samples_count=4,
+                    plot_every=-1, export_every=-1, loss="l2", **kw, **extra)
+    out = cli_train.main(cfg)
+    assert np.isfinite(out["test"]["RMSE"]) and np.isfinite(out["trainlog"][1]["train_loss"])
+    assert os.path.isfile(os.path.join(cfg.res_dir, model, "model.pth.tar"))

@@ -3,8 +3,8 @@ import nothing of JAX and nothing of the JAX package (nor tensorflow or
 orbax, which that package logs and checkpoints with), and the port's own
 copies of the config, the synthetic data source, the collates, the host
 radiometry, the calibration metrics, the checkpoint key rule, the TIFF
-codec, the samplers, the ROI tables, the s2cloudless reader and
-``natsorted`` equal the JAX package's.
+codec, the samplers, the ROI tables, the s2cloudless reader,
+``natsorted`` and the ensemble's fusion equal the JAX package's.
 """
 
 import dataclasses
@@ -24,7 +24,8 @@ ENTRY_MODULES = ("cli.train", "cli.test", "cli.precompute", "cli.convert", "cli.
                  "metrics.image", "data.pipeline", "data.preprocess", "data.masks",
                  "data.samplers", "data.rois", "data.tiff", "data.s2cloudless",
                  "data.sen12mscrts", "data.sen12mscr", "data.hdf5", "data.synthetic_tree",
-                 "ops.filters")
+                 "ops.filters", "cli.ensemble", "models.unet", "models.utae", "models.unet3d",
+                 "models.recurrent", "models.jax_bridge")
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
@@ -75,6 +76,10 @@ CONFIGS = {
     "uni": dict(covmode="uni", loss="GNLL"),
     "residual": dict(block_type="residual", encoder_widths="[64]", decoder_widths="64,64"),
     "use_v": dict(use_v=True, separate_out=True, covmode="iso"),
+    "unet": dict(model="unet", encoder_widths="[64,64,64,128]", decoder_widths="[32,32,64,128]"),
+    "utae": dict(model="utae", encoder_widths="[64,64,64,128]", decoder_widths="[32,32,64,128]"),
+    "utae_pretrain": dict(model="utae", pretrain=True, encoder_widths="[8,16]",
+                          decoder_widths="[8,16]"),
 }
 # fields that differ by design: the port's default device is the card, and
 # it does not carry the JAX/TPU mechanisms remat, prng_impl and debug_nans
@@ -293,6 +298,17 @@ def _copy_natsorted(rng):
     assert got(names) == ref(names)
 
 
+def _copy_ensemble(rng):
+    from uncrtaints_tpu.cli import ensemble as ref
+    from uncrtaints_tpu_torch.cli import ensemble as got
+    mu, var = rng.random((3, 13, 4, 5)), 0.1 + rng.random((3, 13, 4, 5))
+    for mode in ("aleatoric", "epistemic", "both"):
+        _same_tree(got.fuse(mu, var, mode), ref.fuse(mu, var, mode))
+    assert got.member_dir("/nonexistent", 1, "test") == ref.member_dir("/nonexistent", 1, "test")
+    assert got.create_parser().parse_args(["--members", "a"]).uncertainty == \
+        ref.create_parser().parse_args(["--members", "a"]).uncertainty
+
+
 def _copy_legacy_keys(rng):
     from uncrtaints_tpu.models.torch_import import normalize_legacy_keys as ref
     from uncrtaints_tpu_torch.train.checkpoint import normalize_legacy_keys as got
@@ -306,7 +322,7 @@ def _copy_legacy_keys(rng):
 @pytest.mark.parametrize("copy", [_copy_calibration, _copy_collates, _copy_process_ms,
                                   _copy_process_sar, _copy_legacy_keys, _copy_tiff,
                                   _copy_samplers, _copy_rois, _copy_s2cloudless,
-                                  _copy_natsorted], ids=lambda f: f.__name__[6:])
+                                  _copy_natsorted, _copy_ensemble], ids=lambda f: f.__name__[6:])
 @pytest.mark.parametrize("seed", [1, 7])
 def test_numpy_copies_equal_their_originals(copy, seed):
     copy(np.random.default_rng(seed))

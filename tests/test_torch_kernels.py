@@ -32,7 +32,8 @@ def _t(a, dev, dtype=torch.float32):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 128, 16), (1, 2, 7, 9, 20, 4)])
+@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 128, 16), (1, 2, 7, 9, 20, 4),
+                                   (2, 3, 32, 32, 64, 16)])  # + U-TAE's 4 channels a head
 def test_att_group_kernel_matches_plain(cuda, rng, dtype, shape):
     B, T, H, W, C, heads = shape
     x = _t(rng.standard_normal((B, T, H, W, C)), cuda, dtype)
@@ -149,7 +150,8 @@ def _ulp_bf16(ref: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 128, 16), (1, 2, 7, 9, 20, 4)])
+@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 128, 16), (1, 2, 7, 9, 20, 4),
+                                   (2, 3, 32, 32, 64, 16)])  # + U-TAE's 4 channels a head
 def test_att_group_autograd_on_card(cuda, rng, dtype, shape):
     """att_group_aggregate on the card is differentiable: x.grad and a.grad
     exist and match the plain version's autograd gradients, taken in fp32
@@ -179,7 +181,8 @@ def test_att_group_autograd_on_card(cuda, rng, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 128, 16), (1, 2, 7, 9, 20, 4)])
+@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 128, 16), (1, 2, 7, 9, 20, 4),
+                                   (2, 3, 32, 32, 64, 16)])  # + U-TAE's 4 channels a head
 def test_att_group_bwd_kernel_matches_plain(cuda, rng, dtype, shape):
     B, T, H, W, C, heads = shape
     x = _t(rng.standard_normal((B, T, H, W, C)), cuda, dtype)

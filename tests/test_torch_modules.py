@@ -136,6 +136,22 @@ def test_positional_encoding_table(rng):
            jpe(jnp.asarray(pos), 16, repeat=4))
 
 
+@pytest.mark.parametrize("d", [1, 5])
+def test_positional_encoding_table_odd_width(rng, d):
+    """An odd width (d_model // n_head of a U-TAE with 16 heads and d_model
+    16): sin on the even channels, cos on the odd ones, as the JAX package's
+    docstring and its odd-width branch intend (its jnp.stack of the unequal
+    halves raises before that branch; ROADMAP section 3)."""
+    from uncrtaints_tpu_torch.models.ltae import positional_encoding_table
+    pos = rng.integers(0, 1500, (2, 4)).astype(np.float32)
+    i = np.arange(d)
+    table = pos[..., None] / np.power(1000.0, 2.0 * (i // 2) / d).astype(np.float32)
+    want = np.where(i % 2 == 0, np.sin(table), np.cos(table))
+    got = positional_encoding_table(_t(pos), d, repeat=3)
+    assert got.shape == (2, 4, 3 * d)
+    np.testing.assert_allclose(got.numpy(), np.tile(want, 3), rtol=1e-5, atol=1e-6)
+
+
 def test_ltae2dtiny(rng):
     from uncrtaints_tpu.models.ltae import LTAE2dtiny as JLTAE
     from uncrtaints_tpu_torch.models.ltae import LTAE2dtiny

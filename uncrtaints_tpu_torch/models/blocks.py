@@ -62,54 +62,77 @@ class MBConv(nn.Module):
     """PreNorm -> pw 1x1 (inp -> hidden) -> norm + GELU -> dw 3x3 reflect ->
     norm + GELU -> SE -> pw-linear (hidden -> oup) -> norm; residual add.
 
+    ``expansion == 1`` drops the first pointwise conv and the SE: PreNorm ->
+    dw 3x3 reflect -> norm + GELU -> pw-linear -> norm (``conv.fn.{0,1,3,4}``).
+    ``downsample`` halves H and W (the first conv of the body at stride 2)
+    and replaces the residual by ``proj``, a bias-free 1x1 conv of the 3x3
+    stride-2 max pool of the input (pad 1). No configured model builds these
+    two variants; they complete the reference block.
+
     ``fused_eval`` runs the eval-mode batch-norm body as the kernel chain
     K3 -> K4 -> K3 (:func:`norm_gelu_matmul`, :func:`norm_gelu_dwconv3x3`)
     when the widths allow it (inp and hidden multiples of 128, as in the
-    JAX package). UnCRtainTS uses expansion 2 without downsampling; the other
-    variants of the reference block are not ported."""
+    JAX package), for the standard block only (no downsample, expansion
+    above 1), as the JAX package."""
 
     def __init__(self, inp: int, oup: int, expansion: int = 4,
                  norm: str = "batch", n_groups: int = 4,
-                 pad_value: Optional[float] = None, fused_eval: bool = False):
+                 pad_value: Optional[float] = None, fused_eval: bool = False,
+                 downsample: bool = False):
         super().__init__()
-        if expansion == 1:
-            raise NotImplementedError("MBConv with expansion 1 is not ported")
-        if inp != oup:
-            raise NotImplementedError("MBConv needs inp == oup (residual add)")
+        if inp != oup and not downsample:
+            raise ValueError("MBConv needs inp == oup for its residual add (or downsample)")
         self.inp, self.oup, self.norm = inp, oup, norm
         self.hidden = int(inp * expansion)
+        self.expansion, self.downsample = expansion, downsample
         self.pad_value, self.fused_eval = pad_value, fused_eval
-        hidden = self.hidden
-        fn = nn.Sequential(
-            Conv2d(inp, hidden, 1, 1, 0, bias=False),
-            Norm2d(norm, hidden, n_groups),
-            nn.GELU(),
-            Conv2d(hidden, hidden, 3, 1, 1, padding_mode="reflect", bias=False,
-                   groups=hidden),
-            Norm2d(norm, hidden, n_groups),
-            nn.GELU(),
-            SE(inp, hidden),
-            Conv2d(hidden, oup, 1, 1, 0, bias=False),
-            Norm2d(norm, oup, n_groups))
+        hidden, stride = self.hidden, 2 if downsample else 1
+        dw = lambda s: Conv2d(hidden, hidden, 3, s, 1, padding_mode="reflect", bias=False,
+                              groups=hidden)
+        if expansion == 1:
+            fn = nn.Sequential(dw(stride), Norm2d(norm, hidden, n_groups), nn.GELU(),
+                               Conv2d(hidden, oup, 1, 1, 0, bias=False),
+                               Norm2d(norm, oup, n_groups))
+        else:
+            fn = nn.Sequential(
+                Conv2d(inp, hidden, 1, stride, 0, bias=False),
+                Norm2d(norm, hidden, n_groups),
+                nn.GELU(),
+                dw(1),
+                Norm2d(norm, hidden, n_groups),
+                nn.GELU(),
+                SE(inp, hidden),
+                Conv2d(hidden, oup, 1, 1, 0, bias=False),
+                Norm2d(norm, oup, n_groups))
         self.conv = PreNorm(inp, fn, norm, n_groups)
+        if downsample:
+            self.proj = Conv2d(inp, oup, 1, 1, 0, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N,H,W,C] or [B,T,H,W,C] (time folded into the batch)."""
         if (self.fused_eval and not self.training and self.norm == "batch"
+                and not self.downsample and self.expansion != 1
                 and self.inp % 128 == 0 and self.hidden % 128 == 0):
             return smart_apply(self._fused_body, x, self.pad_value)
         return smart_apply(self._body, x, self.pad_value)
 
     def _body(self, a: torch.Tensor) -> torch.Tensor:
         fn = self.conv.fn
-        if self.norm == "batch" and not self.training:
+        if (self.norm == "batch" and not self.training and not self.downsample
+                and self.expansion != 1):
             # eval batch norm is affine: fold the PreNorm into pw1 (exact)
             h = fn[0](a, input_affine=self.conv.norm.fold())
         else:
             h = fn[0](self.conv.norm(a))
         h = gelu(fn[1](h))
-        h = gelu(fn[4](fn[3](h)))
-        h = fn[8](fn[7](fn[6](h)))
+        if self.expansion == 1:
+            h = fn[4](fn[3](h))
+        else:
+            h = gelu(fn[4](fn[3](h)))
+            h = fn[8](fn[7](fn[6](h)))
+        if self.downsample:
+            pooled = F.max_pool2d(a.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+            return self.proj(pooled) + h
         return a + h
 
     def _fused_body(self, a: torch.Tensor) -> torch.Tensor:

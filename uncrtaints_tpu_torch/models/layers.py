@@ -114,7 +114,8 @@ class DepthwiseConv2d(torch.autograd.Function):
 
 
 class Conv2d(nn.Module):
-    """2-D convolution over NHWC maps with ``nn.Conv2d``'s padding modes.
+    """2-D convolution over NHWC maps with ``nn.Conv2d``'s padding modes,
+    stride and dilation.
 
     ``input_affine=(coef, offs)`` computes conv(x * coef + offs) by folding
     the per-input-channel affine into the weight and bias, which is exact
@@ -128,11 +129,12 @@ class Conv2d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  stride: int = 1, pad: int = 1, padding_mode: str = "reflect",
-                 bias: bool = True, groups: int = 1):
+                 bias: bool = True, groups: int = 1, dilation: int = 1):
         super().__init__()
         if padding_mode != "zeros" and padding_mode not in _PAD_MODES:
             raise ValueError(f"unknown padding_mode {padding_mode!r}")
         self.stride, self.pad, self.groups = stride, pad, groups
+        self.dilation = dilation
         self.padding_mode = padding_mode
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, kernel, kernel))
@@ -163,7 +165,7 @@ class Conv2d(nn.Module):
             b = fold_bias if b is None else b + fold_bias
         w = w.to(x.dtype)
         pad = self.pad
-        depthwise = (self.stride == 1 and self.groups > 1
+        depthwise = (self.stride == 1 and self.dilation == 1 and self.groups > 1
                      and w.shape[0] == self.groups == x.shape[-1])
         differentiated = (depthwise and torch.is_grad_enabled()
                           and (x.requires_grad or w.requires_grad))
@@ -184,8 +186,8 @@ class Conv2d(nn.Module):
                                       ((pad, pad), (pad, pad)),
                                       "reflect" if folded else "zeros")
         else:
-            y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
-                         padding=pad, groups=self.groups).permute(0, 2, 3, 1)
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride, padding=pad,
+                         dilation=self.dilation, groups=self.groups).permute(0, 2, 3, 1)
         if b is not None:  # added after the conv, in its dtype (JAX's order)
             y = y + b.to(y.dtype)
         return y

@@ -29,8 +29,10 @@ def positional_encoding_table(positions: torch.Tensor, d: int, T: int = 1000,
     i = torch.arange(d, device=positions.device, dtype=torch.float64)
     denom = torch.pow(float(T), 2.0 * torch.floor(i / 2) / d).float()
     table = positions[..., None] / denom
-    out = torch.stack([torch.sin(table[..., 0::2]), torch.cos(table[..., 1::2])],
-                      dim=-1).reshape(*table.shape[:-1], -1)
+    sin, cos = torch.sin(table[..., 0::2]), torch.cos(table[..., 1::2])
+    if d % 2:  # odd d: one sin more than cos; the pad slot is dropped below
+        cos = F.pad(cos, (0, 1))
+    out = torch.stack([sin, cos], dim=-1).reshape(*table.shape[:-1], -1)[..., :d]
     if repeat is not None:
         out = out.repeat(*([1] * (out.dim() - 1)), repeat)
     return out
