@@ -1,6 +1,8 @@
 """Drive the PyTorch port's serving, scene-inference and training paths, its
 train / test command-line entry points, its real-data path, its baseline
-model families and its deep-ensemble tool on one NVIDIA GPU and check them.
+model families, its deep-ensemble tool, its serving export, its data
+parallel over NCCL, its trace and FLOP count and its native slab writers on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          (from the root of a checkout, one card)
 
@@ -115,6 +117,22 @@ members' test splits are exported by ``cli.test --export_every 1``, and
 must equal numpy's fusion of the exported files to 1e-6, the metrics be
 finite.
 
+Phases 6 and 7 also time the loader alone with the single-pass collate's
+native slab writers and with the generic collate (``--no_fast_collate``),
+in turns, and hold their batches byte-equal.
+Phase 9 runs ``cli.train`` (one epoch, 8 samples a split) under
+``torchrun`` with one NCCL rank a card (``--mesh_shape``; world 1 on one
+card, where every all-reduce still runs) in the background; meanwhile it
+exports the paper recipe with a symbolic batch (``export.py``) and runs the
+same ``cli.train`` in this process with ``--trace_dir --profile``, where the
+trace must name the six ``uncrtaints::`` operators and the FLOP count must
+equal the one the forward gives, and the card's count the CPU's at 32x32.
+Then it holds one exported call at B=4 against the live eval forward
+(exactly 1 K1, 10 K3 and 5 K4 launches), times both, runs ``predict_scene``
+through the artifact against the live model, holds the NCCL run's train
+loss against this process's within 5e-3 and its test metrics against this
+process's ``cli.test`` of its checkpoint within 1e-6, and prints the loader
+rates of phases 6 and 7 with and without the native writers.
 Any failed check raises. The last line of stdout is the JSON result; the
 line before it lists the kernels. Without a CUDA device the script exits
 with an error and prints no result.
@@ -1159,13 +1177,38 @@ def kernel_wrappers():
             "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3}
 
 
+def native_vs_numpy(label, ds, cfg, native):
+    """The loader alone over ``ds`` with the single-pass collate's native
+    slab writers and with the generic collate (``--no_fast_collate``), in
+    turns (native, numpy, numpy, native; 4 threads): sequences/s of each
+    into ``native[label]``, and every batch byte-equal between the two."""
+    from uncrtaints_tpu_torch.data import BatchLoader, select_collate
+    runs = {"native": [], "numpy": []}
+    batches = {}
+    for kind in ("native", "numpy", "numpy", "native"):
+        collate = select_collate(cfg.replace(fast_collate=kind == "native"))
+        t0 = time.perf_counter()
+        got = list(BatchLoader(ds, batch_size=B, collate=collate, num_workers=4,
+                               drop_last=False))
+        runs[kind].append(len(ds) / (time.perf_counter() - t0))
+        batches.setdefault(kind, got)
+    for i, (a, b) in enumerate(zip(batches["native"], batches["numpy"])):
+        for k in ("x", "y", "dates", "masks"):
+            check(a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(),
+                  f"{label}: batch {i} {k} differs between the native and the numpy collate")
+    native[label] = {k: statistics.mean(v) for k, v in runs.items()}
+    print(f"  the loader alone, {label} ({len(ds)} samples, 4 threads): native slab writers "
+          f"{native[label]['native']:.2f}, --no_fast_collate {native[label]['numpy']:.2f} "
+          f"sequences/s (mean of 2 each); the batches byte-equal")
+
+
 def chain_launches(train_steps, eval_forwards):
     """The launches a run of that many train steps and eval forwards makes."""
     return {"K1": train_steps + eval_forwards, "K1-bwd": train_steps, "K5": 12 * train_steps,
             "K2": 6 * train_steps, "K3": 10 * eval_forwards, "K4": 5 * eval_forwards}
 
 
-def phase6_cli(dev, eval_ms, train_ms, tmp):
+def phase6_cli(dev, eval_ms, train_ms, tmp, native):
     """The train and test CLIs at the paper recipe's full width, in the
     directory ``tmp`` (phase 8 fuses its test exports with a second
     member's); returns the launches of the chain."""
@@ -1298,8 +1341,8 @@ def phase6_cli(dev, eval_ms, train_ms, tmp):
     n_seen = 0
     for host, devb in _device_batches(mk_loader(), dev, True):
         torch.cuda._sleep(SPIN_CYCLES)
-        for k, v in host.items():
-            check(torch.equal(devb[k].cpu(), torch.from_numpy(v)),
+        for k, v in devb.items():  # the host batch also holds its rows' ids
+            check(torch.equal(v.cpu(), torch.from_numpy(host[k])),
                   f"prefetched batch {n_seen}: {k} differs from the host's")
         n_seen += 1
     check(n_seen == len(ds) // B, f"the prefetch handed out {n_seen} of {len(ds) // B} batches")
@@ -1321,6 +1364,7 @@ def phase6_cli(dev, eval_ms, train_ms, tmp):
     check(n_loaded == len(ds), f"the loader yielded {n_loaded} of {len(ds)} samples")
     print(f"  the loader alone (synthetic source, single-pass collate, 4 threads), {n_loaded} "
           f"samples: {loader_s * 1e3:.1f} ms, {n_loaded / loader_s:.2f} sequences/s")
+    native_vs_numpy("phase 6, synthetic source", ds, rcfg, native)
     epoch("val", True, eval_step=eval_step)  # warm-up of the loop's own shapes
     # with the prefetch, without, without, with: the host's load drifts
     order = (True, False, False, True)
@@ -1367,7 +1411,7 @@ DEFLATE_ROI = "ROIs1158/106"
 THRESHOLD_MASKS = "cloud_cloudshadow_mask"
 
 
-def phase7_real_data(dev, eval_ms, train_ms):
+def phase7_real_data(dev, eval_ms, train_ms, native):
     """The real-data path on a SEN12MS-CR-TS tree written in a temporary
     directory: the masks card against CPU, cli.precompute, cli.train and
     cli.test, cli.test --use_custom and the default detector without its
@@ -1546,6 +1590,8 @@ def phase7_real_data(dev, eval_ms, train_ms):
             check(n_loaded == n and sum(rest.values()) == 1
                   and all(k.startswith("loop.py:") for k in rest),
                   f"the {mode} epoch's step loop synchronized {rest}")
+        for mode, (ds, _, _) in runs.items():
+            native_vs_numpy(f"phase 7, the tree's {mode} split", ds, cfg, native)
         log = {k: round(n_split / v, 2) for k, v in out["trainlog"][1].items()
                if k.endswith("_time")}
         print(f"  cli.train's own epoch ({n_split} samples a split, trainlog), sequences/s: {log}")
@@ -1886,6 +1932,207 @@ def phase8_ensemble(dev, tmp):
     return counts
 
 
+# phase 9: the serving export, data parallel over
+# NCCL, the trace and the FLOP count, and the native writers' loader rates
+PHASE9_SAMPLES = 8
+
+
+def _relgap(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def phase9_modules(dev, tmp, native):
+    """``cli.train`` under ``torchrun`` with one NCCL rank a card
+    (``--mesh_shape``, started first, in the background); meanwhile the
+    serving export of the paper recipe (symbolic batch) and the same
+    ``cli.train`` run in this process with ``--trace_dir --profile`` (the
+    trace must name the six operators, the FLOP count equal the forward's and,
+    at 32x32, the CPU's). Then, on an idle card: one exported call against
+    the live eval forward (its launches, bit-equality, both times),
+    ``predict_scene`` through the artifact, the NCCL run's train loss against
+    this process's, and this process's ``cli.test`` of the NCCL run's
+    checkpoint against that run's own test metrics; last the native slab
+    writers' loader rates of phases 6 and 7. Returns the launches of one
+    exported call and of this process's runs."""
+    import contextlib
+    import io
+    import socket
+    from uncrtaints_tpu_torch.cli import test as cli_test, train as cli_train
+    from uncrtaints_tpu_torch.config import Config, derive, parse_config
+    from uncrtaints_tpu_torch.data import SyntheticSEN12MSCRTS, collate_multi
+    from uncrtaints_tpu_torch.export import load_serving, save_serving
+    from uncrtaints_tpu_torch.infer import predict_scene
+    from uncrtaints_tpu_torch.train import batch_to_device
+    from uncrtaints_tpu_torch.train.engine import eval_forward, profile_flops
+
+    kernels = kernel_wrappers()
+    zero = lambda: [setattr(f, "launches", 0) for f in kernels.values()]
+    counts = lambda: {k: f.launches for k, f in kernels.items()}
+    sync = torch.cuda.synchronize
+
+    # ---- (a) the run under torchrun, one NCCL rank a card, in the background
+    world = torch.cuda.device_count()
+    res = os.path.join(tmp, "phase9")
+    argv = ["--synthetic_data", "--synthetic_patch", str(PATCH), "--batch_size", str(B),
+            "--input_t", str(T), "--max_samples_count", str(PHASE9_SAMPLES), "--use_sar",
+            "--scale_by", "10", "--num_workers", "4", "--plot_every", "-1",
+            "--export_every", "-1", "--epochs", "1", "--res_dir", res]
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    t_dp = time.perf_counter()
+    dp = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={world}",
+         "--master_addr=127.0.0.1", f"--master_port={port}", "-m",
+         "uncrtaints_tpu_torch.cli.train", *argv, "--experiment_name", "dp",
+         "--mesh_shape", str(world)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        # ---- (b) the export: traced on the card, symbolic batch
+        cfg = derive(Config(use_sar=True, scale_by=10.0))
+        s = cfg.scale_by
+        model = seeded_model(cfg, dev)
+        ds = SyntheticSEN12MSCRTS(n_samples=B, n_input_t=T, patch_size=PATCH, seed=SEED + 9)
+        batch = batch_to_device(collate_multi([ds[j] for j in range(B)]), dev)
+        x, dates = batch["x"], batch["dates"]
+        path = os.path.join(tmp, "paper.pt2")
+        t0 = time.perf_counter()
+        save_serving(model, cfg, path)
+        serve = load_serving(path)
+        export_s = time.perf_counter() - t0
+
+        # ---- (c) the same run as the NCCL one in this process, traced and counted
+        trace_dir = os.path.join(tmp, "trace")
+        single = derive(parse_config(argv + ["--experiment_name", "single", "--trace_dir",
+                                             trace_dir, "--profile"]))
+        zero()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = cli_train.main(single)
+        run_s = time.perf_counter() - t0
+        run_counts = counts()
+        mflop = [float(line.split(":")[1]) for line in buf.getvalue().splitlines()
+                 if line.startswith("MFLOP count:")]
+        trace_path = os.path.join(trace_dir, "trace_rank0.json")
+        with open(trace_path) as f:
+            trace = f.read()
+        ops = ("att_group_aggregate", "att_group_aggregate_bwd", "dw_stencil",
+               "dw_kernel_grad", "norm_gelu_matmul", "norm_gelu_dwconv3x3")
+        missing = [o for o in ops if f'"uncrtaints::{o}"' not in trace]
+        print(f"phase 9: cli.train --trace_dir --profile (one epoch, {PHASE9_SAMPLES} samples a "
+              f"split, B={B}): {run_s:.1f} s, launches {run_counts}; trace "
+              f"{os.path.getsize(trace_path) / 2**20:.1f} MiB, operators not named: {missing}; "
+              f"MFLOP count a sample {mflop}")
+        check(not missing, f"the trace does not name {missing}")
+        with torch.inference_mode():
+            full = profile_flops(cfg, model, batch)
+        check(mflop == [full], f"--profile printed {mflop}, the forward counts {full}")
+        small = {"x": np.random.default_rng(1).random((2, T, 32, 32, 15), dtype=np.float32),
+                 "y": np.zeros((2, 1, 32, 32, 13), np.float32),
+                 "dates": np.zeros((2, T), np.float32)}
+        card_f = profile_flops(cfg, model, batch_to_device(small, dev))
+        cpu_cfg = cfg.replace(device="cpu")
+        cpu_f = profile_flops(cpu_cfg, seeded_model(cpu_cfg, torch.device("cpu")),
+                              batch_to_device(small, "cpu"))
+        print(f"  MFLOP a sample at 32x32: card (K3, K4, K1 by their formulas) {card_f}, CPU "
+              f"(plain layers) {cpu_f}; at {PATCH}x{PATCH} {full}")
+        check(card_f == cpu_f, f"FLOP count card {card_f} vs CPU {cpu_f}")
+    finally:
+        try:
+            log, _ = dp.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            dp.kill()
+            log, _ = dp.communicate()
+    dp_s = time.perf_counter() - t_dp
+    check(dp.returncode == 0, f"torchrun cli.train failed (rc {dp.returncode}):\n{log[-4000:]}")
+
+    # ---- (d) on an idle card: one exported call against the live forward
+    def live():
+        with torch.inference_mode():
+            model.eval()
+            mean, var = eval_forward(cfg, model, s * x.float(), dates)
+            return {"pred": mean / s, "var": var / (s * s)}
+
+    got, ref = serve(x, dates), live()
+    sync()
+    zero()
+    serve(x, dates)
+    sync()
+    one = counts()
+    want = {"K1": 1, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 10, "K4": 5}
+    check(one == want, f"one exported call launched {one}, expected {want}")
+    gaps = {k: float((got[k] - ref[k]).abs().max()) for k in ("pred", "var")}
+    same = all(torch.equal(got[k], ref[k]) for k in ("pred", "var"))
+    for k in ("pred", "var"):
+        check(tuple(got[k].shape) == (B, 1, PATCH, PATCH, 13) and finite(got[k]),
+              f"exported {k} {tuple(got[k].shape)}")
+        top = float(ref[k].abs().max())
+        check(gaps[k] <= 1e-3 * top, f"exported {k} differs from the live forward by {gaps[k]}")
+    times = {"export": [], "live": []}
+    for name in ("export", "live", "live", "export"):
+        fn = (lambda: serve(x, dates)) if name == "export" else live
+        for _ in range(6):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    print(f"phase 9: export of the paper recipe (symbolic batch) traced, saved and loaded in "
+          f"{export_s:.1f} s ({os.path.getsize(path) / 2**20:.1f} MiB); one call at B={B}: "
+          f"launches {one}; against the live eval forward: bit-equal {same}, max abs "
+          f"pred {gaps['pred']:.3g}, var {gaps['var']:.3g}")
+    print(f"  the exported call {ms['export']:.3f} ms, the live eval forward {ms['live']:.3f} ms "
+          f"(host clock, median of 12 each, in turns)")
+    S = 2 * PATCH
+    sc = collate_multi([SyntheticSEN12MSCRTS(n_samples=1, n_input_t=T, patch_size=S,
+                                             seed=SEED + 10)[0]])
+    kw = dict(tile=PATCH, overlap=64, batch_size=B)
+    a = predict_scene(model, cfg, sc["x"][0], sc["dates"][0], **kw)
+    b = predict_scene(None, None, sc["x"][0], sc["dates"][0], device=dev, forward_fn=serve, **kw)
+    sgap = {k: float(np.abs(a[k] - b[k]).max()) for k in ("pred", "var")}
+    print(f"  predict_scene on a {S}x{S} scene through the artifact against the live model: "
+          f"max abs {sgap}")
+    check(all(v <= 1e-3 * float(np.abs(a[k]).max()) for k, v in sgap.items()),
+          f"predict_scene through the artifact {sgap}")
+
+    # ---- (e) the NCCL run against this process: its train loss (the card
+    # does not repeat a train epoch to the bit: the bilinear backward sums
+    # with atomics; 5e-3 as phase 6), and its test split evaluated here on
+    # its own checkpoint (an eval epoch repeats to the bit)
+    lines = [ln for ln in log.splitlines() if ln.startswith("Data parallel:")]
+    check(lines, "the torchrun run did not report its data-parallel rank")
+    with open(os.path.join(res, "dp", "trainlog.json")) as f:
+        dlog = json.load(f)["1"]
+    with open(os.path.join(res, "dp", "test_metrics.json")) as f:
+        dtest = json.load(f)
+    zero()
+    with contextlib.redirect_stdout(io.StringIO()):
+        here = cli_test.main(cli_test.load_test_config(
+            ["--experiment_name", "dp", "--weight_folder", res, "--res_dir",
+             os.path.join(tmp, "phase9_test"), "--max_samples_count", str(PHASE9_SAMPLES),
+             "--batch_size", str(B), "--input_t", str(T), "--num_workers", "4",
+             "--plot_every", "-1", "--export_every", "-1"]))
+    test_counts = counts()
+    train_gap = _relgap(dlog["train_loss"], out["trainlog"][1]["train_loss"])
+    test_gap = max(_relgap(v, float(here[k])) for k, v in dtest.items())
+    print(f"phase 9: cli.train under torchrun, {world} NCCL rank(s) (--mesh_shape {world}), "
+          f"{dp_s:.1f} s beside the steps above: {lines[0]}; train loss "
+          f"{dlog['train_loss']:.6f} against this process's "
+          f"{out['trainlog'][1]['train_loss']:.6f} (relative gap {train_gap:.3g}, <= 5e-3); "
+          f"its test metrics against one process's cli.test of its checkpoint: largest "
+          f"relative gap {test_gap:.3g} (<= 1e-6)")
+    check(train_gap <= 5e-3, f"the NCCL train loss differs from one process's by {train_gap}")
+    check(test_gap <= 1e-6, f"the NCCL test metrics differ from one process's by {test_gap}")
+    for label, r in native.items():
+        print(f"phase 9: native slab writers, {label}: {r['native']:.2f} sequences/s against "
+              f"{r['numpy']:.2f} with --no_fast_collate ({r['native'] / r['numpy']:.2f}x)")
+    return {k: one[k] + run_counts[k] + test_counts[k] for k in one}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1923,10 +2170,11 @@ def main():
     phase5_train_reference(dev)
     took("phase 5")
     del batches
+    native = {}  # the loader alone with and without the native slab writers
     with tempfile.TemporaryDirectory() as work:
-        cli = phase6_cli(dev, eval_ms, train_ms, work)
+        cli = phase6_cli(dev, eval_ms, train_ms, work, native)
         took("phase 6")
-        real = phase7_real_data(dev, eval_ms, train_ms)
+        real = phase7_real_data(dev, eval_ms, train_ms, native)
         took("phase 7")
         utae = phase8_utae(dev, work)
         took("phase 8, U-TAE")
@@ -1934,15 +2182,17 @@ def main():
         took("phase 8, the other families")
         members = phase8_ensemble(dev, work)
         took("phase 8, the ensemble")
+        modules = phase9_modules(dev, work, native)
+        took("phase 9")
     print(f"launches by path: eval {evalc}; scene {scene}; train {train}; CLIs {cli}; "
           f"real data {real}; U-TAE {utae}; other families {families}; ensemble members "
-          f"{members}")
+          f"{members}; export and the traced run {modules}")
 
     # launches: the sum over the paths' runs (eval, scene, train, the CLI
     # chain, the real-data CLIs, U-TAE's CLIs and bare steps, the other
-    # families, the ensemble's members), each counted from 0 just before the
-    # path to just after it
-    paths = (evalc, scene, train, cli, real, utae, families, members)
+    # families, the ensemble's members, one exported call and the traced
+    # run), each counted from 0 just before the path to just after it
+    paths = (evalc, scene, train, cli, real, utae, families, members, modules)
     meta = {  # name: (source, the TPU kernel it replaces, its counter)
         "att_group_aggregate": ("aggregate.cu", "pallas_aggregate.py:268", "K1"),
         "att_group_aggregate_bwd": ("aggregate.cu", "pallas_aggregate.py:164", "K1-bwd"),

@@ -242,12 +242,16 @@ def test_the_default_device_raises_without_a_card(tmp_path):
     assert not os.path.exists(tmp_path / "r" / cfg.experiment_name / "trainlog.json")
 
 
-@pytest.mark.parametrize("field, value", [
-    ("mesh_shape", 2), ("ckpt_backend", "orbax"), ("trace_dir", "trace"), ("profile", True)])
-def test_the_clis_refuse_what_is_not_ported(tmp_path, field, value):
+@pytest.mark.parametrize("field, value, error, match", [
+    ("mesh_shape", 2, RuntimeError, "requested 2 ranks but only 1"),
+    ("ckpt_backend", "orbax", NotImplementedError, "not ported")],
+    ids=["mesh_shape-2", "ckpt_backend-orbax"])
+def test_the_clis_refuse_what_is_not_ported(tmp_path, field, value, error, match):
+    """orbax checkpoints are not ported; a mesh of 2 ranks needs a run of 2
+    processes (torchrun), and a single process refuses it."""
     cfg = _tiny_cfg(tmp_path).replace(**{field: value})
     for main in (cli_train.main, cli_test.main):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(error, match=match):
             main(cfg)
     assert not os.path.exists(os.path.join(cfg.res_dir, "smoke", "conf.json"))
 
@@ -403,3 +407,48 @@ def test_cli_trains_and_tests_every_baseline(tmp_path, model, extra):
     out = cli_train.main(cfg)
     assert np.isfinite(out["test"]["RMSE"]) and np.isfinite(out["trainlog"][1]["train_loss"])
     assert os.path.isfile(os.path.join(cfg.res_dir, model, "model.pth.tar"))
+
+
+def _analytic_mflops(hw=32, T=3, c_in=15, enc=16, hid=32, se=4, d_model=32, keys=16, out=26,
+                     low_res=32):
+    """The tiny recipe's eval forward per sample, from its layer shapes: two
+    FLOPs a multiply-add of every convolution (2 k^2 Cin Cout H W / groups)
+    and matrix product, and K1's T products an output (elementwise work
+    uncounted, as torch's counter leaves it). The L-TAE runs at
+    ``low_res_size`` (the attention is resized to the map for K1)."""
+    HW, LR = hw * hw, low_res * low_res
+    mbconv = lambda frames: ((2 * enc * hid + 2 * 9 * hid + 2 * hid * enc) * HW
+                             + 2 * hid * se + 2 * se * hid) * frames
+    flops = (2 * c_in * enc * HW * T + mbconv(T)                      # in_conv, in_block
+             + (2 * enc * d_model + 2 * d_model * keys) * LR * T        # L-TAE inconv, keys
+             + 2 * T * enc * HW                                         # K1
+             + 2 * mbconv(1) + 2 * enc * out * HW)                      # decoder, out_conv
+    return flops * 1e-6
+
+
+def test_trace_dir_and_profile_in_both_clis(tmp_path, capsys):
+    """--trace_dir writes a Chrome trace that names the kernels' operators
+    the run went through (on the CPU: K1, K1-bwd, K5, K2; the fused K3 / K4
+    need a card or widths of 128); --profile prints the eval forward's
+    MFLOP per sample, equal to the count from the layer shapes."""
+    cfg = _tiny_cfg(tmp_path, max_samples_count=2, batch_size=2, synthetic_patch=16,
+                    plot_every=-1, export_every=-1, trace_dir=str(tmp_path / "trace"),
+                    profile=True)
+    cli_train.main(cfg)
+    printed = capsys.readouterr().out
+    mflops = [float(line.split(":")[1]) for line in printed.splitlines()
+              if line.startswith("MFLOP count:")]
+    assert mflops == [pytest.approx(_analytic_mflops(hw=16), rel=1e-9)]
+    with open(tmp_path / "trace" / "trace_rank0.json") as f:
+        trace = f.read()
+    for op in ("att_group_aggregate", "att_group_aggregate_bwd", "dw_stencil",
+               "dw_kernel_grad"):
+        assert f'"uncrtaints::{op}"' in trace, op
+    argv = ["--experiment_name", "smoke", "--weight_folder", cfg.res_dir, "--res_dir",
+            str(tmp_path / "inference"), "--device", "cpu", "--max_samples_count", "2",
+            "--trace_dir", str(tmp_path / "trace_test"), "--profile", "--plot_every", "-1",
+            "--export_every", "-1"]
+    cli_test.main(cli_test.load_test_config(argv))
+    assert f"MFLOP count: {mflops[0]}" in capsys.readouterr().out
+    with open(tmp_path / "trace_test" / "trace_rank0.json") as f:
+        assert '"uncrtaints::att_group_aggregate"' in f.read()

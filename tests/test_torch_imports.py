@@ -25,7 +25,8 @@ ENTRY_MODULES = ("cli.train", "cli.test", "cli.precompute", "cli.convert", "cli.
                  "data.samplers", "data.rois", "data.tiff", "data.s2cloudless",
                  "data.sen12mscrts", "data.sen12mscr", "data.hdf5", "data.synthetic_tree",
                  "ops.filters", "cli.ensemble", "models.unet", "models.utae", "models.unet3d",
-                 "models.recurrent", "models.jax_bridge")
+                 "models.recurrent", "models.jax_bridge", "export", "parallel",
+                 "parallel.mesh", "native")
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
@@ -110,9 +111,11 @@ def test_config_defaults_flags_and_json_round_trip(tmp_path):
         got = dataclasses.asdict(tc.parse_config(argv, mode))
         shared = set(got) - PORT_ONLY_DIFFERENCES
         assert {k: got[k] for k in shared} == {k: ref[k] for k in shared}
-    # the port also keeps --use_custom over the stored run's (cli.test)
+    # the port also keeps --use_custom, --mesh_shape, --trace_dir and
+    # --profile over the stored run's (cli.test honours them)
     assert (tc.NO_OVERWRITE_RESUME, tc.NO_OVERWRITE_TEST) == (
-        jc.NO_OVERWRITE_RESUME, jc.NO_OVERWRITE_TEST + ["use_custom"])
+        jc.NO_OVERWRITE_RESUME,
+        jc.NO_OVERWRITE_TEST + ["use_custom", "mesh_shape", "trace_dir", "profile"])
     # a conf.json written by the JAX package loads in the port (the fields
     # it does not carry are dropped) and the other way round
     path = str(tmp_path / "conf.json")

@@ -330,10 +330,9 @@ def test_dw_kernel_grad_kernel_matches_plain(cuda, rng, dtype, C, k, pads):
 @pytest.mark.parametrize("mode,hw", [("zeros", (18, 20)), ("reflect", (18, 20)),
                                      ("reflect", (3, 5)), ("reflect", (2, 2))])
 def test_depthwise_function_on_card_matches_cpu(cuda, rng, mode, hw):
-    """The depthwise Function (K5 forward, K5 input gradient or folded
-    adjoint, K2 weight gradient) on the card against the same Function on
-    the CPU (the kernels' plain versions), fp32."""
-    from uncrtaints_tpu_torch.models.layers import DepthwiseConv2d
+    """The K5 operator with its backward (K5 forward, K5 input gradient or
+    folded adjoint, K2 weight gradient) on the card against the same
+    operator on the CPU (the kernels' plain versions), fp32."""
     pads = ONE if mode == "reflect" else ((0, 0), (0, 0))
     H, W = hw
     x = rng.standard_normal((2, H, W, 64)).astype(np.float32)
@@ -344,7 +343,7 @@ def test_depthwise_function_on_card_matches_cpu(cuda, rng, mode, hw):
     for dev in (torch.device("cpu"), cuda):
         tx, tw = _t(x, dev).requires_grad_(), _t(w, dev).requires_grad_()
         n5, n2 = tops.dw_stencil.launches, tops.dw_kernel_grad.launches
-        y = DepthwiseConv2d.apply(tx, tw, pads, mode)
+        y = tops.dw_stencil(tx, tw, pads, mode)
         (y * _t(cot, dev)).sum().backward()
         launched = (tops.dw_stencil.launches - n5, tops.dw_kernel_grad.launches - n2)
         assert launched == ((2, 1) if dev.type == "cuda" else (0, 0))

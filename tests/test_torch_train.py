@@ -65,7 +65,7 @@ def _rounding_zero(grads):
 @pytest.mark.parametrize("pads", [((0, 0), (0, 0)), ((1, 1), (1, 1)), ((1, 0), (0, 1))],
                          ids=["valid", "same", "asymmetric"])
 def test_depthwise_function_matches_jax_vjp(rng, pads):
-    """DepthwiseConv2d (plain versions of K5/K2 on the CPU) against jax.grad
+    """The K5 operator with its backward (plain versions of K5/K2 on the CPU) against jax.grad
     of lax.conv with the same zero pads: value and (gx, gw)."""
     N, H, W, C = 2, 9, 8, 16
     x = rng.standard_normal((N, H, W, C)).astype(np.float32)
@@ -84,7 +84,7 @@ def test_depthwise_function_matches_jax_vjp(rng, pads):
         jnp.asarray(x), jnp.asarray(w))
     tx = _t(x).requires_grad_()
     tw = _t(np.transpose(w, (3, 2, 0, 1))).requires_grad_()
-    y = tl.DepthwiseConv2d.apply(tx, tw.contiguous(), pads)
+    y = tl.dw_stencil(tx, tw.contiguous(), pads)
     (y * _t(cot)).sum().backward()
     _close_to_max(_np(y), ref, 1e-6)
     _close_to_max(_np(tx.grad), rgx, 1e-6)
@@ -94,7 +94,7 @@ def test_depthwise_function_matches_jax_vjp(rng, pads):
 @pytest.mark.parametrize("hw", [(8, 8), (7, 10)])
 def test_reflect_depthwise_conv2d_grads_match_jax(rng, hw):
     """Conv2d(groups=C, padding_mode='reflect'): the port's 5-D reflect pad
-    and DepthwiseConv2d against jax.grad of the JAX Conv2d (zero-SAME conv
+    and the K5 operator against jax.grad of the JAX Conv2d (zero-SAME conv
     plus border strips, each with its custom VJP)."""
     from uncrtaints_tpu.models import layers as jl
     C = 16
@@ -136,14 +136,14 @@ def _graph_nodes(fn):
 
 
 def test_depthwise_routing(rng):
-    """Differentiated depthwise convs go through DepthwiseConv2d; no-grad
+    """Differentiated depthwise convs go through the K5 operator (dw_stencil); no-grad
     ones (the eval path) and grouped non-depthwise ones stay F.conv2d. The
     differentiated 3x3 reflect conv makes no padded tensor: its graph holds
     no pad node, other padding modes and the non-depthwise conv still pad."""
     tm = tl.Conv2d(8, 8, kernel=3, pad=1, groups=8, bias=False)
     x = _t(rng.standard_normal((1, 5, 5, 8)))
     y = tm(x)
-    assert "DepthwiseConv2d" in type(y.grad_fn).__name__
+    assert "dw_stencil" in type(y.grad_fn).__name__
     assert y.grad_fn.mode == "reflect"
     assert not [n for n in _graph_nodes(y.grad_fn) if "Pad" in n]
     assert not [n for n in _graph_nodes(tm(x.clone().requires_grad_()).grad_fn) if "Pad" in n]
@@ -151,17 +151,17 @@ def test_depthwise_routing(rng):
         assert tm(x).grad_fn is None
     grouped = tl.Conv2d(8, 8, kernel=3, pad=1, groups=4, bias=False)
     nodes = _graph_nodes(grouped(x.clone().requires_grad_()).grad_fn)
-    assert "DepthwiseConv2d" not in type(grouped(x).grad_fn).__name__
+    assert "dw_stencil" not in type(grouped(x).grad_fn).__name__
     assert [n for n in nodes if "Pad" in n]
     other = tl.Conv2d(8, 8, kernel=3, pad=1, groups=8, bias=False, padding_mode="replicate")
     yo = other(x.clone().requires_grad_())
-    assert "DepthwiseConv2d" in type(yo.grad_fn).__name__ and yo.grad_fn.mode == "zeros"
+    assert "dw_stencil" in type(yo.grad_fn).__name__ and yo.grad_fn.mode == "zeros"
     assert [n for n in _graph_nodes(yo.grad_fn) if "Pad" in n]
 
 
 @pytest.mark.parametrize("hw", [(8, 8), (7, 10), (3, 5), (2, 2)])
 def test_reflect_depthwise_function_matches_jax_and_autograd(rng, hw):
-    """DepthwiseConv2d in reflect mode (the plain versions of K5 forward, the
+    """The K5 operator in reflect mode (the plain versions of K5 forward, the
     folded adjoint and K2 on the unpadded x): value, gx and gw against
     jax.grad of the JAX package's fused reflect conv _dw_reflect3x3 and
     against torch autograd through an explicit F.pad and F.conv2d."""
@@ -180,7 +180,7 @@ def test_reflect_depthwise_function_matches_jax_and_autograd(rng, hw):
         jnp.asarray(x), jnp.asarray(w))
     wt = np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))           # [C,1,3,3]
     tx, tw = _t(x).requires_grad_(), _t(wt).requires_grad_()
-    y = tl.DepthwiseConv2d.apply(tx, tw, ((1, 1), (1, 1)), "reflect")
+    y = tl.dw_stencil(tx, tw, ((1, 1), (1, 1)), "reflect")
     (y * _t(cot)).sum().backward()
     _close_to_max(_np(y), ref, 1e-6)
     _close_to_max(_np(tx.grad), rgx, 1e-6)

@@ -10,11 +10,14 @@ package: it keeps its own copies of the config, the synthetic data source,
 the collates and the loader, the host radiometry and the calibration
 metrics.
 
-Ported so far: every UnCRtainTS configuration, the eval step, the train
-step, whole-scene inference, and the entry points around them: the loader
-(``data/pipeline.py``), the epoch loop, checkpoints and the observer
-(``train/``), and the commands ``python -m uncrtaints_tpu_torch.cli.train``
-and ``cli.test``. Library use::
+Ported so far: every UnCRtainTS configuration and baseline family, the
+eval step, the train step, whole-scene inference, and the entry points
+around them: the loader (``data/pipeline.py``, its slab writers compiled in
+``native/``), the epoch loop, checkpoints and the observer (``train/``),
+the commands ``python -m uncrtaints_tpu_torch.cli.train`` and ``cli.test``
+(data parallel over one process a GPU, ``parallel/``), and the serving
+export (``export.py``). The kernels are dispatcher operators
+(``torch.ops.uncrtaints``). Library use::
 
     from uncrtaints_tpu_torch.config import Config, derive
     from uncrtaints_tpu_torch.infer import predict_scene

@@ -16,13 +16,18 @@ from __future__ import annotations
 
 import os
 
+import torch
+
 from uncrtaints_tpu_torch.config import (
     NO_OVERWRITE_TEST, Config, derive, parse_config, reject_unported)
-from uncrtaints_tpu_torch.cli.train import build_datasets, need_outputs, save_results
+from uncrtaints_tpu_torch.cli.train import (
+    Profile, build_datasets, data_parallel, need_outputs, save_results)
 from uncrtaints_tpu_torch.data.pipeline import BatchLoader, Subset, select_collate
 from uncrtaints_tpu_torch.models import get_generator
 from uncrtaints_tpu_torch.train.checkpoint import load_checkpoint
-from uncrtaints_tpu_torch.train.engine import create_train_state, make_eval_step
+from uncrtaints_tpu_torch.parallel import active
+from uncrtaints_tpu_torch.train.engine import (
+    batch_to_device, create_train_state, make_eval_step, profile_flops)
 from uncrtaints_tpu_torch.train.loop import iterate
 from uncrtaints_tpu_torch.train.observe import Writer, require_matplotlib
 
@@ -68,10 +73,14 @@ def main(cfg: Config) -> dict:
     reject_unported(cfg)
     if cfg.plot_every > 0:
         require_matplotlib(f"plot_every={cfg.plot_every}")
+    rank, world, shard, local_bs = data_parallel(cfg)
+    lead = rank == 0  # the metrics file and the observer come from rank 0 alone
+    trace = Profile(cfg.trace_dir, rank)
     exp_dir = os.path.join(cfg.res_dir, cfg.experiment_name)
-    os.makedirs(exp_dir, exist_ok=True)
+    if lead:
+        os.makedirs(exp_dir, exist_ok=True)
     writer = Writer(os.path.join(os.path.dirname(cfg.res_dir) or ".",
-                                 "logs", cfg.experiment_name + "_test"))
+                                 "logs", cfg.experiment_name + "_test")) if lead else None
 
     if cfg.use_custom:
         dt_test = custom_dataset(cfg)
@@ -79,32 +88,41 @@ def main(cfg: Config) -> dict:
         _, _, dt_test = build_datasets(cfg)
         dt_test = Subset(dt_test, range(0, min(cfg.max_samples_count,
                                                len(dt_test))))
-    test_loader = BatchLoader(dt_test, batch_size=cfg.batch_size,
+    test_loader = BatchLoader(dt_test, batch_size=local_bs,
                               shuffle=False, collate=select_collate(cfg),
                               use_sar=cfg.use_sar,
                               num_workers=max(1, cfg.num_workers),
-                              drop_last=False)
+                              drop_last=False, shard=shard)
 
     state = create_train_state(cfg, get_generator(cfg))
     ckpt_name = "model" if cfg.resume_at < 0 else f"model_epoch_{cfg.resume_at}"
     state, meta = load_checkpoint(cfg, cfg.weight_folder, state, ckpt_name,
                                   restore_opt=False)
     epoch = meta.get("epoch", 1)
+    if cfg.profile and lead:
+        profile_flops(cfg, state.model, batch_to_device(next(iter(test_loader)), cfg.device))
 
     eval_step = make_eval_step(cfg, with_metrics=True,
                                return_outputs=need_outputs(cfg))
     state, metrics, img_metrics_val = iterate(
         state, test_loader, cfg, writer, "test", epoch, eval_step=eval_step)
+    trace.stop()
     print(f"Test loss {metrics['test_loss']}")
     print(f"Test image metrics: {img_metrics_val}")
-    save_results(img_metrics_val, exp_dir, split="test")
-    writer.close()
+    if lead:
+        save_results(img_metrics_val, exp_dir, split="test")
+        writer.close()
     return img_metrics_val
 
 
 def cli_main():
-    """Console entry point (pyproject: uncrtaints-torch-test)."""
-    main(load_test_config())
+    """Console entry point (pyproject: uncrtaints-torch-test); one process a
+    GPU under ``torchrun --nproc_per_node N ... --mesh_shape N``."""
+    try:
+        main(load_test_config())
+    finally:
+        if active():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -17,7 +17,15 @@ or, on a SEN12MS-CR-TS tree (coverage statistics from cli/precompute.py):
 
 The run, and the cloud masks of the datasets, are on ``--device`` ("cuda"
 by default; without a card it raises, it never moves to the CPU; pass
-``--device cpu`` for a CPU run).
+``--device cpu`` for a CPU run). On N GPUs, one process a card:
+
+    torchrun --nproc_per_node N -m uncrtaints_tpu_torch.cli.train \
+        --mesh_shape N ...
+
+Each rank loads its rows of every global batch of ``--batch_size``; the
+gradients and the batch-norm statistics are the global batch's
+(parallel/mesh.py); checkpoints, conf.json, the logs and the metrics files
+come from rank 0.
 """
 
 from __future__ import annotations
@@ -37,8 +45,11 @@ from uncrtaints_tpu_torch.data.pipeline import BatchLoader, Subset, select_colla
 from uncrtaints_tpu_torch.models import get_generator
 from uncrtaints_tpu_torch.train.checkpoint import (
     load_checkpoint, load_pretrained_partial, save_checkpoint, unfreeze_all)
+from uncrtaints_tpu_torch.parallel import (
+    active, barrier, broadcast_module, make_mesh, maybe_init_distributed)
 from uncrtaints_tpu_torch.train.engine import (
-    create_train_state, epoch_lr, make_eval_step, make_train_step, set_learning_rate)
+    batch_to_device, create_train_state, epoch_lr, make_eval_step, make_train_step,
+    profile_flops, set_learning_rate)
 from uncrtaints_tpu_torch.train.loop import iterate
 from uncrtaints_tpu_torch.train.observe import Writer, require_matplotlib
 
@@ -115,17 +126,68 @@ def checkpoint_name(path: str) -> str:
     return name.removesuffix(".pth.tar")
 
 
+def data_parallel(cfg: Config):
+    """Join the process group the environment names (parallel/mesh.py) and
+    check ``--mesh_shape`` against it: (rank, world, the loaders' shard or
+    None, the per-rank batch size). The global batch is ``cfg.batch_size``;
+    each rank loads its 1/world of it."""
+    rank, world = maybe_init_distributed(cfg.device)
+    if cfg.mesh_shape is not None and cfg.mesh_shape != world:
+        make_mesh(cfg.mesh_shape)  # raises on a shortfall
+        raise RuntimeError(f"mesh_shape={cfg.mesh_shape} but the run has {world} ranks "
+                           f"(torchrun --nproc_per_node {cfg.mesh_shape})")
+    if not active():
+        return rank, world, None, cfg.batch_size
+    if cfg.batch_size % world:
+        raise ValueError(f"batch_size {cfg.batch_size} must be divisible by the "
+                         f"{world} data-parallel ranks")
+    print(f"Data parallel: rank {rank} of {world}, {cfg.batch_size // world} samples "
+          "a rank and step")
+    return rank, world, (rank, world), cfg.batch_size // world
+
+
+class Profile:
+    """``--trace_dir``: a ``torch.profiler`` trace (CPU and CUDA activities)
+    from the start of the run to the end of its first epoch (the JAX CLI
+    traces the whole run; one epoch bounds the file), written as a Chrome
+    trace JSON ``trace_rank<r>.json`` under the directory."""
+
+    def __init__(self, trace_dir: str, rank: int):
+        self.path = os.path.join(trace_dir, f"trace_rank{rank}.json") if trace_dir else ""
+        self.prof = None
+        if self.path:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.__enter__()
+
+    def stop(self):
+        if self.prof is None:
+            return
+        self.prof.__exit__(None, None, None)
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
+        print(f"Wrote profiler trace to {self.path}")
+
+
 def main(cfg: Config) -> dict:
     reject_unported(cfg)
     if cfg.plot_every > 0:
         require_matplotlib(f"plot_every={cfg.plot_every}")
+    rank, world, shard, local_bs = data_parallel(cfg)
+    lead = rank == 0  # files, logs and the observer come from rank 0 alone
+    trace = Profile(cfg.trace_dir, rank)
     exp_dir = os.path.join(cfg.res_dir, cfg.experiment_name)
-    os.makedirs(exp_dir, exist_ok=True)
+    if lead:
+        os.makedirs(exp_dir, exist_ok=True)
     seed_everything(cfg.rdm_seed)
-    pprint.pprint(cfg.to_dict())
+    if lead:
+        pprint.pprint(cfg.to_dict())
 
     writer = Writer(os.path.join(os.path.dirname(cfg.res_dir) or ".",
-                                 "logs", cfg.experiment_name))
+                                 "logs", cfg.experiment_name)) if lead else None
 
     dt_train, dt_val, dt_test = build_datasets(cfg)
     cap = lambda ds: Subset(ds, range(0, min(
@@ -137,18 +199,23 @@ def main(cfg: Config) -> dict:
     # drop_last=False for all splits, as the reference's DataLoader default:
     # the tail batch trains and is evaluated too
     mk_loader = lambda ds, shuffle, seed: BatchLoader(
-        ds, batch_size=cfg.batch_size, shuffle=shuffle, seed=seed,
+        ds, batch_size=local_bs, shuffle=shuffle, seed=seed,
         collate=collate, use_sar=cfg.use_sar, drop_last=False,
-        num_workers=max(1, cfg.num_workers))
+        num_workers=max(1, cfg.num_workers), shard=shard)
     train_loader = mk_loader(dt_train, True, cfg.rdm_seed)
     val_loader = mk_loader(dt_val, False, cfg.rdm_seed)
     test_loader = mk_loader(dt_test, False, cfg.rdm_seed)
 
     model = get_generator(cfg)
+    if shard is not None:  # every rank starts from rank 0's weights
+        broadcast_module(model)
     state = create_train_state(cfg, model)
     n_params = sum(p.numel() for p in model.parameters())
     cfg = cfg.replace(N_params=n_params)
     print(f"TOTAL TRAINABLE PARAMETERS: {n_params}")
+    if cfg.profile and lead:
+        profile_flops(cfg, model, batch_to_device(
+            next(iter(mk_loader(dt_train, False, cfg.rdm_seed))), cfg.device))
 
     frozen = False
     if cfg.trained_checkp:
@@ -156,7 +223,8 @@ def main(cfg: Config) -> dict:
         state, _ = load_pretrained_partial(cfg, state, cfg.trained_checkp)
         frozen = True
 
-    cfg.save_json(os.path.join(exp_dir, "conf.json"))
+    if lead:
+        cfg.save_json(os.path.join(exp_dir, "conf.json"))
 
     train_step = make_train_step(cfg)
     eval_step = make_eval_step(cfg, with_metrics=True,
@@ -179,7 +247,8 @@ def main(cfg: Config) -> dict:
 
         lr = epoch_lr(cfg, epoch - 1)  # constant within the epoch
         state = set_learning_rate(state, lr)
-        writer.add_scalar("Etc/train/lr", lr, epoch)
+        if writer is not None:
+            writer.add_scalar("Etc/train/lr", lr, epoch)
 
         if cfg.vary_samples:
             train_loader.set_epoch(epoch)  # epoch-seeded reshuffle
@@ -202,18 +271,25 @@ def main(cfg: Config) -> dict:
             val_loss = val_metrics["val_loss"]
             print(f"Validation Loss {val_loss}")
             print(f"validation image metrics: {val_img_metrics}")
-            save_results(val_img_metrics, exp_dir, split=f"val_epoch_{epoch}")
             trainlog[epoch] = {**train_metrics, **val_metrics}
-            checkpoint_log(trainlog, cfg)
+            if lead:
+                save_results(val_img_metrics, exp_dir, split=f"val_epoch_{epoch}")
+                checkpoint_log(trainlog, cfg)
             if val_loss <= best_loss:
                 best_loss = val_loss
-                save_checkpoint(cfg, epoch, state, "model", lr)
+                if lead:
+                    save_checkpoint(cfg, epoch, state, "model", lr)
         else:
             trainlog[epoch] = {**train_metrics}
-            checkpoint_log(trainlog, cfg)
+            if lead:
+                checkpoint_log(trainlog, cfg)
 
-        save_checkpoint(cfg, epoch, state, f"model_epoch_{epoch}", lr)
+        if lead:
+            save_checkpoint(cfg, epoch, state, f"model_epoch_{epoch}", lr)
         print(f"Completed current epoch of experiment {cfg.experiment_name}.")
+        trace.stop()  # the trace holds the first epoch
+    trace.stop()
+    barrier()  # the checkpoints rank 0 wrote are read by every rank below
 
     # test the best checkpoint (fall back to the last epoch if validation
     # never ran and no best-on-val checkpoint exists)
@@ -225,8 +301,9 @@ def main(cfg: Config) -> dict:
         state, test_loader, cfg, writer, "test", cfg.epochs, eval_step=eval_step)
     print(f"Test Loss {test_metrics['test_loss']}")
     print(f"Test image metrics: {test_img_metrics}")
-    save_results(test_img_metrics, exp_dir, split="test")
-    writer.close()
+    if lead:
+        save_results(test_img_metrics, exp_dir, split="test")
+        writer.close()
     print(f"Finished training experiment {cfg.experiment_name}.")
     return {"trainlog": trainlog, "test": test_img_metrics}
 
@@ -245,10 +322,15 @@ def save_results(metrics: dict, path: str, split: str = "test"):
 
 
 def cli_main():
-    """Console entry point (pyproject: uncrtaints-torch-train)."""
+    """Console entry point (pyproject: uncrtaints-torch-train); one process
+    a GPU under ``torchrun --nproc_per_node N ... --mesh_shape N``."""
     cfg = derive(parse_config(mode="train"))
     cfg = apply_resume(cfg)
-    main(cfg)
+    try:
+        main(cfg)
+    finally:
+        if active():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

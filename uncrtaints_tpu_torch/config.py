@@ -10,10 +10,10 @@ mechanisms without a counterpart here and are not carried.
 
 Fields that name what this package does not have yet are kept, so that the
 files stay interchangeable, and the CLIs refuse them at start
-(:func:`reject_unported`), never ignore them: ``mesh_shape`` other than
-None or 1 (multi-GPU data parallel), ``ckpt_backend="orbax"`` (the default
-"msgpack" means the package's one single-file format, the reference's
-``.pth.tar``; train/checkpoint.py), ``trace_dir`` and ``profile``.
+(:func:`reject_unported`), never ignore them: ``ckpt_backend="orbax"`` (the
+default "msgpack" means the package's one single-file format, the
+reference's ``.pth.tar``; train/checkpoint.py). ``mesh_shape`` is the number
+of data-parallel ranks, one process per GPU (parallel/mesh.py).
 
 Flag-for-flag parity with the reference argparse parser (parse_args.py:5-95)
 and the post-parse derived-rule pass (train_reconstruct.py:36-84), on a
@@ -62,6 +62,9 @@ NO_OVERWRITE_TEST = [
     # a test-time choice: the stored run was trained without it, so the
     # reference's list, which lacks it, drops the flag given on the command line
     "use_custom",
+    # run-time choices of the test run itself (the port's cli.test honours
+    # them): its rank count, its trace and its FLOP count, not the train run's
+    "mesh_shape", "trace_dir", "profile",
 ]
 
 
@@ -298,7 +301,8 @@ def create_parser(mode: str = "train") -> argparse.ArgumentParser:
     p.add_argument("--region", default=d.region, type=str)
     p.add_argument("--max_samples_count", default=d.max_samples_count, type=int)
     p.add_argument("--max_samples_frac", default=d.max_samples_frac, type=float)
-    p.add_argument("--profile", dest="profile", action="store_true")
+    p.add_argument("--profile", dest="profile", action="store_true",
+                   help="print the eval forward's MFLOP per input sample")
     p.add_argument("--trained_checkp", default="", type=str)
 
     p.add_argument("--covmode", default=d.covmode, type=str)
@@ -311,7 +315,8 @@ def create_parser(mode: str = "train") -> argparse.ArgumentParser:
 
     # --- flags added by the JAX package ---
     p.add_argument("--mesh_shape", default=None, type=int,
-                   help="number of data-parallel devices; default all")
+                   help="number of data-parallel ranks, one process per GPU (torchrun "
+                        "--nproc_per_node N); the run must have exactly N")
     p.add_argument("--compute_dtype", default=d.compute_dtype, type=str,
                    help="bfloat16|float32 compute dtype for conv/matmul")
     p.add_argument("--cloud_masks", default=d.cloud_masks, type=str,
@@ -333,7 +338,8 @@ def create_parser(mode: str = "train") -> argparse.ArgumentParser:
                    help="fused eval MBConv through the hand-written "
                         "kernels (auto = on for a CUDA device)")
     p.add_argument("--trace_dir", default="", type=str,
-                   help="write a profiler trace of the first train steps")
+                   help="write a torch.profiler trace (Chrome trace JSON, one file a "
+                        "rank) from the start of the run to the end of its first epoch")
     return p
 
 
@@ -396,20 +402,12 @@ def apply_resume(cfg: Config) -> Config:
 
 
 def reject_unported(cfg: Config) -> None:
-    """Raise for a field that asks for what this package does not have yet
-    (the CLIs call it first)."""
-    if cfg.mesh_shape not in (None, 1):
-        raise NotImplementedError(
-            f"mesh_shape={cfg.mesh_shape}: multi-GPU data parallel is not ported yet "
-            "(one device; leave --mesh_shape unset)")
+    """Raise for a field that asks for what this package does not have (the
+    CLIs call it first)."""
     if cfg.ckpt_backend == "orbax":
         raise NotImplementedError(
             "ckpt_backend='orbax' is not ported: checkpoints are single .pth.tar files "
             "(keep the default)")
-    if cfg.trace_dir:
-        raise NotImplementedError("trace_dir (a profiler trace of the run) is not ported yet")
-    if cfg.profile:
-        raise NotImplementedError("profile (the FLOP count of a step) is not ported yet")
 
 
 def input_dim(cfg: Config) -> int:

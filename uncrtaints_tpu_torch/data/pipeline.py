@@ -14,9 +14,11 @@ prepare_data_multi / prepare_data_mono:
 The train iterator is re-seeded each epoch with (seed + epoch) when
 vary_samples is on, so the sample order reproduces across resumed runs.
 
-The original's compiled slab writers (``uncrtaints_tpu/native``) are not
-ported: the single-pass and the raw-DN collate write their preallocated
-slabs with numpy.
+The frames go CHW -> HWC through the port's compiled writers
+(``uncrtaints_tpu_torch/native``, built at first use; a failed build
+raises): the single-pass and the raw-DN collate write each frame into its
+preallocated batch slab in one pass, the uint16 radiometry through a lookup
+table, with the interpreter lock released.
 """
 
 from __future__ import annotations
@@ -28,13 +30,13 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from uncrtaints_tpu_torch import native
 from uncrtaints_tpu_torch.data.preprocess import process_MS
 
 
 def _hwc(frame) -> np.ndarray:
-    """CHW -> contiguous fp32 HWC."""
-    return np.ascontiguousarray(
-        np.transpose(np.asarray(frame, dtype=np.float32), (1, 2, 0)))
+    """CHW -> contiguous fp32 HWC (the native transpose)."""
+    return native.chw_to_hwc(np.ascontiguousarray(frame, dtype=np.float32))
 
 
 def _dates(inp, use_sar: bool) -> np.ndarray:
@@ -93,33 +95,38 @@ def _check_marker(sample, method: str):
             f"collate was built with method={method!r}")
 
 
-def _into_slab(slab, c0: int, frame):
-    """CHW frame -> channels [c0, c0+C) of an HWC slab (cast on the write)."""
-    slab[..., c0:c0 + frame.shape[0]] = np.moveaxis(frame, 0, -1)
+def _into_slab(slab, c0: int, frame, method: str = "default"):
+    """CHW frame -> channels [c0, c0+C) of an HWC slab in one native pass
+    (uint16 into a float32 slab: the radiometry of ``method``); a pair of
+    dtypes the writers do not take is written by numpy, cast on the write."""
+    frame = np.ascontiguousarray(frame)
+    if native.supported(frame.dtype, slab.dtype):
+        native.frame_into_slab(slab, c0, frame, method)
+    else:
+        slab[..., c0:c0 + frame.shape[0]] = np.moveaxis(frame, 0, -1)
 
 
 def make_fast_collate(method: str = "default", x_dtype=np.float32):
     """Single-pass batch assembly: each frame goes CHW -> the preallocated
-    [B,T,H,W,C] slab in one write, the x-dtype cast on the way, with no
-    stack / concatenate passes. Takes processed fp32 S2 frames (a layout
-    copy) and raw uint16 DN frames (``process_MS`` on the frame, then the
-    write); same values as :func:`collate_multi`. Variable-T batches go
-    through the generic collate."""
-    def s2_frame(frame):
-        frame = np.asarray(frame)
-        return process_MS(frame, method) if frame.dtype == np.uint16 else frame
-
+    [B,T,H,W,C] slab in one native write, with no stack / concatenate
+    passes. Takes processed fp32 S2 frames (a layout copy) and raw uint16 DN
+    frames (``process_MS`` as an exact lookup table in the write); same values
+    as :func:`collate_multi`. Variable-T batches, an ``x_dtype`` other than
+    float32 and S2 frames of another dtype go through the generic collate."""
     def collate(samples, use_sar: bool = True) -> Dict[str, np.ndarray]:
         B = len(samples)
         s0 = samples[0]["input"]
         T = len(s0["S2"])
-        if any(len(s["input"]["S2"]) != T for s in samples):
+        s2_dtype = np.asarray(s0["S2"][0]).dtype
+        if (any(len(s["input"]["S2"]) != T for s in samples)
+                or np.dtype(x_dtype) != np.float32
+                or s2_dtype not in (np.uint16, np.float32)):
             return collate_multi(_decode_raw_s2(samples, method),
                                  use_sar=use_sar, x_dtype=x_dtype)
         _check_marker(samples[0], method)
         C2, H, W = np.asarray(s0["S2"][0]).shape
         c1 = 2 if use_sar else 0
-        x = np.empty((B, T, H, W, c1 + C2), dtype=x_dtype)
+        x = np.empty((B, T, H, W, c1 + C2), dtype=np.float32)
         y = np.empty((B, 1, H, W, C2), dtype=np.float32)
         dates, masks = [], []
         for b, s in enumerate(samples):
@@ -127,8 +134,8 @@ def make_fast_collate(method: str = "default", x_dtype=np.float32):
             for t in range(T):
                 if use_sar:
                     _into_slab(x[b, t], 0, np.asarray(inp["S1"][t], np.float32))
-                _into_slab(x[b, t], c1, s2_frame(inp["S2"][t]))
-            _into_slab(y[b, 0], 0, s2_frame(s["target"]["S2"][0]))
+                _into_slab(x[b, t], c1, inp["S2"][t], method)
+            _into_slab(y[b, 0], 0, s["target"]["S2"][0], method)
             dates.append(_dates(inp, use_sar))
             masks.append(np.stack(inp["masks"]).astype(np.float32))
         return {"x": x, "y": y, "dates": np.stack(dates).astype(np.float32),

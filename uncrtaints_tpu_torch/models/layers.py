@@ -24,9 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from uncrtaints_tpu_torch.ops.dwconv import (
-    Pads, dw_stencil, dw_stencil_reflect_adjoint)
-from uncrtaints_tpu_torch.ops.dwgrad import dw_kernel_grad
+from uncrtaints_tpu_torch.ops.dwconv import dw_stencil
+from uncrtaints_tpu_torch.parallel import mesh
 
 _PAD_MODES = ("reflect", "replicate", "circular")  # F.pad modes
 
@@ -50,6 +49,35 @@ def _moments_f32(x: torch.Tensor, dims, keepdim: bool = True):
     return m, torch.clamp(m2 - m.square(), min=0.0)
 
 
+def batch_moments_f32(x: torch.Tensor, dims):
+    """Train-mode batch-norm statistics: per-channel fp32 mean and biased
+    variance (E[x^2] - E[x]^2, clamped at 0) over ``dims``, and the number
+    of rows behind them. When a process group is initialised they are the
+    global batch's, as under the JAX package's pjit: the per-rank sums, sums
+    of squares and counts are summed over the ranks by a differentiable
+    all-reduce (parallel/mesh.py), so every rank normalises alike, its
+    running statistics stay equal to the others', and the gradient reaches
+    every rank's rows."""
+    if not mesh.active():
+        m, v = _moments_f32(x, dims, keepdim=False)
+        return m, v, x.numel() // x.shape[-1]
+    xf, C = x.float(), x.shape[-1]
+    local = torch.cat([xf.sum(dim=dims), xf.square().sum(dim=dims),
+                       xf.new_full((1,), x.numel() // C)])
+    tot = mesh.all_reduce_sum_grad(local)
+    n = tot[-1]
+    m = tot[:C] / n
+    return m, torch.clamp(tot[C:2 * C] / n - m.square(), min=0.0), n
+
+
+def unbiased_factor(n):
+    """n / (n - 1) for the running variance (1 for a single row); n is the
+    row count :func:`batch_moments_f32` returns, an int or a tensor."""
+    if isinstance(n, torch.Tensor):
+        return n / torch.clamp(n - 1, min=1)
+    return n / max(n - 1, 1)
+
+
 class Linear(nn.Linear):
     """nn.Linear with the reference init: xavier-normal weight, N(0,1) bias."""
 
@@ -68,51 +96,6 @@ class Conv1d(nn.Conv1d):
             nn.init.normal_(self.bias, generator=generator)
 
 
-class DepthwiseConv2d(torch.autograd.Function):
-    """Depthwise stride-1 correlation of NHWC x with w [C,1,kh,kw],
-    differentiable through hand-written kernels.
-
-    ``mode="zeros"`` (the math of the JAX package's _dw_conv_valid VJP,
-    layers.py:349-389):
-
-    - forward: K5 (:func:`dw_stencil`) with the zero ``pads``;
-    - gx: K5 on the output gradient with the flipped kernel and the
-      complementary pads (kh-1-top, kh-1-bottom), (kw-1-left, kw-1-right):
-      the FULL pads for a VALID forward;
-    - gw: K2 (:func:`dw_kernel_grad`), fp32, cast to w's dtype.
-
-    ``mode="reflect"`` (3x3, ``pads`` of one, the unpadded x; the JAX
-    package's _dw_reflect3x3, layers.py:477): the reflect conv as one op.
-    The forward and K2 mirror their indices at the border and gx is the
-    folded adjoint (:func:`dw_stencil_reflect_adjoint`), so neither pass
-    makes or saves a padded tensor.
-
-    CPU tensors run the kernels' plain versions."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor, pads: Pads, mode: str = "zeros"):
-        ctx.pads, ctx.mode = pads, mode
-        ctx.save_for_backward(x, w)
-        return dw_stencil(x, w, pads, mode)
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        x, w = ctx.saved_tensors
-        (pt, pb), (pl, pr) = ctx.pads
-        kh, kw = w.shape[-2:]
-        g = g.contiguous()
-        gx = gw = None
-        if ctx.needs_input_grad[0]:
-            if ctx.mode == "reflect":
-                gx = dw_stencil_reflect_adjoint(g, w)
-            else:
-                gx = dw_stencil(g, w.flip((-2, -1)).contiguous(),
-                                ((kh - 1 - pt, kh - 1 - pb), (kw - 1 - pl, kw - 1 - pr)))
-        if ctx.needs_input_grad[1]:
-            gw = dw_kernel_grad(x, g, ctx.pads, kh, kw, ctx.mode).to(w.dtype)
-        return gx, gw, None, None
-
-
 class Conv2d(nn.Module):
     """2-D convolution over NHWC maps with ``nn.Conv2d``'s padding modes,
     stride and dilation.
@@ -122,10 +105,13 @@ class Conv2d(nn.Module):
     for 1x1 convolutions and for non-zero padding modes.
 
     A depthwise stride-1 convolution that is differentiated (grad enabled,
-    an input requires grad) runs through :class:`DepthwiseConv2d`, i.e. the
-    hand-written kernels K5 and K2; a 3x3 one with a reflect pad of one
-    goes through them unpadded (``mode="reflect"``). Otherwise (eval) it
-    stays ``F.conv2d``, as the JAX eval primal keeps ``lax.conv``."""
+    an input requires grad) runs through :func:`dw_stencil`, i.e. the
+    hand-written kernels K5 and K2 (its backward: the input gradient by K5,
+    the weight gradient by K2, as the JAX package's VJPs of _dw_conv_valid
+    and _dw_reflect3x3); a 3x3 one with a reflect pad of one goes through
+    them unpadded (``mode="reflect"``), so neither pass makes or saves a
+    padded tensor. Otherwise (eval) it stays ``F.conv2d``, as the JAX eval
+    primal keeps ``lax.conv``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  stride: int = 1, pad: int = 1, padding_mode: str = "reflect",
@@ -182,9 +168,8 @@ class Conv2d(nn.Module):
                       mode=self.padding_mode).squeeze(1)
             pad = 0
         if differentiated:
-            y = DepthwiseConv2d.apply(x.contiguous(), w.contiguous(),
-                                      ((pad, pad), (pad, pad)),
-                                      "reflect" if folded else "zeros")
+            y = dw_stencil(x.contiguous(), w.contiguous(), ((pad, pad), (pad, pad)),
+                           "reflect" if folded else "zeros")
         else:
             y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride, padding=pad,
                          dilation=self.dilation, groups=self.groups).permute(0, 2, 3, 1)
@@ -243,12 +228,11 @@ class Norm2d(nn.Module):
 
     def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            m, v = _moments_f32(x, tuple(range(x.dim() - 1)), keepdim=False)
-            n = x.numel() // x.shape[-1]
+            m, v, n = batch_moments_f32(x, tuple(range(x.dim() - 1)))
             with torch.no_grad():
                 self.running_mean.copy_(0.9 * self.running_mean + 0.1 * m)
                 self.running_var.copy_(0.9 * self.running_var
-                                       + 0.1 * (v * (n / max(n - 1, 1))))
+                                       + 0.1 * (v * unbiased_factor(n)))
         else:
             m, v = self.running_mean, self.running_var
         r = torch.rsqrt(v + 1e-5)

@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uncrtaints_tpu_torch.models.aggregator import attention_dropout
-from uncrtaints_tpu_torch.models.layers import Conv1d, Linear, _moments_f32
+from uncrtaints_tpu_torch.models.layers import Conv1d, Linear, batch_moments_f32
 
 
 def positional_encoding_table(positions: torch.Tensor, d: int, T: int = 1000,
@@ -138,7 +138,7 @@ class BatchNorm1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            m, v = _moments_f32(x, (0,), keepdim=False)
+            m, v, _ = batch_moments_f32(x, (0,))  # the global batch's under data parallel
             with torch.no_grad():
                 self.running_mean.copy_(0.9 * self.running_mean + 0.1 * m)
                 self.running_var.copy_(0.9 * self.running_var + 0.1 * v)

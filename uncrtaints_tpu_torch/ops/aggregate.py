@@ -10,15 +10,20 @@ VJP: the backward
     dattn[b,t,h,w,k] = sum_{c in head k} x[b,t,h,w,c] * g[b,h,w,c]
 
 is one more kernel (fp32 products and sums, dx in x's dtype, dattn in
-attn's). Both CUDA kernels are in csrc/aggregate.cu; an autograd Function
-joins them, so gradients reach everything upstream of the aggregator.
+attn's). Both CUDA kernels are in csrc/aggregate.cu. Both are operators
+``torch.ops.uncrtaints.att_group_aggregate`` and ``..._bwd``, the first
+differentiable through the second, so gradients reach everything upstream
+of the aggregator.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from uncrtaints_tpu_torch import _build
 
@@ -42,6 +47,8 @@ def _check(x: torch.Tensor, attn: torch.Tensor) -> None:
                          f"{attn.device}")
     if not (x.is_contiguous() and attn.is_contiguous()):
         raise ValueError("att_group_aggregate: x and attn must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"att_group_aggregate: unsupported device {x.device}")
     if x.shape[-1] % attn.shape[-1]:
         raise ValueError(f"att_group_aggregate: C={x.shape[-1]} is not a "
                          f"multiple of heads={attn.shape[-1]}")
@@ -58,11 +65,7 @@ def att_group_aggregate_bwd_plain(x: torch.Tensor, attn: torch.Tensor,
     return dx.to(x.dtype), da.to(attn.dtype)
 
 
-def _forward(x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return att_group_aggregate_plain(x, attn)
-    if x.device.type != "cuda":
-        raise ValueError(f"att_group_aggregate: unsupported device {x.device}")
+def _launch_fwd(x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     B, T, H, W, C = x.shape
     out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or T == 0:
@@ -80,27 +83,8 @@ def _forward(x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def att_group_aggregate_bwd(x: torch.Tensor, attn: torch.Tensor,
-                            g: torch.Tensor):
-    """The backward of :func:`att_group_aggregate` for the output gradient g
-    [B,H,W,C] (x's dtype, contiguous) -> (dx [B,T,H,W,C] in x's dtype,
-    dattn [B,T,H,W,heads] in attn's dtype).
-
-    A CUDA tensor launches the CUDA kernel (an error raises); a CPU tensor
-    runs :func:`att_group_aggregate_bwd_plain`.
-    ``att_group_aggregate_bwd.launches`` counts the kernel launches."""
-    _check(x, attn)
+def _launch_bwd(x: torch.Tensor, attn: torch.Tensor, g: torch.Tensor):
     B, T, H, W, C = x.shape
-    if g.shape != (B, H, W, C) or g.dtype != x.dtype or g.device != x.device:
-        raise ValueError(f"att_group_aggregate_bwd: g must be {(B, H, W, C)} "
-                         f"{x.dtype} on {x.device}, got {tuple(g.shape)} "
-                         f"{g.dtype} on {g.device}")
-    if not g.is_contiguous():
-        raise ValueError("att_group_aggregate_bwd: g must be contiguous")
-    if x.device.type == "cpu":
-        return att_group_aggregate_bwd_plain(x, attn, g)
-    if x.device.type != "cuda":
-        raise ValueError(f"att_group_aggregate_bwd: unsupported device {x.device}")
     dx = torch.empty_like(x)
     da = torch.empty_like(attn)
     if dx.numel() == 0:
@@ -118,18 +102,91 @@ def att_group_aggregate_bwd(x: torch.Tensor, attn: torch.Tensor,
     return dx, da
 
 
-class _AttGroupAggregate(torch.autograd.Function):
-    """K1 forward, K1 backward (the plain versions for CPU tensors)."""
+# The kernels as operators of the dispatcher (``torch.ops.uncrtaints``): the
+# CUDA kernel for a CUDA tensor, the plain version for a CPU tensor, output
+# shapes for a FakeTensor (``torch.export``), and K1's backward as K1-bwd,
+# so that an exported program, a profiler trace and the FLOP counter see
+# the hand-written kernels.
 
-    @staticmethod
-    def forward(ctx, x, attn):
-        ctx.save_for_backward(x, attn)
-        return _forward(x, attn)
+@torch.library.custom_op("uncrtaints::att_group_aggregate", mutates_args=(),
+                         device_types="cuda")
+def _k1(x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    return _launch_fwd(x, attn)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, attn = ctx.saved_tensors
-        return att_group_aggregate_bwd(x, attn, g.contiguous())
+
+@_k1.register_kernel("cpu")
+def _k1_cpu(x, attn):
+    return att_group_aggregate_plain(x, attn)
+
+
+@_k1.register_fake
+def _k1_fake(x, attn):
+    B, T, H, W, C = x.shape
+    return x.new_empty((B, H, W, C))
+
+
+@torch.library.custom_op("uncrtaints::att_group_aggregate_bwd", mutates_args=(),
+                         device_types="cuda")
+def _k1_bwd(x: torch.Tensor, attn: torch.Tensor,
+            g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch_bwd(x, attn, g)
+
+
+@_k1_bwd.register_kernel("cpu")
+def _k1_bwd_cpu(x, attn, g):
+    return att_group_aggregate_bwd_plain(x, attn, g)
+
+
+@_k1_bwd.register_fake
+def _k1_bwd_fake(x, attn, g):
+    return torch.empty_like(x), torch.empty_like(attn)
+
+
+def _k1_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _k1_backward(ctx, g):
+    x, attn = ctx.saved_tensors
+    return torch.ops.uncrtaints.att_group_aggregate_bwd(x, attn, g.contiguous())
+
+
+_k1.register_autograd(_k1_backward, setup_context=_k1_setup)
+
+
+# FLOPs for torch.utils.flop_counter, counted as its convolutions are: two a
+# multiply-add. K1: T multiply-adds an output; K1-bwd: the product of dx and
+# the multiply-add of dattn for each element of x (as a convolution's
+# backward counts its input and its weight gradient).
+@register_flop_formula(torch.ops.uncrtaints.att_group_aggregate)
+def _k1_flops(x_shape, attn_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * math.prod(x_shape)
+
+
+@register_flop_formula(torch.ops.uncrtaints.att_group_aggregate_bwd)
+def _k1_bwd_flops(x_shape, attn_shape, g_shape, *args, out_shape=None, **kwargs) -> int:
+    return 4 * math.prod(x_shape)
+
+
+def att_group_aggregate_bwd(x: torch.Tensor, attn: torch.Tensor,
+                            g: torch.Tensor):
+    """The backward of :func:`att_group_aggregate` for the output gradient g
+    [B,H,W,C] (x's dtype, contiguous) -> (dx [B,T,H,W,C] in x's dtype,
+    dattn [B,T,H,W,heads] in attn's dtype).
+
+    A CUDA tensor launches the CUDA kernel (an error raises); a CPU tensor
+    runs :func:`att_group_aggregate_bwd_plain`; both through the operator
+    ``torch.ops.uncrtaints.att_group_aggregate_bwd``.
+    ``att_group_aggregate_bwd.launches`` counts the kernel launches."""
+    _check(x, attn)
+    B, T, H, W, C = x.shape
+    if g.shape != (B, H, W, C) or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"att_group_aggregate_bwd: g must be {(B, H, W, C)} "
+                         f"{x.dtype} on {x.device}, got {tuple(g.shape)} "
+                         f"{g.dtype} on {g.device}")
+    if not g.is_contiguous():
+        raise ValueError("att_group_aggregate_bwd: g must be contiguous")
+    return torch.ops.uncrtaints.att_group_aggregate_bwd(x, attn, g)
 
 
 def att_group_aggregate(x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
@@ -137,14 +194,12 @@ def att_group_aggregate(x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     bf16, C % heads == 0) -> [B,H,W,C] in x's dtype.
 
     A CUDA tensor launches the CUDA kernel (an error raises); a CPU tensor
-    runs :func:`att_group_aggregate_plain`. With grad enabled and an input
-    that requires it, the result is differentiable through
-    :func:`att_group_aggregate_bwd`. ``att_group_aggregate.launches`` counts
-    the forward kernel's launches."""
+    runs :func:`att_group_aggregate_plain`; both through the operator
+    ``torch.ops.uncrtaints.att_group_aggregate``, which is differentiable
+    through :func:`att_group_aggregate_bwd`.
+    ``att_group_aggregate.launches`` counts the forward kernel's launches."""
     _check(x, attn)
-    if torch.is_grad_enabled() and (x.requires_grad or attn.requires_grad):
-        return _AttGroupAggregate.apply(x, attn)
-    return _forward(x, attn)
+    return torch.ops.uncrtaints.att_group_aggregate(x, attn)
 
 
 att_group_aggregate.launches = 0

@@ -15,7 +15,7 @@ the JAX package's fused VJP (layers.py:_dw_reflect3x3).
 
 Port of uncrtaints_tpu/ops/pallas_dwconv.py:dw_stencil; the CUDA kernel is
 csrc/dwconv.cu. The train step runs it for the differentiated depthwise
-forward and its input gradient (models/layers.py:DepthwiseConv2d).
+forward and its input gradient (models/layers.py:Conv2d).
 
 The weight has the port's depthwise layout [C,1,kh,kw] (OIHW); a caller
 flips or reshapes it.
@@ -24,10 +24,12 @@ flips or reshapes it.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import math
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from uncrtaints_tpu_torch import _build
 
@@ -51,6 +53,7 @@ def zero_pad(x: torch.Tensor, pads: Pads) -> torch.Tensor:
 
 # the border rules and their codes in csrc/common.cuh (DwMode)
 MODES = {"zeros": 0, "reflect": 1}
+_MODE_NAMES = {v: k for k, v in MODES.items()}
 _REFLECT_ADJOINT = 2
 _PADS_ONE: Pads = ((1, 1), (1, 1))
 
@@ -146,6 +149,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor, pads: Pads, mode_code: int) -> tor
     """One launch of the CUDA kernel; counted in ``dw_stencil.launches``."""
     N, H, W, C = x.shape
     kh, kw = w.shape[-2:]
+    if (kh, kw) not in KERNEL_SIZES:
+        raise ValueError(f"dw_stencil kernel takes kernel sizes {KERNEL_SIZES}, "
+                         f"got {(kh, kw)}")
     Ho, Wo = out_hw(H, W, kh, kw, pads)
     out = torch.empty((N, Ho, Wo, C), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
@@ -164,6 +170,78 @@ def _launch(x: torch.Tensor, w: torch.Tensor, pads: Pads, mode_code: int) -> tor
     return out
 
 
+def pads_of(flat) -> Pads:
+    """[top, bottom, left, right] (an operator's int list) -> Pads."""
+    pt, pb, pl, pr = flat
+    return (pt, pb), (pl, pr)
+
+
+# K5 as an operator of the dispatcher (``torch.ops.uncrtaints.dw_stencil``):
+# the CUDA kernel for a CUDA tensor, the plain versions for a CPU tensor, the
+# output shape for a FakeTensor, and its backward through the operator itself
+# (the input gradient) and K2 (``torch.ops.uncrtaints.dw_kernel_grad``, the
+# weight gradient). ``mode`` is a code of MODES, or _REFLECT_ADJOINT.
+
+@torch.library.custom_op("uncrtaints::dw_stencil", mutates_args=(), device_types="cuda")
+def _k5(x: torch.Tensor, w: torch.Tensor, pads: List[int], mode: int) -> torch.Tensor:
+    return _launch(x, w, pads_of(pads), mode)
+
+
+@_k5.register_kernel("cpu")
+def _k5_cpu(x, w, pads, mode):
+    if mode == _REFLECT_ADJOINT:
+        return dw_stencil_reflect_adjoint_plain(x, w)
+    return dw_stencil_plain(x, w, pads_of(pads), _MODE_NAMES[mode])
+
+
+@_k5.register_fake
+def _k5_fake(x, w, pads, mode):
+    N, H, W, C = x.shape
+    Ho, Wo = out_hw(H, W, *w.shape[-2:], pads_of(pads))
+    return x.new_empty((N, Ho, Wo, C))
+
+
+def _k5_setup(ctx, inputs, output):
+    x, w, pads, mode = inputs
+    ctx.save_for_backward(x, w)
+    ctx.pads, ctx.mode = pads, _MODE_NAMES.get(mode, "reflect adjoint")
+
+
+def _k5_backward(ctx, g):
+    """The input gradient by K5 (``zeros``: the flipped kernel with the
+    complementary pads, the FULL pads of a VALID forward, as the JAX
+    package's _dw_conv_valid VJP; ``reflect``: the folded adjoint), the
+    weight gradient by K2 (fp32, cast to w's dtype)."""
+    x, w = ctx.saved_tensors
+    if ctx.mode not in MODES:
+        raise RuntimeError("dw_stencil: the reflect adjoint has no backward")
+    pt, pb, pl, pr = ctx.pads
+    kh, kw = w.shape[-2:]
+    g = g.contiguous()
+    gx = gw = None
+    if ctx.needs_input_grad[0]:
+        if ctx.mode == "reflect":
+            gx = torch.ops.uncrtaints.dw_stencil(g, w, [1, 1, 1, 1], _REFLECT_ADJOINT)
+        else:
+            gx = torch.ops.uncrtaints.dw_stencil(
+                g, w.flip((-2, -1)).contiguous(),
+                [kh - 1 - pt, kh - 1 - pb, kw - 1 - pl, kw - 1 - pr], 0)
+    if ctx.needs_input_grad[1]:
+        gw = torch.ops.uncrtaints.dw_kernel_grad(
+            x, g, list(ctx.pads), kh, kw, MODES[ctx.mode]).to(w.dtype)
+    return gx, gw, None, None
+
+
+_k5.register_autograd(_k5_backward, setup_context=_k5_setup)
+
+
+@register_flop_formula(torch.ops.uncrtaints.dw_stencil)
+def _k5_flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """Two FLOPs a multiply-add, kh*kw of them an output (torch's count of
+    a depthwise convolution)."""
+    return 2 * math.prod(out_shape) * w_shape[-2] * w_shape[-1]
+
+
 def dw_stencil(x: torch.Tensor, w: torch.Tensor, pads: Pads,
                mode: str = "zeros") -> torch.Tensor:
     """x [N,H,W,C], w [C,1,kh,kw] (contiguous, one dtype: fp32 or bf16) ->
@@ -172,19 +250,17 @@ def dw_stencil(x: torch.Tensor, w: torch.Tensor, pads: Pads,
 
     A CUDA tensor launches the CUDA kernel, which takes the kernel sizes in
     ``KERNEL_SIZES`` (anything else raises); a CPU tensor runs
-    :func:`dw_stencil_plain`. ``dw_stencil.launches`` counts the kernel
-    launches, those of :func:`dw_stencil_reflect_adjoint` included (one
-    kernel, K5)."""
+    :func:`dw_stencil_plain`; both through the operator
+    ``torch.ops.uncrtaints.dw_stencil``, which is differentiable in x and w
+    (the input gradient by this kernel, the weight gradient by K2,
+    :func:`dw_kernel_grad`; the JAX package's VJPs of _dw_conv_valid and
+    _dw_reflect3x3). ``dw_stencil.launches`` counts the kernel launches,
+    those of :func:`dw_stencil_reflect_adjoint` included (one kernel, K5)."""
     _check_operands("dw_stencil", x, w)
     kh, kw = w.shape[-2:]
     check_pads("dw_stencil", x, kh, kw, pads)
     check_mode("dw_stencil", x, kh, kw, pads, mode)
-    if x.device.type == "cpu":
-        return dw_stencil_plain(x, w, pads, mode)
-    if (kh, kw) not in KERNEL_SIZES:
-        raise ValueError(f"dw_stencil kernel takes kernel sizes {KERNEL_SIZES}, "
-                         f"got {(kh, kw)}")
-    return _launch(x, w, pads, MODES[mode])
+    return torch.ops.uncrtaints.dw_stencil(x, w, [*pads[0], *pads[1]], MODES[mode])
 
 
 dw_stencil.launches = 0
@@ -205,6 +281,8 @@ def dw_stencil_reflect_adjoint(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor
     name = "dw_stencil_reflect_adjoint"
     _check_operands(name, g, w)
     check_mode(name, g, *w.shape[-2:], _PADS_ONE, "reflect")
-    if g.device.type == "cpu":
-        return dw_stencil_reflect_adjoint_plain(g, w)
-    return _launch(g, w, _PADS_ONE, _REFLECT_ADJOINT)
+    return torch.ops.uncrtaints.dw_stencil(g, w, [1, 1, 1, 1], _REFLECT_ADJOINT)
+
+
+# K5's backward calls K2: register its operator with this one's
+from uncrtaints_tpu_torch.ops import dwgrad as _dwgrad  # noqa: E402,F401

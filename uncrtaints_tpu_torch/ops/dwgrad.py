@@ -15,12 +15,16 @@ second pass over them, no atomics, so the result is deterministic.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import List
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from uncrtaints_tpu_torch import _build
 from uncrtaints_tpu_torch.ops.dwconv import (
-    KERNEL_SIZES, MODES, Pads, check_mode, check_pads, out_hw, reflect_pad, zero_pad)
+    _MODE_NAMES, KERNEL_SIZES, MODES, Pads, check_mode, check_pads, out_hw, pads_of,
+    reflect_pad, zero_pad)
 
 
 def dw_kernel_grad_plain(x: torch.Tensor, g: torch.Tensor, pads: Pads,
@@ -37,40 +41,15 @@ def dw_kernel_grad_plain(x: torch.Tensor, g: torch.Tensor, pads: Pads,
     return torch.stack(taps, dim=-1).reshape(C, 1, kh, kw)
 
 
-def dw_kernel_grad(x: torch.Tensor, g: torch.Tensor, pads: Pads, kh: int,
-                   kw: int, mode: str = "zeros") -> torch.Tensor:
-    """x [N,H,W,C], g [N,Ho,Wo,C] (contiguous, one dtype: fp32 or bf16) ->
-    gw [C,1,kh,kw] fp32. ``mode="reflect"`` takes the unpadded x, a 3x3
-    kernel and ``pads`` of one.
-
-    A CUDA tensor launches the CUDA kernel, which takes the kernel sizes in
-    ``KERNEL_SIZES`` (anything else raises); a CPU tensor runs
-    :func:`dw_kernel_grad_plain`. ``dw_kernel_grad.launches`` counts the
-    kernel launches (one per call: the two passes are one launch of the C
-    entry point)."""
-    if x.dim() != 4:
-        raise ValueError(f"dw_kernel_grad: x [N,H,W,C] expected, got {tuple(x.shape)}")
+def _launch(x: torch.Tensor, g: torch.Tensor, pads: Pads, kh: int, kw: int,
+            mode: str) -> torch.Tensor:
+    """One launch of the CUDA kernel (its two passes); counted in
+    ``dw_kernel_grad.launches``."""
     N, H, W, C = x.shape
-    check_pads("dw_kernel_grad", x, kh, kw, pads)
-    check_mode("dw_kernel_grad", x, kh, kw, pads, mode)
-    Ho, Wo = out_hw(H, W, kh, kw, pads)
-    if g.shape != (N, Ho, Wo, C):
-        raise ValueError(f"dw_kernel_grad: g must be {(N, Ho, Wo, C)}, got "
-                         f"{tuple(g.shape)}")
-    if x.dtype not in _build.DTYPE_CODES or g.dtype != x.dtype:
-        raise TypeError(f"dw_kernel_grad: x and g must share a dtype in "
-                        f"{list(_build.DTYPE_CODES)}, got {x.dtype}, {g.dtype}")
-    if x.device != g.device:
-        raise ValueError(f"dw_kernel_grad: x on {x.device}, g on {g.device}")
-    if not (x.is_contiguous() and g.is_contiguous()):
-        raise ValueError("dw_kernel_grad: x and g must be contiguous")
-    if x.device.type == "cpu":
-        return dw_kernel_grad_plain(x, g, pads, kh, kw, mode)
-    if x.device.type != "cuda":
-        raise ValueError(f"dw_kernel_grad: unsupported device {x.device}")
     if (kh, kw) not in KERNEL_SIZES:
         raise ValueError(f"dw_kernel_grad kernel takes kernel sizes "
                          f"{KERNEL_SIZES}, got {(kh, kw)}")
+    Ho, Wo = out_hw(H, W, kh, kw, pads)
     gw = torch.empty((C, 1, kh, kw), dtype=torch.float32, device=x.device)
     if g.numel() == 0:
         return gw.zero_()
@@ -92,6 +71,68 @@ def dw_kernel_grad(x: torch.Tensor, g: torch.Tensor, pads: Pads, kh: int,
     _build.check(err, "uncr_dw_kernel_grad")
     dw_kernel_grad.launches += 1
     return gw
+
+
+# K2 as an operator of the dispatcher (``torch.ops.uncrtaints.dw_kernel_grad``;
+# K5's backward calls it): the CUDA kernel for a CUDA tensor, the plain
+# version for a CPU tensor, the output shape for a FakeTensor. ``mode`` is a
+# code of MODES.
+
+@torch.library.custom_op("uncrtaints::dw_kernel_grad", mutates_args=(), device_types="cuda")
+def _k2(x: torch.Tensor, g: torch.Tensor, pads: List[int], kh: int, kw: int,
+        mode: int) -> torch.Tensor:
+    return _launch(x, g, pads_of(pads), kh, kw, _MODE_NAMES[mode])
+
+
+@_k2.register_kernel("cpu")
+def _k2_cpu(x, g, pads, kh, kw, mode):
+    return dw_kernel_grad_plain(x, g, pads_of(pads), kh, kw, _MODE_NAMES[mode])
+
+
+@_k2.register_fake
+def _k2_fake(x, g, pads, kh, kw, mode):
+    return x.new_empty((x.shape[-1], 1, kh, kw), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.uncrtaints.dw_kernel_grad)
+def _k2_flops(x_shape, g_shape, pads, kh, kw, *args, out_shape=None, **kwargs) -> int:
+    """Two FLOPs a multiply-add, kh*kw of them an element of g (torch's
+    count of a depthwise convolution's weight gradient)."""
+    return 2 * math.prod(g_shape) * kh * kw
+
+
+def dw_kernel_grad(x: torch.Tensor, g: torch.Tensor, pads: Pads, kh: int,
+                   kw: int, mode: str = "zeros") -> torch.Tensor:
+    """x [N,H,W,C], g [N,Ho,Wo,C] (contiguous, one dtype: fp32 or bf16) ->
+    gw [C,1,kh,kw] fp32. ``mode="reflect"`` takes the unpadded x, a 3x3
+    kernel and ``pads`` of one.
+
+    A CUDA tensor launches the CUDA kernel, which takes the kernel sizes in
+    ``KERNEL_SIZES`` (anything else raises); a CPU tensor runs
+    :func:`dw_kernel_grad_plain`; both through the operator
+    ``torch.ops.uncrtaints.dw_kernel_grad``. ``dw_kernel_grad.launches``
+    counts the kernel launches (one per call: the two passes are one launch
+    of the C entry point)."""
+    if x.dim() != 4:
+        raise ValueError(f"dw_kernel_grad: x [N,H,W,C] expected, got {tuple(x.shape)}")
+    N, H, W, C = x.shape
+    check_pads("dw_kernel_grad", x, kh, kw, pads)
+    check_mode("dw_kernel_grad", x, kh, kw, pads, mode)
+    Ho, Wo = out_hw(H, W, kh, kw, pads)
+    if g.shape != (N, Ho, Wo, C):
+        raise ValueError(f"dw_kernel_grad: g must be {(N, Ho, Wo, C)}, got "
+                         f"{tuple(g.shape)}")
+    if x.dtype not in _build.DTYPE_CODES or g.dtype != x.dtype:
+        raise TypeError(f"dw_kernel_grad: x and g must share a dtype in "
+                        f"{list(_build.DTYPE_CODES)}, got {x.dtype}, {g.dtype}")
+    if x.device != g.device:
+        raise ValueError(f"dw_kernel_grad: x on {x.device}, g on {g.device}")
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("dw_kernel_grad: x and g must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dw_kernel_grad: unsupported device {x.device}")
+    return torch.ops.uncrtaints.dw_kernel_grad(x, g, [*pads[0], *pads[1]], kh, kw,
+                                               MODES[mode])
 
 
 dw_kernel_grad.launches = 0

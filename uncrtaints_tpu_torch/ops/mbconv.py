@@ -13,10 +13,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from uncrtaints_tpu_torch import _build
 
@@ -119,15 +121,22 @@ def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
                          f"C2={C2} / groups_out={groups_out} is not whole")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("norm_gelu_matmul: x and w must be contiguous")
-    if x.device.type == "cpu":
-        return norm_gelu_matmul_plain(
-            x, mean, coef, scale, bias, w, se=se, groups_in=groups_in,
-            groups_out=groups_out, do_gelu=do_gelu, out_affine=out_affine,
-            out_gelu=out_gelu, do_stats=do_stats)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"norm_gelu_matmul: unsupported device {x.device}")
-    _refuse_grad("norm_gelu_matmul", (x, mean, coef, scale, bias, w, se,
-                                      *(out_affine if out_affine is not None else ())))
+    if x.device.type == "cuda":
+        _refuse_grad("norm_gelu_matmul", (x, mean, coef, scale, bias, w, se,
+                                          *(out_affine if out_affine is not None else ())))
+    oscale, obias = out_affine if out_affine is not None else (None, None)
+    return torch.ops.uncrtaints.norm_gelu_matmul(
+        x, mean, coef, scale, bias, w, se, oscale, obias, groups_in, groups_out,
+        do_gelu, out_gelu, do_stats)
+
+
+def _k3_launch(x, mean, coef, scale, bias, w, se, oscale, obias, groups_in,
+               groups_out, do_gelu, out_gelu, do_stats):
+    """The CUDA kernel's launch (the operator's CUDA implementation)."""
+    N, P, C = x.shape
+    C2 = w.shape[1]
     if P % BLOCK_M or C % 32 or C2 % 16:
         raise ValueError(f"norm_gelu_matmul kernel needs P % {BLOCK_M} == 0, "
                          f"C % 32 == 0 and C2 % 16 == 0; got P={P}, C={C}, "
@@ -138,11 +147,9 @@ def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
     scale = _f32(scale, (C,), "norm_gelu_matmul: scale")
     bias = _f32(bias, (C,), "norm_gelu_matmul: bias")
     se = _f32(se, (N, C), "norm_gelu_matmul: se") if se is not None else None
-    if out_affine is not None:
-        oscale = _f32(out_affine[0], (C2,), "norm_gelu_matmul: oscale")
-        obias = _f32(out_affine[1], (C2,), "norm_gelu_matmul: obias")
-    else:
-        oscale = obias = None
+    if oscale is not None:
+        oscale = _f32(oscale, (C2,), "norm_gelu_matmul: oscale")
+        obias = _f32(obias, (C2,), "norm_gelu_matmul: obias")
     small = [mean, coef, scale, bias, se, oscale, obias]
     if any(t is not None and t.device != x.device for t in small + [w]):
         raise ValueError("norm_gelu_matmul: all tensors must be on x's device")
@@ -180,11 +187,54 @@ def norm_gelu_matmul(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
     return out, s1, s2
 
 
+# K3 as an operator of the dispatcher (``torch.ops.uncrtaints.norm_gelu_matmul``):
+# the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor, the
+# output shapes for a FakeTensor. Eval only: no backward, as the JAX kernel.
+
+@torch.library.custom_op("uncrtaints::norm_gelu_matmul", mutates_args=(),
+                         device_types="cuda")
+def _k3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor, scale: torch.Tensor,
+        bias: torch.Tensor, w: torch.Tensor, se: Optional[torch.Tensor],
+        oscale: Optional[torch.Tensor], obias: Optional[torch.Tensor], groups_in: int,
+        groups_out: int, do_gelu: bool, out_gelu: bool,
+        do_stats: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _k3_launch(x, mean, coef, scale, bias, w, se, oscale, obias, groups_in,
+                      groups_out, do_gelu, out_gelu, do_stats)
+
+
+@_k3.register_kernel("cpu")
+def _k3_cpu(x, mean, coef, scale, bias, w, se, oscale, obias, groups_in, groups_out,
+            do_gelu, out_gelu, do_stats):
+    return norm_gelu_matmul_plain(
+        x, mean, coef, scale, bias, w, se=se, groups_in=groups_in,
+        groups_out=groups_out, do_gelu=do_gelu,
+        out_affine=None if oscale is None else (oscale, obias),
+        out_gelu=out_gelu, do_stats=do_stats)
+
+
+@_k3.register_fake
+def _k3_fake(x, mean, coef, scale, bias, w, se, oscale, obias, groups_in, groups_out,
+             do_gelu, out_gelu, do_stats):
+    N, P, _ = x.shape
+    stats = lambda: x.new_empty((N, groups_out), dtype=torch.float32)
+    return x.new_empty((N, P, w.shape[1])), stats(), stats()
+
+
 norm_gelu_matmul.launches = 0
 norm_gelu_matmul.wgmma_launches = 0
 
 
 # ------------------------------------------------------------------- K4 --
+
+@register_flop_formula(torch.ops.uncrtaints.norm_gelu_matmul)
+def _k3_flops(x_shape, mean_shape, coef_shape, scale_shape, bias_shape, w_shape,
+              *args, out_shape=None, **kwargs) -> int:
+    """The GEMM's, two FLOPs a multiply-add (torch's count of a 1x1
+    convolution; the norm, GELU and SE prologue are elementwise, uncounted
+    as torch's elementwise ops are)."""
+    N, P, C = x_shape
+    return 2 * N * P * C * w_shape[1]
+
 
 def norm_gelu_dwconv3x3_plain(x, mean, coef, scale, bias, w,
                               groups_in: int = 4, groups_out: int = 4,
@@ -266,14 +316,23 @@ def norm_gelu_dwconv3x3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
             raise ValueError(f"{name}: pool_affine must be (scale, bias)")
         pool_affine = tuple(_f32(t, (C,), f"{name}: pool_affine[{i}]")
                             for i, t in enumerate(pool_affine))
-    if x.device.type == "cpu":
-        return norm_gelu_dwconv3x3_plain(
-            x, mean, coef, scale, bias, w, groups_in=groups_in,
-            groups_out=groups_out, do_stats=do_stats, pool_affine=pool_affine)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
-    _refuse_grad(name, (x, mean, coef, scale, bias, w,
-                        *(pool_affine if pool_affine is not None else ())))
+    if x.device.type == "cuda":
+        _refuse_grad(name, (x, mean, coef, scale, bias, w,
+                            *(pool_affine if pool_affine is not None else ())))
+    pscale, pbias = pool_affine if pool_affine is not None else (None, None)
+    *result, pool = torch.ops.uncrtaints.norm_gelu_dwconv3x3(
+        x, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_out, do_stats)
+    return tuple(result) if pool_affine is None else (*result, pool)
+
+
+def _k4_launch(x, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_out,
+               do_stats):
+    """The CUDA kernel's launch (the operator's CUDA implementation); the
+    fourth value is [0] without ``pscale``."""
+    name = "norm_gelu_dwconv3x3"
+    N, H, W, C = x.shape
     vec = 16 // x.element_size()
     if C % vec:
         raise ValueError(f"{name} kernel needs C % {vec} == 0 for {x.dtype} "
@@ -284,7 +343,8 @@ def norm_gelu_dwconv3x3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
     scale = _f32(scale, (C,), f"{name}: scale")
     bias = _f32(bias, (C,), f"{name}: bias")
     w9 = w.to(torch.float32).reshape(9, C).contiguous()
-    small = (mean, coef, scale, bias, w9, *(pool_affine or ()))
+    pooled = pscale is not None
+    small = (mean, coef, scale, bias, w9, *((pscale, pbias) if pooled else ()))
     if any(t.device != x.device for t in small):
         raise ValueError(f"{name}: all tensors must be on x's device")
     if x.data_ptr() % 16:
@@ -294,23 +354,18 @@ def norm_gelu_dwconv3x3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
     out = torch.empty_like(x)
     s1 = torch.zeros((N, groups_out), dtype=torch.float32, device=dev)
     s2 = torch.zeros((N, groups_out), dtype=torch.float32, device=dev)
-    pool = None
-    result = (out, s1, s2)
-    if pool_affine is not None:
-        pool = torch.zeros((N, C), dtype=torch.float32, device=dev)
-        result = (out, s1, s2, pool)
+    pool = torch.zeros((N, C) if pooled else (0,), dtype=torch.float32, device=dev)
     if out.numel() == 0:
-        return result
+        return out, s1, s2, pool
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # one partial row per item of the kernel's grid walk (and N more for
     # the statistics' second pass)
     rows = N * _build.kernel("uncr_ngd_blocks", [ci, ci])(H, W)
-    psum = psq = ppool = pscale = pbias = None
+    psum = psq = ppool = None
     if do_stats:
         psum = torch.empty((rows + N, C), dtype=torch.float32, device=dev)
         psq = torch.empty_like(psum)
-    if pool_affine is not None:
-        pscale, pbias = pool_affine
+    if pooled:
         ppool = torch.empty((rows, C), dtype=torch.float32, device=dev)
     ptr = lambda t: t.data_ptr() if t is not None else None
     fn = _build.kernel("uncr_norm_gelu_dwconv3x3", [
@@ -321,11 +376,52 @@ def norm_gelu_dwconv3x3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
                  coef.data_ptr(), groups_in, scale.data_ptr(), bias.data_ptr(),
                  w9.data_ptr(), out.data_ptr(), N, H, W, C, ptr(psum),
                  ptr(psq), s1.data_ptr(), s2.data_ptr(), groups_out,
-                 ptr(pscale), ptr(pbias), ptr(ppool), ptr(pool),
+                 ptr(pscale), ptr(pbias), ptr(ppool), ptr(pool if pooled else None),
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "uncr_norm_gelu_dwconv3x3")
     norm_gelu_dwconv3x3.launches += 1
-    return result
+    return out, s1, s2, pool
+
+
+# K4 as an operator of the dispatcher (``torch.ops.uncrtaints.norm_gelu_dwconv3x3``):
+# the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor, the
+# output shapes for a FakeTensor; the pooled sum is [0] without ``pscale``
+# (an operator's outputs are fixed). Eval only, as K3.
+
+@torch.library.custom_op("uncrtaints::norm_gelu_dwconv3x3", mutates_args=(),
+                         device_types="cuda")
+def _k4(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor, scale: torch.Tensor,
+        bias: torch.Tensor, w: torch.Tensor, pscale: Optional[torch.Tensor],
+        pbias: Optional[torch.Tensor], groups_in: int, groups_out: int,
+        do_stats: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _k4_launch(x, mean, coef, scale, bias, w, pscale, pbias, groups_in,
+                      groups_out, do_stats)
+
+
+@_k4.register_kernel("cpu")
+def _k4_cpu(x, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_out,
+            do_stats):
+    pooled = pscale is not None
+    res = norm_gelu_dwconv3x3_plain(
+        x, mean, coef, scale, bias, w, groups_in=groups_in, groups_out=groups_out,
+        do_stats=do_stats, pool_affine=(pscale, pbias) if pooled else None)
+    return res if pooled else (*res, x.new_zeros((0,), dtype=torch.float32))
+
+
+@_k4.register_fake
+def _k4_fake(x, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_out,
+             do_stats):
+    N, C = x.shape[0], x.shape[-1]
+    f32 = lambda *shape: x.new_empty(shape, dtype=torch.float32)
+    pool = f32(N, C) if pscale is not None else f32(0)
+    return x.new_empty(x.shape), f32(N, groups_out), f32(N, groups_out), pool
+
+
+@register_flop_formula(torch.ops.uncrtaints.norm_gelu_dwconv3x3)
+def _k4_flops(x_shape, *args, out_shape=None, **kwargs) -> int:
+    """The nine taps' multiply-adds, two FLOPs each (torch's count of a
+    depthwise 3x3 convolution)."""
+    return 2 * 9 * math.prod(x_shape)
 
 
 norm_gelu_dwconv3x3.launches = 0

@@ -5,7 +5,8 @@ policy of _cast_for_forward, make_eval_step (forward, MGNLL loss, the
 scale_by rescale and the image metrics, without gradients) and the train
 state with make_optimizer, epoch_lr, set_learning_rate, create_train_state
 and make_train_step (forward, MGNLL, backward, Adam, the rescale; gradient
-accumulation; the freeze mask). The cast policy is written out with
+accumulation; the freeze mask; data parallel over a process group), and
+profile_flops. The cast policy is written out with
 explicit casts, not torch.autocast, so that the values are rounded where
 the JAX package rounds them:
 
@@ -33,6 +34,7 @@ from uncrtaints_tpu_torch.config import Config
 from uncrtaints_tpu_torch.data.preprocess import process_MS_device
 from uncrtaints_tpu_torch.losses import calc_loss, get_loss
 from uncrtaints_tpu_torch.models.registry import mean_vars_idx
+from uncrtaints_tpu_torch.parallel import mesh
 
 
 def batch_to_device(batch: Dict, device, non_blocking: bool = False) -> Dict:
@@ -99,6 +101,26 @@ def eval_forward(cfg: Config, model: torch.nn.Module, x_scaled: torch.Tensor,
     params, xc = _cast_for_forward(cfg, model, x_scaled)
     out = functional_call(model, params, (xc,), {"batch_positions": dates})
     return _split_out(out.float(), cfg)
+
+
+def profile_flops(cfg: Config, model: torch.nn.Module, batch: Dict) -> float:
+    """MFLOP per input sample of the eval forward (the JAX package's
+    ``profile_flops``, engine.py:326, reads XLA's cost analysis; the
+    reference runs fvcore under ``--profile``). Counted by
+    ``torch.utils.flop_counter.FlopCounterMode``: matrix products and
+    convolutions at two FLOPs a multiply-add, and the hand-written kernels
+    by the formulas registered beside their operators (K3's GEMM, K4's nine
+    taps, K1's T products), so a forward through the kernels counts what
+    the same forward through the plain layers counts. Elementwise work is
+    not counted. ``batch`` holds tensors on the model's device."""
+    from torch.utils.flop_counter import FlopCounterMode
+    x, _, _ = _prepare_xy(cfg, batch)
+    model.eval()
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        eval_forward(cfg, model, x, batch.get("dates"))
+    mflops = counter.get_total_flops() * 1e-6 / x.shape[0]
+    print(f"MFLOP count: {mflops}")
+    return mflops
 
 
 def make_eval_step(cfg: Config, with_metrics: bool = False,
@@ -254,18 +276,27 @@ def make_train_step(cfg: Config, rescale_method: str = "default") -> Callable:
     forward and backward on each in order (the batch-norm statistics update
     per microbatch, the dropout generator advances), and applies ONE update
     with the mean of their fp32 gradients; the loss is the mean of the
-    microbatch losses."""
+    microbatch losses.
+
+    Under data parallel (a process group initialised, parallel/mesh.py)
+    ``batch`` holds this rank's rows of the global batch: each rank weighs
+    its loss by its share of the global rows, the gradients and the loss are
+    summed over the ranks in one all-reduce before Adam, and the batch norms
+    take the global batch's statistics; so every rank makes the update of
+    the global batch's mean loss, and the returned loss is that loss."""
     criterion = get_loss(cfg)
     s = cfg.scale_by
     k = max(1, int(getattr(cfg, "accum_steps", 1) or 1))
 
-    def forward_backward(model, masters, x, y, dates, generator):
+    def forward_backward(model, masters, x, y, dates, generator, weight=None):
         params, xc = _cast_for_forward(cfg, model, x)
         out = functional_call(model, params, (xc,),
                               {"batch_positions": dates,
                                "dropout_generator": generator})
         mean, var = _split_out(out.float(), cfg)
         loss, variance = calc_loss(criterion, cfg, mean, y, var=var)
+        if weight is not None:  # this rank's share of the global mean loss
+            loss = loss * weight
         grads = list(torch.autograd.grad(loss, masters))
         variance = variance.detach() if variance is not None else None
         return loss.detach(), grads, mean.detach(), variance
@@ -281,13 +312,20 @@ def make_train_step(cfg: Config, rescale_method: str = "default") -> Callable:
         if B % k:
             raise ValueError(f"batch {B} not divisible by accum_steps {k}")
         m = B // k
+        weight = None
+        if mesh.active():
+            # data parallel: each rank's microbatch losses weigh by its share
+            # of the global rows, so that the summed gradient is the global
+            # mean loss's, an uneven split included
+            rows = mesh.all_reduce_sum(torch.full((1,), float(B), device=x.device))
+            weight = (B / k) / rows
         grads: List[torch.Tensor] = []
         losses, means, variances = [], [], []
         for i in range(k):  # one microbatch unless accumulating
             sl = slice(i * m, (i + 1) * m)
             l_i, g_i, mean_i, var_i = forward_backward(
                 model, masters, x[sl], y[sl], None if dates is None else dates[sl],
-                generator)
+                generator, weight)
             if grads:
                 torch._foreach_add_(grads, g_i)
             else:
@@ -295,8 +333,15 @@ def make_train_step(cfg: Config, rescale_method: str = "default") -> Callable:
             losses.append(l_i)
             means.append(mean_i)
             variances.append(var_i)
-        torch._foreach_div_(grads, float(k))
-        loss = torch.stack(losses).mean()
+        if weight is None:
+            torch._foreach_div_(grads, float(k))
+            loss = torch.stack(losses).mean()
+        else:  # one all-reduce of the flattened gradients and the loss
+            flat = mesh.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]
+                                                 + [torch.stack(losses).sum().reshape(1)]))
+            grads = [f.view_as(g) for f, g in zip(flat[:-1].split([g.numel() for g in grads]),
+                                                  grads)]
+            loss = flat[-1]
         mean = torch.cat(means)
         variance = None if variances[0] is None else torch.cat(variances)
 

@@ -20,10 +20,13 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from uncrtaints_tpu_torch.config import Config
 from uncrtaints_tpu_torch.metrics import (
     AvgImgMetrics, compute_ece, compute_uce_auce, img_metrics_batch)
+from uncrtaints_tpu_torch.parallel.mesh import (
+    Mesh, active, current_mesh, row_split, shard_batch)
 from uncrtaints_tpu_torch.train.engine import batch_to_device
 from uncrtaints_tpu_torch.train.observe import (
     Writer, diag_to_covar, export, plot_discard, plot_err_vs_var, plot_img, plot_mask,
@@ -103,9 +106,45 @@ def log_train(writer: Writer, cfg: Config, step: int, batch: Dict,
         log_aleatoric(writer, cfg, "train", step, var)
 
 
-def _device_batches(loader, device: torch.device, prefetch: bool
+def _with_rows(loader, train: bool) -> Iterator[Dict]:
+    """The loader's batches, each with ``"_rows"``: the epoch positions of its
+    rows in the global sample order, i.e. the sample ids of the plot and
+    export files.
+
+    A loader sharded over data-parallel ranks (``BatchLoader(shard=(rank,
+    world))``) yields this rank's strided rows of each global batch, and
+    last the global tail, the same on every rank (``"_replicated_tail"``):
+    that one is split here, each rank keeping its :func:`row_split`. A train
+    tail too short to give every rank a row is skipped on every rank (the
+    global batch norm and the gradient all-reduce need every rank in each
+    step); an eval rank left without rows skips the step."""
+    shard = getattr(loader, "shard", None)
+    done = 0  # global rows of the batches before this one
+    for batch in loader:
+        tail = batch.pop("_replicated_tail", False)
+        n = len(batch["y"] if "y" in batch else batch["y_dn"])
+        if shard is None:
+            batch["_rows"] = done + np.arange(n)
+        elif tail:
+            rank, world = shard
+            if train and n < world:
+                print(f"[loop] a train tail of {n} samples cannot give each of {world} "
+                      "ranks a row: skipped on every rank")
+                return
+            off, cnt = row_split(n, rank, world)
+            batch = shard_batch(batch, Mesh(rank, world))
+            batch["_rows"] = done + off + np.arange(cnt)
+        else:
+            rank, world = shard
+            batch["_rows"] = done + rank + world * np.arange(n)
+            n *= world
+        done += n
+        yield batch
+
+
+def _device_batches(loader, device: torch.device, prefetch: bool, train: bool = False
                     ) -> Iterator[Tuple[Dict, Dict]]:
-    """Yield (host batch, device batch) over ``loader``.
+    """Yield (host batch, device batch) over ``loader`` (:func:`_with_rows`).
 
     With ``prefetch`` on a CUDA device each batch is staged in pinned memory
     and copied with ``non_blocking`` on a side stream. The consumer launches
@@ -116,17 +155,16 @@ def _device_batches(loader, device: torch.device, prefetch: bool
     reads it. Otherwise each batch is copied on the consumer's stream from
     pageable memory, which makes the host wait for the stream at every batch
     (the plain version: the GPU check holds the prefetch against it)."""
+    host_only = lambda b: {k: v for k, v in b.items() if k != "_rows"}
     if not (prefetch and device.type == "cuda"):
-        for batch in loader:
-            batch.pop("_replicated_tail", None)
-            yield batch, batch_to_device(batch, device)
+        for batch in _with_rows(loader, train):
+            yield batch, batch_to_device(host_only(batch), device)
         return
 
     side = torch.cuda.Stream(device)
-    for batch in loader:
-        batch.pop("_replicated_tail", None)
+    for batch in _with_rows(loader, train):
         with torch.cuda.stream(side):
-            dev = batch_to_device(batch, device, non_blocking=True)
+            dev = batch_to_device(host_only(batch), device, non_blocking=True)
         copied = torch.cuda.Event()
         copied.record(side)
         stream = torch.cuda.current_stream(device)
@@ -141,11 +179,26 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def step_seed(cfg: Config, step: int) -> int:
-    """The dropout generator's seed for global step ``step``: a function of
-    (cfg.rdm_seed, step) alone, so a resumed run draws what an uninterrupted
-    one would."""
-    return (cfg.rdm_seed * 1_000_003 + step) % (2 ** 63)
+def step_seed(cfg: Config, step: int, rank: int = 0) -> int:
+    """The dropout generator's seed for global step ``step`` on data-parallel
+    rank ``rank``: a function of (cfg.rdm_seed, step, rank) alone, so a
+    resumed run draws what an uninterrupted one would, and ranks draw apart."""
+    return (cfg.rdm_seed * 1_000_003 + step + rank * 2 ** 40) % (2 ** 63)
+
+
+def _gather_eval(losses: np.ndarray, counts: np.ndarray, rows: np.ndarray,
+                 positions: np.ndarray, keys):
+    """Every rank's eval results on every rank: the per-step losses as the
+    global batch's (each rank's mean weighed by its rows), and the metric rows
+    of all ranks in the global sample order."""
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, (losses * counts, counts, rows, positions, list(keys)))
+    wsum = sum(g[0] for g in gathered)
+    n = sum(g[1] for g in gathered)
+    keys = next((g[4] for g in gathered if g[4]), [])
+    rows = np.concatenate([g[2] for g in gathered if g[4]], axis=1) if keys else rows
+    pos = np.concatenate([g[3] for g in gathered if g[4]]) if keys else positions
+    return wsum / n, rows[:, np.argsort(pos, kind="stable")], keys
 
 
 def iterate(state, loader, cfg: Config, writer: Optional[Writer],
@@ -166,6 +219,12 @@ def iterate(state, loader, cfg: Config, writer: Optional[Writer],
     device = next(state.model.parameters()).device
     if mode == "train" and generator is None:
         generator = torch.Generator(device=device)
+    here = current_mesh()
+    gather = active() and mode != "train"
+    if active() and getattr(loader, "shard", None) != (here.rank, here.size):
+        raise ValueError(f"iterate: a data-parallel run needs a loader sharded as "
+                         f"(rank, world) = {(here.rank, here.size)}, got "
+                         f"{getattr(loader, 'shard', None)}")
 
     img_meter = AvgImgMetrics()
     losses = []
@@ -174,11 +233,14 @@ def iterate(state, loader, cfg: Config, writer: Optional[Writer],
     n_seen = 0
 
     t_start = time.time()
-    for i, (batch, dev) in enumerate(_device_batches(loader, device, prefetch)):
+    counts, positions = [], []  # per eval step: this rank's rows and their ids
+    for i, (batch, dev) in enumerate(_device_batches(loader, device, prefetch,
+                                                     mode == "train")):
         step = (epoch - 1) * len(loader) + i
+        rows = batch.pop("_rows")
 
         if mode == "train":
-            generator.manual_seed(step_seed(cfg, step))
+            generator.manual_seed(step_seed(cfg, step, here.rank))
             state, aux = train_step(state, dev, generator)
             # the loss stays on the device: a float() here would make the
             # host wait for every step; it is fetched at the display cadence
@@ -189,10 +251,16 @@ def iterate(state, loader, cfg: Config, writer: Optional[Writer],
                 var = _host(aux["var"]) if "var" in aux else None
                 log_train(writer, cfg, step, batch, pred, float(loss), var=var)
         else:
+            if len(rows) == 0:  # a data-parallel rank without rows of the tail
+                losses.append(torch.zeros((), device=device))
+                counts.append(0)
+                continue
             aux = eval_step(state.model, dev)
             loss = aux["loss"]  # stays on the device (fetched at epoch end)
             y = batch["y"]
             B = y.shape[0]
+            counts.append(B)
+            positions.append(rows)
             bm = aux.get("metrics")
             if bm is None:  # a step built without with_metrics
                 has_var = cfg.loss in ("GNLL", "MGNLL") and "var" in aux
@@ -201,10 +269,12 @@ def iterate(state, loader, cfg: Config, writer: Optional[Writer],
             deferred_bm.append(bm)
             pred = var = None  # host copies, made only where a sample is due
             for bdx in range(B):
-                # sequential sample id over the epoch: i * batch_size + bdx
-                # with a tail batch's own size would collide with earlier
-                # samples and overwrite their plot/export files
-                idx = n_seen + bdx
+                # the sample's position in the epoch's global order: i *
+                # batch_size + bdx with a tail batch's own size would collide
+                # with earlier samples and overwrite their plot/export files;
+                # under data parallel each id is written by the one rank
+                # that holds the row
+                idx = int(rows[bdx])
                 do_plot = cfg.plot_every > 0 and idx % cfg.plot_every == 0
                 do_export = cfg.export_every > 0 and idx % cfg.export_every == 0
                 if (do_plot or do_export) and pred is None:
@@ -248,12 +318,16 @@ def iterate(state, loader, cfg: Config, writer: Optional[Writer],
 
     # the epoch's scalars and metric vectors: stacked on the device, one copy
     keys = list(deferred_bm[0]) if deferred_bm else []
-    packed = [torch.stack(losses).float()]
+    packed = [torch.stack(losses).float()] if losses else []
     packed += [torch.cat([bm[k] for bm in deferred_bm]).float() for k in keys]
-    host = torch.cat(packed).cpu().numpy()
+    host = torch.cat(packed).cpu().numpy() if packed else np.zeros(0, np.float32)
     losses, rows = host[:len(losses)], host[len(losses):].reshape(len(keys), n_seen)
+    if gather:  # every rank's rows, in the global order, on every rank
+        losses, rows, keys = _gather_eval(losses, np.asarray(counts, np.float64), rows,
+                                          np.concatenate(positions or [np.zeros(0, int)]),
+                                          keys)
     has_var_epoch = cfg.loss in ("GNLL", "MGNLL")
-    n_total = n_seen  # the sample count
+    n_total = rows.shape[1]  # the sample count
     for bdx in range(n_total):
         em = {k: float(rows[j, bdx]) for j, k in enumerate(keys)}
         if has_var_epoch and "mean var" in em:
