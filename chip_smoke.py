@@ -133,12 +133,35 @@ through the artifact against the live model, holds the NCCL run's train
 loss against this process's within 5e-3 and its test metrics against this
 process's ``cli.test`` of its checkpoint within 1e-6, and prints the loader
 rates of phases 6 and 7 with and without the native writers.
+Phase 1 also holds the halo modes of K5 (forward and folded adjoint), K2
+and K4 (a map that is one band of rows of a scene split over ranks, with
+its neighbours' edge rows) at the paper shapes split into 2 and 4 bands:
+each band against its plain version, the bands stitched against the
+whole-tensor kernel (K5's forward and K4 bit-equal, the adjoint with the
+halo gradients added back, K2's and K4's summed partials), and times each
+halo mode at 2 bands beside the whole-mode kernel on the same rows, its
+bound and the library composition (the halo rows, F.pad, cuDNN).
+Phase 10 runs the 2-D data x spatial mesh: ``torchrun --nproc_per_node 2``
+starts this script as two ranks of a 1 x 2 mesh (``--spatial-rank``; gloo,
+since the two ranks share the card and NCCL refuses that), each holding one
+band of 128 rows of the paper recipe's B=4, 256x256 batch. Their eval step
+(loss, pred, var, metrics), one train step (loss, a finite non-zero
+gradient for every parameter but those zero in exact arithmetic) and
+``predict_scene(mesh=)`` on a 512x512 scene are held against this process,
+and each rank's launches (1 K1 + 10 K3 + 5 K4 a forward, K4 in halo mode; 1
+K1 + 1 K1-bwd + 12 K5 + 6 K2 a train step, K5 and K2 in halo mode), its
+train-step peak memory and its collectives' host time are printed.
+Meanwhile this process runs ``cli.train --ckpt_backend orbax`` (asynchronous
+``.dcp`` checkpoints) for one epoch, resumed to two, and ``cli.test``, whose
+metrics must equal to the bit a ``cli.test`` of the same weights written
+as ``.pth.tar``; its train losses are held against phase 6's within 5e-3.
 Any failed check raises. The last line of stdout is the JSON result; the
 line before it lists the kernels. Without a CUDA device the script exits
 with an error and prints no result.
 """
 
 import collections
+import contextlib
 import importlib.util
 import json
 import math
@@ -670,7 +693,209 @@ def phase1_kernels(dev):
         k2_err = max(k2_err, err)
     out["dw_stencil"]["max_abs_err"] = k5_err
     out["dw_kernel_grad"]["max_abs_err"] = k2_err
+    halo = phase1_halo_modes(dev, randn)
+    for name, err in halo.items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     return out
+
+
+# the halo modes at the paper shapes, split into bands of rows: K5 and K2 at
+# the encoder's and the decoder's depthwise conv, K4 at the decoder's
+HALO_SPLITS = (2, 4)
+HALO_CASES = {"enc": (B * T, PATCH, PATCH, HIDDEN), "dec": (B, PATCH, PATCH, HIDDEN)}
+
+
+def _bands(x, n):
+    rows = x.shape[1] // n
+    return [x[:, i * rows:(i + 1) * rows].contiguous() for i in range(n)]
+
+
+def _halos(bands):
+    """(top, bot) of each band: the neighbours' edge rows, None at the edge."""
+    n = len(bands)
+    return [(bands[i - 1][:, -1:].contiguous() if i > 0 else None,
+             bands[i + 1][:, :1].contiguous() if i < n - 1 else None) for i in range(n)]
+
+
+def phase1_halo_modes(dev, randn):
+    """The halo modes of K5 (forward and folded adjoint), K2 and K4 at the
+    paper shapes split into 2 and 4 bands of rows: each band's launch
+    against its plain version; the bands stitched against the whole-tensor
+    kernel (K5's forward and K4's output bit-equal, the adjoint with the
+    halo gradients added back to the rows they came from within two bf16
+    ulps (two roundings where the whole kernel has one), K2's and K4's
+    summed partials within 1e-5 relative); and, at 2 bands, each halo
+    mode's time against the whole-mode kernel on the same band rows, its
+    byte bound and the library composition it replaces (the halo rows
+    concatenated, F.pad, cuDNN). Returns each kernel's largest error
+    against its plain version."""
+    from uncrtaints_tpu_torch.ops import dwconv, dwgrad, mbconv
+    Fn = torch.nn.functional
+    err = {"dw_stencil": 0.0, "dw_kernel_grad": 0.0, "norm_gelu_dwconv3x3": 0.0}
+    ulp = 2 ** -7
+    for case, (N, H, W, C) in HALO_CASES.items():
+        x = randn(N, H, W, C).bfloat16()
+        w = (randn(C, 1, 3, 3) * 0.3).bfloat16()
+        gy = randn(N, H, W, C).bfloat16()
+        whole = dwconv.dw_stencil(x, w, ONE, "reflect")
+        whole_gx = dwconv.dw_stencil_reflect_adjoint(gy, w)
+        whole_gw = dwgrad.dw_kernel_grad(x, gy, ONE, 3, 3, "reflect")
+        scale = dwgrad.dw_kernel_grad_plain(x.abs(), gy.abs(), ONE, 3, 3, "reflect")
+        for n in HALO_SPLITS:
+            rows = H // n
+            xb, gb = _bands(x, n), _bands(gy, n)
+            hb = _halos(xb)
+            n0 = dwconv.dw_stencil.halo_launches
+            fwd = [dwconv.dw_stencil(b, w, ONE, "reflect", halo=h) for b, h in zip(xb, hb)]
+            adj = [dwconv.dw_stencil_reflect_adjoint(g, w, halo=(i > 0, i < n - 1))
+                   for i, g in enumerate(gb)]
+            gws = [dwgrad.dw_kernel_grad(b, g, ONE, 3, 3, "reflect", halo=h)
+                   for b, g, h in zip(xb, gb, hb)]
+            torch.cuda.synchronize()
+            check(dwconv.dw_stencil.halo_launches - n0 == 2 * n,
+                  f"K5 halo {case}/{n}: {dwconv.dw_stencil.halo_launches - n0} halo launches")
+            e_f = e_a = e_g = 0.0
+            for i, (b, g, h) in enumerate(zip(xb, gb, hb)):
+                ref = dwconv.dw_stencil_halo_plain(b, w, *h)
+                top = float(ref.float().abs().max())
+                e = float((fwd[i].float() - ref.float()).abs().max())
+                check(e <= ulp * top, f"K5 halo {case}/{n} band {i}: {e} from its plain version")
+                e_f = max(e_f, e)
+                rgx, rgt, rgb = dwconv.dw_stencil_halo_adjoint_plain(g, w, i > 0, i < n - 1)
+                for got, want in ((adj[i][0], rgx), (adj[i][1], rgt), (adj[i][2], rgb)):
+                    if got is None:
+                        continue
+                    e = float((got.float() - want.float()).abs().max())
+                    check(e <= ulp * float(want.float().abs().max()),
+                          f"K5 halo adjoint {case}/{n} band {i}: {e} from its plain version")
+                    e_a = max(e_a, e)
+                rgw = dwgrad.dw_kernel_grad_halo_plain(b, g, *h)
+                e = float(((gws[i] - rgw).abs() / scale).max())
+                check(e <= 1e-4, f"K2 halo {case}/{n} band {i}: rel {e} from its plain version")
+                e_g = max(e_g, float((gws[i] - rgw).abs().max()))
+            stitched = torch.cat(fwd, 1)
+            check(torch.equal(stitched, whole), f"K5 halo {case}/{n}: the bands differ from "
+                  f"the whole kernel by {float((stitched.float() - whole.float()).abs().max())}")
+            gx = torch.cat([a[0] for a in adj], 1).float()
+            for i, (_, gt, gbot) in enumerate(adj):
+                if gt is not None:
+                    gx[:, i * rows - 1] += gt[:, 0].float()
+                if gbot is not None:
+                    gx[:, (i + 1) * rows] += gbot[:, 0].float()
+            ea = float((gx - whole_gx.float()).abs().max())
+            check(ea <= 2 * ulp * float(whole_gx.float().abs().max()),
+                  f"K5 halo adjoint {case}/{n}: stitched {ea} from the whole kernel")
+            eg = float(((sum(gws) - whole_gw).abs() / scale).max())
+            check(eg <= 1e-5, f"K2 halo {case}/{n}: summed partials rel {eg}")
+            print(f"K5/K2 halo modes {case} [{N},{H},{W},{C}] in {n} bands of {rows} rows: "
+                  f"against the plain versions max_abs_err fwd {e_f:.3g}, adjoint {e_a:.3g}, "
+                  f"K2 {e_g:.3g}; stitched forward bit-equal to the whole kernel; adjoint with "
+                  f"the halo gradients added back {ea:.3g} (tol two bf16 ulps); K2 summed "
+                  f"partials rel {eg:.3g} (tol 1e-5)")
+            err["dw_stencil"] = max(err["dw_stencil"], e_f, e_a)
+            err["dw_kernel_grad"] = max(err["dw_kernel_grad"], e_g)
+            if n != 2:
+                continue
+            # time the middle-less band 0 of 2 (one neighbour below) against
+            # the whole-mode kernel on the same rows and the library composition
+            b, h, g = xb[0], hb[0], gb[0]
+            wc = w.contiguous()
+            t_halo = time_kernel(lambda: dwconv.dw_stencil(b, w, ONE, "reflect", halo=h))
+            t_plain = time_ms(lambda: dwconv.dw_stencil_halo_plain(b, w, *h), runs=7)
+            t_whole = time_kernel(lambda: dwconv.dw_stencil(b, w, ONE, "reflect"))
+
+            def lib_fwd():  # the halo rows, the reflect pad, cuDNN
+                xe = torch.cat([b[:, 1:2], b, h[1]], 1)
+                xp = Fn.pad(xe.unsqueeze(1), (0, 0, 1, 1, 0, 0), mode="reflect").squeeze(1)
+                return Fn.conv2d(xp.permute(0, 3, 1, 2), wc, groups=C)
+
+            t_lib = time_kernel(lib_fwd)
+            lerr = float((lib_fwd().permute(0, 2, 3, 1).float() - fwd[0].float()).abs().max())
+            check(lerr <= 4 * ulp * float(fwd[0].float().abs().max()),
+                  f"K5 halo {case}: the library composition computes another function")
+            bms, by = bound(nbytes(b, w, h[1], fwd[0]), (2 * 9 * b.numel(), PEAK_FP32))
+            t_adj = time_kernel(lambda: dwconv.dw_stencil_reflect_adjoint(g, w, halo=(False, True)))
+            t_adj_whole = time_kernel(lambda: dwconv.dw_stencil_reflect_adjoint(g, w))
+            t_adj_plain = time_ms(lambda: dwconv.dw_stencil_halo_adjoint_plain(g, w, False, True),
+                                  runs=7)
+            abms, _ = bound(nbytes(g, w, g, adj[0][2]), (2 * 9 * g.numel(), PEAK_FP32))
+            t_gw = time_kernel(lambda: dwgrad.dw_kernel_grad(b, g, ONE, 3, 3, "reflect", halo=h))
+            t_gw_whole = time_kernel(lambda: dwgrad.dw_kernel_grad(b, g, ONE, 3, 3, "reflect"))
+            t_gw_plain = time_ms(lambda: dwgrad.dw_kernel_grad_halo_plain(b, g, *h), runs=7)
+            gc = g.permute(0, 3, 1, 2)
+
+            def lib_gw():
+                xe = torch.cat([b[:, 1:2], b, h[1]], 1)
+                xp = Fn.pad(xe.unsqueeze(1), (0, 0, 1, 1, 0, 0), mode="reflect").squeeze(1)
+                return torch.nn.grad.conv2d_weight(xp.permute(0, 3, 1, 2), (C, 1, 3, 3), gc,
+                                                   groups=C)
+
+            t_gw_lib = time_kernel(lib_gw)
+            gbms, _ = bound(nbytes(b, g, h[1], gws[0]), (2 * 9 * g.numel(), PEAK_FP32))
+            print(f"  halo timing, band 0 of 2 {list(b.shape)} bf16: K5 fwd {t_halo:.4f} ms "
+                  f"(whole-mode kernel on the band {t_whole:.4f}, plain {t_plain:.4f}, bound "
+                  f"{bms:.4f} ({by}), halo concat + reflect F.pad + cuDNN {t_lib:.4f}); K5 "
+                  f"adjoint {t_adj:.4f} (whole-mode {t_adj_whole:.4f}, plain {t_adj_plain:.4f}, "
+                  f"bound {abms:.4f}); K2 {t_gw:.4f} (whole-mode {t_gw_whole:.4f}, plain "
+                  f"{t_gw_plain:.4f}, bound {gbms:.4f}, halo concat + F.pad + cuDNN weight "
+                  f"gradient {t_gw_lib:.4f})")
+
+    # ---- K4 at the decoder's fused block (batch-norm form, the pooled sum)
+    N, H, W, C = HALO_CASES["dec"]
+    x = randn(N, H, W, C).bfloat16()
+    zero, one = torch.zeros(N, 1, device=dev), torch.ones(N, 1, device=dev)
+    args = (zero, one, randn(C), randn(C), randn(3, 3, C) * 0.3)
+    pa = (randn(C), randn(C))
+    kw = dict(groups_in=1, groups_out=1, do_stats=False, pool_affine=pa)
+    whole = mbconv.norm_gelu_dwconv3x3(x, *args, **kw)
+    for n in HALO_SPLITS:
+        xb = _bands(x, n)
+        hb = _halos(xb)
+        n0 = mbconv.norm_gelu_dwconv3x3.halo_launches
+        parts = [mbconv.norm_gelu_dwconv3x3(b, *args, halo=h, **kw) for b, h in zip(xb, hb)]
+        torch.cuda.synchronize()
+        check(mbconv.norm_gelu_dwconv3x3.halo_launches - n0 == n, f"K4 halo {n}: launches")
+        e4 = 0.0
+        for i, (b, h) in enumerate(zip(xb, hb)):
+            ref = mbconv.norm_gelu_dwconv3x3_plain(b, *args, halo=h, **kw)
+            e = float((parts[i][0].float() - ref[0].float()).abs().max())
+            check(e <= ulp * float(ref[0].float().abs().max()),
+                  f"K4 halo {n} band {i}: {e} from its plain version")
+            e4 = max(e4, e)
+        stitched = torch.cat([p[0] for p in parts], 1)
+        check(torch.equal(stitched, whole[0]), f"K4 halo {n}: the bands differ from the whole "
+              f"kernel by {float((stitched.float() - whole[0].float()).abs().max())}")
+        act = torch.nn.functional.gelu(whole[0].float() * pa[0] + pa[1]).abs().sum(dim=(1, 2))
+        ep = float(((sum(p[3] for p in parts) - whole[3]).abs() / act).max())
+        check(ep <= 1e-5, f"K4 halo {n}: summed pooled partials rel {ep}")
+        print(f"K4 halo mode [{N},{H},{W},{C}] in {n} bands: against the plain version "
+              f"max_abs_err {e4:.3g}; stitched bit-equal to the whole kernel; pooled partial "
+              f"sums rel {ep:.3g} (tol 1e-5)")
+        err["norm_gelu_dwconv3x3"] = max(err["norm_gelu_dwconv3x3"], e4)
+        if n != 2:
+            continue
+        b, h = xb[0], hb[0]
+        t_halo = time_kernel(lambda: mbconv.norm_gelu_dwconv3x3(b, *args, halo=h, **kw))
+        t_whole = time_kernel(lambda: mbconv.norm_gelu_dwconv3x3(b, *args, **kw))
+        t_plain = time_ms(lambda: mbconv.norm_gelu_dwconv3x3_plain(b, *args, halo=h, **kw),
+                          runs=7)
+        wc = args[4].permute(2, 0, 1)[:, None].contiguous().bfloat16()
+        scb, bib = args[2].bfloat16(), args[3].bfloat16()
+
+        def lib_k4():  # GELU, the halo rows, the reflect pad, cuDNN
+            xe = torch.cat([b[:, 1:2], b, h[1]], 1)
+            he = Fn.gelu(xe * scb + bib)
+            hp = Fn.pad(he.unsqueeze(1), (0, 0, 1, 1, 0, 0), mode="reflect").squeeze(1)
+            return Fn.conv2d(hp.permute(0, 3, 1, 2), wc, groups=C)
+
+        t_lib = time_kernel(lib_k4)
+        ops = (4 + GELU_OPS + 18 + 3 + GELU_OPS) * b.numel()
+        bms, by = bound(nbytes(b, h[1], *args, parts[0][0], *pa, parts[0][3]), (ops, PEAK_FP32),
+                        (2 * GELU_SFU * b.numel(), PEAK_SFU))
+        print(f"  halo timing, band 0 of 2 {list(b.shape)} bf16: K4 {t_halo:.4f} ms (whole-mode "
+              f"kernel on the band {t_whole:.4f}, plain {t_plain:.4f}, bound {bms:.4f} ({by}), "
+              f"GELU + halo concat + reflect F.pad + cuDNN {t_lib:.4f})")
+    return err
 
 
 def seeded_model(cfg, dev):
@@ -2133,7 +2358,378 @@ def phase9_modules(dev, tmp, native):
     return {k: one[k] + run_counts[k] + test_counts[k] for k in one}
 
 
+# phase 10: the 2-D data x spatial mesh, two ranks on one card
+SPATIAL = 2
+SCENE_2D = 2 * PATCH
+
+
+def _spatial_inputs():
+    """The paper-recipe batch and the scene both sides of phase 10 run (numpy)."""
+    from uncrtaints_tpu_torch.data import SyntheticSEN12MSCRTS, collate_multi
+    ds = SyntheticSEN12MSCRTS(n_samples=B, n_input_t=T, patch_size=PATCH, seed=SEED + 11)
+    batch = collate_multi([ds[j] for j in range(B)])
+    sc = collate_multi([SyntheticSEN12MSCRTS(n_samples=1, n_input_t=T, patch_size=SCENE_2D,
+                                             seed=SEED + 12)[0]])
+    return batch, (sc["x"][0], sc["dates"][0])
+
+
+def _phase10_steps(dev, batch, scene, mesh=None, timing=None):
+    """The eval step, predict_scene and two train steps of the seeded paper
+    recipe on ``batch`` (this rank's band under ``mesh``): outputs, the
+    launches of each, the first train step's loss and gradients, and the
+    second step's peak device memory. ``timing``, a context manager that
+    yields a dict, times one more eval and train step with the collectives'
+    host time collected in that dict."""
+    from uncrtaints_tpu_torch.config import Config, derive
+    from uncrtaints_tpu_torch.infer import predict_scene
+    from uncrtaints_tpu_torch.train import (batch_to_device, create_train_state,
+                                            make_eval_step, make_train_step)
+    cfg = derive(Config(use_sar=True, scale_by=10.0))
+    kernels = kernel_wrappers()
+    halo = {k: f for k, f in kernels.items() if k in ("K5", "K2", "K4")}
+
+    def counted(fn):
+        for f in kernels.values():
+            f.launches = 0
+        for f in halo.values():
+            f.halo_launches = 0
+        r = fn()
+        torch.cuda.synchronize()
+        return r, {k: f.launches for k, f in kernels.items()}, {
+            k: f.halo_launches for k, f in halo.items()}
+
+    b = batch_to_device(batch, dev)
+    model = seeded_model(cfg, dev)
+    step = make_eval_step(cfg, with_metrics=True)
+    step(model, b)  # warm-up
+    res = {}
+    aux, res["eval counts"], res["eval halo"] = counted(lambda: step(model, b))
+    res["eval"] = {"loss": float(aux["loss"]), "pred": aux["pred"].float().cpu(),
+                   "var": aux["var"].float().cpu(),
+                   "metrics": {k: v.cpu() for k, v in aux["metrics"].items()}}
+    kw = dict(tile=PATCH, overlap=64, batch_size=B)
+    sc, res["scene counts"], _ = counted(lambda: predict_scene(model, cfg, *scene, mesh=mesh,
+                                                               **kw))
+    res["scene"] = sc
+    state = create_train_state(cfg, model)
+    tstep = make_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4 + (mesh.rank if mesh else 0))
+    (state, aux), res["train counts"], res["train halo"] = counted(
+        lambda: tstep(state, b, gen))
+    res["train loss"] = float(aux["loss"])
+    res["grads"] = {n: (bool(torch.isfinite(g).all()), float(g.abs().max()))
+                    for n, g in aux["grads"].items()}
+    res["zero ok"] = sorted(exact_zero_gradients(model))
+    torch.cuda.reset_peak_memory_stats(dev)
+    tstep(state, b, gen)
+    torch.cuda.synchronize()
+    res["peak"] = torch.cuda.max_memory_allocated(dev)
+    if timing is not None:
+        from torch.profiler import ProfilerActivity, profile
+        for name, fn in (("eval", lambda: step(model, b)),
+                         ("train", lambda: tstep(state, b, gen))):
+            with timing() as timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                res[f"{name} collectives"] = (dict(timed), (time.perf_counter() - t0) * 1e3)
+            # the device's side of the collectives: gloo moves a CUDA tensor
+            # through the host, so its share is the step's host <-> device copies
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kinds, _, _ = device_time_by_kind(prof, (("copies", ("Memcpy",)),
+                                                     ("nccl", ("nccl", "NCCL"))))
+            res[f"{name} device"] = (sum(t for t, _ in kinds.values()),
+                                     kinds.get("copies", (0.0, 0)), kinds.get("nccl", (0.0, 0)))
+    for name, fn in (("eval", lambda: step(model, b)), ("train", lambda: tstep(state, b, gen))):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res[f"{name} ms"] = statistics.median(times)
+    return res
+
+
+def spatial_rank(out_dir, n_data, n_spatial):
+    """One rank of an n_data x n_spatial mesh (phase 10, started by
+    torchrun): NCCL with a card a rank, else gloo (ranks sharing a card:
+    NCCL refuses that), this rank's samples and band of the batch, the steps
+    of :func:`_phase10_steps`; written to ``rank<r>.pt`` under ``out_dir``."""
+    from uncrtaints_tpu_torch.parallel import mesh as mesh_mod
+    from uncrtaints_tpu_torch.parallel import make_mesh_2d, maybe_init_distributed, shard_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = int(os.environ["WORLD_SIZE"])
+    backend = "gloo" if torch.cuda.device_count() < world else None
+    rank, world = maybe_init_distributed("cuda", backend=backend)
+    try:
+        m = make_mesh_2d(n_data, n_spatial)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        batch, scene = _spatial_inputs()
+
+        @contextlib.contextmanager
+        def timing():
+            """The collectives' host time (each synchronized before and after,
+            so it holds the device's wait for them) while the block runs."""
+            timed, saved = {}, (mesh_mod._gather, mesh_mod.all_reduce_sum)
+
+            def timer(name, fn):
+                def run(*a, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    r = fn(*a, **k)
+                    torch.cuda.synchronize()
+                    n, ms = timed.get(name, (0, 0.0))
+                    timed[name] = (n + 1, ms + (time.perf_counter() - t0) * 1e3)
+                    return r
+                return run
+
+            mesh_mod._gather = timer("halo all_gather", saved[0])
+            mesh_mod.all_reduce_sum = timer("all_reduce", saved[1])
+            try:
+                yield timed
+            finally:
+                mesh_mod._gather, mesh_mod.all_reduce_sum = saved
+
+        res = _phase10_steps(dev, shard_batch(batch, m), scene, mesh=m, timing=timing)
+        res["coords"] = (m.data_rank, m.spatial_rank)
+        res["backend"] = torch.distributed.get_backend()
+        if rank:
+            res.pop("scene")  # the same on every rank: rank 0's is held
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _phase10_orbax(tmp):
+    """``cli.train --ckpt_backend orbax`` for one epoch, resumed to two from
+    its ``.dcp``, and ``cli.test``; then the same weights written as
+    ``.pth.tar`` and tested again. Returns the launches of the chain."""
+    import contextlib
+    import io
+    import shutil
+    from uncrtaints_tpu_torch.cli import test as cli_test, train as cli_train
+    from uncrtaints_tpu_torch.config import Config, apply_resume, derive
+    from uncrtaints_tpu_torch.models import get_generator
+    from uncrtaints_tpu_torch.train import create_train_state
+    from uncrtaints_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    kernels = kernel_wrappers()
+    res = os.path.join(tmp, "results")  # phase 6's, whose "smoke" run is the yardstick
+    exp = os.path.join(res, "orbax")
+
+    def recipe(**kw):  # phase 6's recipe
+        return derive(Config(
+            use_sar=True, scale_by=10.0, gamma=0.8, synthetic_data=True, synthetic_patch=PATCH,
+            batch_size=B, input_t=T, max_samples_count=8, num_workers=4, plot_every=-1,
+            export_every=-1, res_dir=res, experiment_name="orbax", ckpt_backend="orbax", **kw))
+
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_train.main(recipe(epochs=1))
+        ckpt1 = os.path.join(exp, "model_epoch_1.dcp")
+        second = cli_train.main(apply_resume(recipe(epochs=2, resume_from=True,
+                                                    trained_checkp=ckpt1, resume_at=1)))
+        argv = ["--weight_folder", res, "--max_samples_count", "8", "--batch_size", str(B),
+                "--input_t", str(T), "--num_workers", "4", "--export_every", "-1"]
+        dcp_test = cli_test.main(cli_test.load_test_config(
+            ["--experiment_name", "orbax", "--res_dir", os.path.join(tmp, "orbax_test"), *argv]))
+        # the same weights as a .pth.tar under another name, tested again
+        cfg = recipe(epochs=2)
+        state, _ = load_checkpoint(cfg, res, create_train_state(cfg, get_generator(cfg)),
+                                   "model")
+        twin = os.path.join(res, "orbax_pth")
+        os.makedirs(twin, exist_ok=True)
+        shutil.copyfile(os.path.join(exp, "conf.json"), os.path.join(twin, "conf.json"))
+        save_checkpoint(cfg.replace(experiment_name="orbax_pth", ckpt_backend="msgpack"), 2,
+                        state, "model", cfg.lr)
+        pth_test = cli_test.main(cli_test.load_test_config(
+            ["--experiment_name", "orbax_pth", "--res_dir", os.path.join(tmp, "orbax_pth_test"),
+             *argv]))
+    chain_s = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in kernels.items()}
+    have = sorted(os.listdir(exp))
+    dirs = ["model.dcp", "model_epoch_1.dcp", "model_epoch_2.dcp"]
+    check(all(os.path.isdir(os.path.join(exp, d)) for d in dirs)
+          and not any(".tmp" in f or ".prev" in f for f in have)
+          and not any(f.endswith(".pth.tar") for f in have),
+          f"the orbax run's directory holds {have}")
+    with open(os.path.join(res, "smoke", "trainlog.json")) as f:
+        ref = json.load(f)
+    with open(os.path.join(exp, "trainlog.json")) as f:
+        got = json.load(f)
+    # a resumed run's trainlog.json holds the epochs it ran: epoch 2 on both sides
+    gaps = {e: _relgap(got[e]["train_loss"], ref[e]["train_loss"]) for e in sorted(set(got)
+                                                                                   & set(ref))}
+    check(gaps, f"no common epoch in the trainlogs: {sorted(got)}, {sorted(ref)}")
+    want = chain_launches(4, 12)  # 2 x 2 train steps; val + test a run, two cli.test
+    print(f"phase 10: cli.train --ckpt_backend orbax (1 epoch), resumed from "
+          f"model_epoch_1.dcp to 2, cli.test on model.dcp, and cli.test of the same weights "
+          f"as model.pth.tar: {chain_s:.1f} s, launches {counts}; files {have}; train losses "
+          f"against phase 6's .pth.tar run, relative gaps {gaps} (<= 5e-3); test metrics "
+          f".dcp vs .pth.tar bit-equal {dcp_test == pth_test}")
+    check(counts == want, f"the orbax chain launched {counts}, expected {want}")
+    check(all(g <= 5e-3 for g in gaps.values()), f"orbax run's train losses {gaps}")
+    check(dcp_test == pth_test, f"cli.test of model.dcp {dcp_test} and of the same weights "
+                                f"as .pth.tar {pth_test} differ")
+    check(dcp_test == {k: v for k, v in second["test"].items()},
+          "cli.test of model.dcp differs from the train run's final test")
+    return counts
+
+
+def start_spatial_ranks(out, n_data, n_spatial):
+    """``torchrun`` of this script's :func:`spatial_rank` as the ranks of an
+    n_data x n_spatial mesh, writing into ``out``; returns the process."""
+    import socket
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run",
+         f"--nproc_per_node={n_data * n_spatial}", "--master_addr=127.0.0.1",
+         f"--master_port={port}", os.path.join(here, "chip_smoke.py"), "--spatial-rank", out,
+         str(n_data), str(n_spatial)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_spatial_ranks(ranks, out, n_data, n_spatial):
+    """Wait for the ranks of :func:`start_spatial_ranks`; their results."""
+    try:
+        log, _ = ranks.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        ranks.kill()
+        log, _ = ranks.communicate()
+    check(ranks.returncode == 0, f"the spatial ranks failed (rc {ranks.returncode}):\n"
+                                 f"{log[-4000:]}")
+    got = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+           for r in range(n_data * n_spatial)]
+    check([g["coords"] for g in got] == [(d, s) for d in range(n_data) for s in range(n_spatial)],
+          "rank coordinates")
+    return got
+
+
+def spatial_report(one, got, batch, n_data, n_spatial, label):
+    """Hold the ranks' results ``got`` of an n_data x n_spatial mesh against
+    one process's ``one`` (both :func:`_phase10_steps`) and print them;
+    returns the launches of all of them."""
+    ns = n_spatial
+    groups = [got[d * ns:(d + 1) * ns] for d in range(n_data)]
+
+    # the eval step: the bands stitched, the data ranks' samples in order
+    e1 = one["eval"]
+    loss = [g["eval"]["loss"] for g in got]
+    lgap = _relgap(statistics.mean(g[0]["eval"]["loss"] for g in groups), e1["loss"])
+    sgap = max(_relgap(v["eval"]["loss"], g[0]["eval"]["loss"]) for g in groups for v in g)
+    top = float(batch["y"].max())
+    rmse = {}
+    for k in ("pred", "var"):
+        whole = torch.cat([torch.cat([v["eval"][k] for v in g], dim=2) for g in groups])
+        check(tuple(whole.shape) == tuple(e1[k].shape), f"stitched {k} {tuple(whole.shape)}")
+        rmse[k] = float((whole - e1[k]).square().mean().sqrt()) / top
+    # relative, or absolute below 1e-2 (the mean signed error is near 0)
+    mgap = 0.0
+    for k, ref in e1["metrics"].items():
+        for v in got:
+            mine = torch.cat([g[v["coords"][1]]["eval"]["metrics"][k] for g in groups])
+            mgap = max(mgap, float(((mine - ref).abs() / ref.abs().clamp(min=1e-2)).max()))
+    print(f"{label}: the {n_data} x {ns} mesh, bands of {PATCH // ns} rows, paper recipe bf16 "
+          f"B={len(e1['pred'])}: eval loss {loss} (the spatial groups agree to {sgap:.3g}); "
+          f"their mean against one process's {e1['loss']:.6f}: relative gap {lgap:.3g} "
+          f"(<= 1e-3); pred and var RMSE over max|y| {rmse} (<= 5e-3); metrics largest "
+          f"relative gap {mgap:.3g} (<= 1e-3)")
+    check(lgap <= 1e-3 and sgap <= 1e-6, f"spatial eval loss gap {lgap}, {sgap}")
+    check(all(v <= 5e-3 for v in rmse.values()), f"spatial eval pred/var {rmse}")
+    check(mgap <= 1e-3, f"spatial eval metrics gap {mgap}")
+
+    # launches: every rank runs the whole forward on its band, through the halo modes
+    fwd = {"K1": 1, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 10, "K4": 5}
+    trn = {"K1": 1, "K1-bwd": 1, "K5": 12, "K2": 6, "K3": 0, "K4": 0}
+    n_scene = -(-one["scene counts"]["K1"] // n_data)  # rounds of one batch a data rank
+    for r, g in enumerate(got):
+        print(f"  rank {r}: eval launches {g['eval counts']} (halo mode {g['eval halo']}), "
+              f"train step {g['train counts']} (halo mode {g['train halo']}), scene "
+              f"{g['scene counts']}")
+        check(g["eval counts"] == fwd and g["eval halo"] == {"K5": 0, "K2": 0, "K4": 5},
+              f"rank {r}'s eval forward launched {g['eval counts']} {g['eval halo']}")
+        check(g["train counts"] == trn and g["train halo"] == {"K5": 12, "K2": 6, "K4": 0},
+              f"rank {r}'s train step launched {g['train counts']} {g['train halo']}")
+        check(g["scene counts"] == {k: n_scene * v for k, v in fwd.items()},
+              f"rank {r}'s scene launched {g['scene counts']}")
+
+    # one train step
+    tgap = max(_relgap(g["train loss"], one["train loss"]) for g in got)
+    for r, g in enumerate(got):
+        bad = [n for n, (fin, mx) in g["grads"].items()
+               if not fin or (mx == 0 and n not in g["zero ok"])]
+        check(not bad, f"rank {r}: parameters without a finite non-zero gradient: {bad[:8]}")
+    print(f"  train step loss {[g['train loss'] for g in got]} against one process's "
+          f"{one['train loss']:.6f} (largest relative gap {tgap:.3g}, <= 5e-3); every gradient "
+          f"finite and non-zero but those zero in exact arithmetic")
+    check(tgap <= 5e-3, f"spatial train loss gap {tgap}")
+
+    # the scene, as the eval step: RMSE over the largest value (bf16: a single
+    # output one ulp apart is 4e-3-8e-3 of its value, so the largest gap is
+    # printed only)
+    diff = {k: got[0]["scene"][k] - one["scene"][k] for k in ("pred", "var")}
+    top = {k: float(np.abs(one["scene"][k]).max()) for k in diff}
+    srmse = {k: float(np.sqrt(np.mean(np.square(d)))) / top[k] for k, d in diff.items()}
+    smax = {k: float(np.abs(d).max()) / top[k] for k, d in diff.items()}
+    print(f"  predict_scene(mesh=) on a {SCENE_2D}x{SCENE_2D} scene ({n_scene} forwards a rank) "
+          f"against one process: RMSE over max {srmse} (<= 5e-3), largest gap over max {smax}")
+    check(all(v <= 5e-3 for v in srmse.values()), f"predict_scene on the mesh {srmse}")
+
+    # memory and time
+    gib = lambda b: b / 2 ** 30
+    print(f"  train-step peak device memory: ranks {[round(gib(g['peak']), 3) for g in got]} GiB "
+          f"against one process's {gib(one['peak']):.3f} GiB (ratios "
+          f"{[round(g['peak'] / one['peak'], 3) for g in got]})")
+    print(f"  one process: eval step {one['eval ms']:.2f} ms, train step {one['train ms']:.2f} "
+          f"ms (host clock, median of 3)")
+    for r, g in enumerate(got):
+        for name in ("eval", "train"):
+            calls, ms = g[f"{name} collectives"]
+            busy, (copy_ms, n_copy), (nccl_ms, n_nccl) = g[f"{name} device"]
+            print(f"  rank {r} ({g['backend']}) {name} step: {g[name + ' ms']:.2f} ms (host "
+                  f"clock, median of 3); with each collective synchronized {ms:.2f} ms, "
+                  f"collectives {calls} (calls, host ms); under the profiler the device is "
+                  f"busy {busy:.2f} ms, of it {copy_ms:.2f} ms in {n_copy} host <-> device "
+                  f"copies and {nccl_ms:.2f} ms in {n_nccl} NCCL kernels")
+    counts = lambda g: {k: g["eval counts"][k] + g["train counts"][k] + g["scene counts"][k]
+                        for k in fwd}
+    return {k: counts(one)[k] + sum(counts(g)[k] for g in got) for k in fwd}
+
+
+def phase10_spatial(dev, tmp):
+    """Two ranks of a 1 x 2 data x spatial mesh under torchrun (gloo on the
+    shared card) against this process; meanwhile the orbax-counterpart CLI
+    chain here. Returns the launches of the ranks' and this process's runs."""
+    out = os.path.join(tmp, "phase10")
+    ranks = start_spatial_ranks(out, 1, SPATIAL)
+    try:
+        batch, scene = _spatial_inputs()
+        one = _phase10_steps(dev, batch, scene)
+        orbax = _phase10_orbax(tmp)
+    finally:
+        got = finish_spatial_ranks(ranks, out, 1, SPATIAL)
+    counts = spatial_report(one, got, batch, 1, SPATIAL, "phase 10")
+    return {k: orbax[k] + n for k, n in counts.items()}
+
+
 def main():
+    if len(sys.argv) == 5 and sys.argv[1] == "--spatial-rank":
+        return spatial_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -2184,15 +2780,18 @@ def main():
         took("phase 8, the ensemble")
         modules = phase9_modules(dev, work, native)
         took("phase 9")
+        spatial = phase10_spatial(dev, work)
+        took("phase 10")
     print(f"launches by path: eval {evalc}; scene {scene}; train {train}; CLIs {cli}; "
           f"real data {real}; U-TAE {utae}; other families {families}; ensemble members "
-          f"{members}; export and the traced run {modules}")
+          f"{members}; export and the traced run {modules}; spatial mesh and orbax {spatial}")
 
     # launches: the sum over the paths' runs (eval, scene, train, the CLI
     # chain, the real-data CLIs, U-TAE's CLIs and bare steps, the other
     # families, the ensemble's members, one exported call and the traced
-    # run), each counted from 0 just before the path to just after it
-    paths = (evalc, scene, train, cli, real, utae, families, members, modules)
+    # run, the spatial ranks and the orbax chain), each counted from 0 just
+    # before the path to just after it
+    paths = (evalc, scene, train, cli, real, utae, families, members, modules, spatial)
     meta = {  # name: (source, the TPU kernel it replaces, its counter)
         "att_group_aggregate": ("aggregate.cu", "pallas_aggregate.py:268", "K1"),
         "att_group_aggregate_bwd": ("aggregate.cu", "pallas_aggregate.py:164", "K1-bwd"),

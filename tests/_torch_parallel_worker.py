@@ -7,7 +7,13 @@ WORLD_SIZE, MASTER_ADDR, MASTER_PORT):
 Jobs run in the order given. ``steps``: two train steps of the tiny recipe on two global batches of 5
 samples (this rank's rows of each) and an eval epoch of 5 samples through
 the loop; writes ``steps_rank<r>.pt``. ``cli``: ``cli.train`` for one epoch
-with its file writers counted; writes ``cli_rank<r>.pt``."""
+with its file writers counted; writes ``cli_rank<r>.pt``. ``spatial``: on a
+2 x (world / 2) data x spatial mesh, with the weights, batch and scene of
+``spatial_inputs.pt`` (written by ``tests/test_torch_spatial.py``): the halo
+exchange's gradient through K5's halo mode, the eval step (also with the
+attention pooled and upsampled), one train step, a ``.dcp`` checkpoint
+written by rank 0 and read by every rank, and ``predict_scene``; writes
+``spatial_rank<r>.pt``."""
 
 import os
 import sys
@@ -108,12 +114,72 @@ def job_cli(out_dir, rank, world):
     torch.save({"calls": calls, "test": out["test"]}, os.path.join(out_dir, f"cli_rank{rank}.pt"))
 
 
+def dcp_round_trip(cfg, state, rank):
+    """Rank 0 writes a ``.dcp`` checkpoint asynchronously inside the process
+    group, every rank reads it back: whether each rank's copy equals its
+    state."""
+    from uncrtaints_tpu_torch.parallel import barrier
+    from uncrtaints_tpu_torch.train.checkpoint import (load_checkpoint, save_checkpoint,
+                                                       wait_for_checkpoints)
+    if rank == 0:
+        save_checkpoint(cfg, 1, state, "model", cfg.lr)
+        wait_for_checkpoints()
+    barrier()
+    fresh, _ = load_checkpoint(cfg, cfg.res_dir, create_train_state(cfg, get_generator(cfg)),
+                               "model")
+    a, b = state.model.state_dict(), fresh.model.state_dict()
+    return all(torch.equal(a[k], b[k]) for k in a) and fresh.opt_state.count == 1
+
+
+def job_spatial(out_dir, rank, world):
+    from uncrtaints_tpu_torch.infer import predict_scene
+    from uncrtaints_tpu_torch.ops.dwconv import dw_stencil
+    from uncrtaints_tpu_torch.parallel import halo_exchange, make_mesh_2d
+    inp = torch.load(os.path.join(out_dir, "spatial_inputs.pt"), weights_only=False)
+    mesh = make_mesh_2d(2, world // 2)
+    s, ns = mesh.spatial_rank, mesh.n_spatial
+    res = {"coords": (mesh.data_rank, s)}
+
+    # the halo exchange's backward: this band's share of the whole conv's
+    # gradients (the test stitches and sums them)
+    x, w, gy = inp["halo"]
+    band = x.shape[1] // ns
+    rows = slice(s * band, (s + 1) * band)
+    xb = x[:, rows].clone().requires_grad_()
+    wb = w.clone().requires_grad_()
+    y = dw_stencil(xb, wb, ((1, 1), (1, 1)), "reflect", halo=halo_exchange(xb, 1))
+    (y * gy[:, rows]).sum().backward()
+    res["halo"] = (y.detach(), xb.grad, wb.grad)
+
+    batch = shard_batch(inp["batch"], mesh)
+    for name, kw in inp["configs"].items():
+        cfg = derive(Config(**kw))
+        model = get_generator(cfg)
+        model.load_state_dict(inp["state_dict"])
+        res[f"eval {name}"] = make_eval_step(cfg, with_metrics=True)(
+            model, batch_to_device(batch, "cpu"))
+        if name != "tiny":
+            continue
+        state, aux = make_train_step(cfg)(create_train_state(cfg, model),
+                                          batch_to_device(batch, "cpu"),
+                                          torch.Generator().manual_seed(0))
+        res["train"] = {"loss": float(aux["loss"]), "grads": aux["grads"],
+                        "state": {k: v.clone() for k, v in model.state_dict().items()}}
+        res["dcp"] = dcp_round_trip(cfg.replace(ckpt_backend="orbax", res_dir=out_dir,
+                                                experiment_name="dcp"), state, rank)
+        model.load_state_dict(inp["state_dict"])
+        scene, dates = inp["scene"]
+        res["scene"] = predict_scene(model, cfg, scene, dates, mesh=mesh, **inp["scene_kw"])
+    torch.save(res, os.path.join(out_dir, f"spatial_rank{rank}.pt"))
+
+
 if __name__ == "__main__":
     out_dir, jobs = sys.argv[1], sys.argv[2:]
     rank, world = maybe_init_distributed("cpu")
     np.random.seed(0)
     try:
         for job in jobs:
-            {"steps": job_steps, "cli": job_cli}[job](out_dir, rank, world)
+            {"steps": job_steps, "cli": job_cli, "spatial": job_spatial}[job](
+                out_dir, rank, world)
     finally:
         torch.distributed.destroy_process_group()

@@ -243,12 +243,11 @@ def test_the_default_device_raises_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("field, value, error, match", [
-    ("mesh_shape", 2, RuntimeError, "requested 2 ranks but only 1"),
-    ("ckpt_backend", "orbax", NotImplementedError, "not ported")],
-    ids=["mesh_shape-2", "ckpt_backend-orbax"])
+    ("mesh_shape", 2, RuntimeError, "requested 2 ranks but only 1")],
+    ids=["mesh_shape-2"])
 def test_the_clis_refuse_what_is_not_ported(tmp_path, field, value, error, match):
-    """orbax checkpoints are not ported; a mesh of 2 ranks needs a run of 2
-    processes (torchrun), and a single process refuses it."""
+    """A mesh of 2 ranks needs a run of 2 processes (torchrun), and a single
+    process refuses it."""
     cfg = _tiny_cfg(tmp_path).replace(**{field: value})
     for main in (cli_train.main, cli_test.main):
         with pytest.raises(error, match=match):
@@ -258,6 +257,7 @@ def test_the_clis_refuse_what_is_not_ported(tmp_path, field, value, error, match
 
 def test_a_foreign_checkpoint_suffix_is_refused():
     assert cli_train.checkpoint_name("results/run/model_epoch_3.pth.tar") == "model_epoch_3"
+    assert cli_train.checkpoint_name("results/run/model_epoch_3.dcp/") == "model_epoch_3"
     for path in ("results/run/model.ckpt", "results/run/model.orbax/"):
         with pytest.raises(ValueError, match=".pth.tar"):
             cli_train.checkpoint_name(path)

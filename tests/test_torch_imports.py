@@ -26,7 +26,9 @@ ENTRY_MODULES = ("cli.train", "cli.test", "cli.precompute", "cli.convert", "cli.
                  "data.sen12mscrts", "data.sen12mscr", "data.hdf5", "data.synthetic_tree",
                  "ops.filters", "cli.ensemble", "models.unet", "models.utae", "models.unet3d",
                  "models.recurrent", "models.jax_bridge", "export", "parallel",
-                 "parallel.mesh", "native")
+                 "parallel.mesh", "native", "infer", "models.layers", "models.blocks",
+                 "models.uncrtaints", "ops.pooling", "ops.resize", "ops.ssim", "ops.dwconv",
+                 "ops.dwgrad", "ops.mbconv")
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():

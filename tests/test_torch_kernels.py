@@ -502,3 +502,95 @@ def test_fused_mbconv_chain_on_card(cuda, rng):
     d = (y0 - y1).abs()
     assert d.max() <= 0.02 * y0.abs().max()
     assert d.square().mean().sqrt() <= 5e-3 * y0.abs().max()
+
+
+# ------------------------------------------------------------ halo modes --
+# a map split into bands of rows, each with its neighbours' edge rows: every
+# band against the plain halo version, and the bands stitched against the
+# whole-tensor kernel (the tiled kernels at C % 8 == 0, the direct ones at 20)
+
+HALO_SHAPES = [(2, 8, 37, 16), (3, 12, 9, 20), (2, 8, 34, 64)]
+
+
+def _bands(x, n):
+    rows = x.shape[1] // n
+    return [x[:, i * rows:(i + 1) * rows].contiguous() for i in range(n)]
+
+
+def _halos(bands):
+    n = len(bands)
+    return [(bands[i - 1][:, -1:].contiguous() if i > 0 else None,
+             bands[i + 1][:, :1].contiguous() if i < n - 1 else None) for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])  # 4 bands of 8 rows: bands of exactly 2 rows
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", HALO_SHAPES)
+def test_dw_halo_kernels_match_plain_and_stitch(cuda, rng, shape, dtype, n):
+    from uncrtaints_tpu_torch.ops import dwconv, dwgrad
+    N, H, W, C = shape
+    ONE = ((1, 1), (1, 1))
+    x = _t(rng.standard_normal(shape), cuda, dtype)
+    g = _t(rng.standard_normal(shape), cuda, dtype)
+    w = _t(rng.standard_normal((C, 1, 3, 3)) * 0.3, cuda, dtype)
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+    xb, gb = _bands(x, n), _bands(g, n)
+    hb = _halos(xb)
+    k = tops.dw_stencil.halo_launches
+    fwd = [dwconv.dw_stencil(b, w, ONE, "reflect", halo=h) for b, h in zip(xb, hb)]
+    adj = [dwconv.dw_stencil_reflect_adjoint(b, w, halo=(i > 0, i < n - 1))
+           for i, b in enumerate(gb)]
+    gws = [dwgrad.dw_kernel_grad(b, gg, ONE, 3, 3, "reflect", halo=h)
+           for b, gg, h in zip(xb, gb, hb)]
+    torch.cuda.synchronize()
+    assert tops.dw_stencil.halo_launches == k + 2 * n
+    scale = dwgrad.dw_kernel_grad_plain(x.abs(), g.abs(), ONE, 3, 3, "reflect")
+    for i in range(n):
+        ref = dwconv.dw_stencil_halo_plain(xb[i], w, *hb[i])
+        assert (fwd[i].float() - ref.float()).abs().max() <= tol * ref.float().abs().max()
+        for got, want in zip(adj[i], dwconv.dw_stencil_halo_adjoint_plain(
+                gb[i], w, i > 0, i < n - 1)):
+            if got is not None:
+                assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
+        want = dwgrad.dw_kernel_grad_halo_plain(xb[i], gb[i], *hb[i])
+        assert ((gws[i] - want).abs() / scale).max() <= 1e-4
+    whole = dwconv.dw_stencil(x, w, ONE, "reflect")
+    assert torch.equal(torch.cat(fwd, 1), whole)
+    rows = H // n
+    gx = torch.cat([a[0] for a in adj], 1).float()
+    for i, (_, gt, gbot) in enumerate(adj):
+        if gt is not None:
+            gx[:, i * rows - 1] += gt[:, 0].float()
+        if gbot is not None:
+            gx[:, (i + 1) * rows] += gbot[:, 0].float()
+    wgx = dwconv.dw_stencil_reflect_adjoint(g, w).float()
+    assert (gx - wgx).abs().max() <= 2 * tol * wgx.abs().max()
+    wgw = dwgrad.dw_kernel_grad(x, g, ONE, 3, 3, "reflect")
+    assert ((sum(gws) - wgw).abs() / scale).max() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 37, 16), (2, 8, 34, 64)])
+def test_norm_gelu_dwconv_halo_kernel_matches_plain_and_stitches(cuda, rng, shape, dtype, n):
+    N, H, W, C = shape
+    f = lambda *s: _t(rng.standard_normal(s), cuda)
+    x = _t(rng.standard_normal(shape), cuda, dtype)
+    args = (f(N, 4), f(N, 4).abs() + 0.5, f(C), f(C), f(3, 3, C) * 0.3)
+    kw = dict(groups_in=4, groups_out=4, pool_affine=(f(C), f(C)))
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    xb = _bands(x, n)
+    k = tops.norm_gelu_dwconv3x3.halo_launches
+    parts = [tops.norm_gelu_dwconv3x3(b, *args, halo=h, **kw) for b, h in zip(xb, _halos(xb))]
+    torch.cuda.synchronize()
+    assert tops.norm_gelu_dwconv3x3.halo_launches == k + n
+    for b, h, p in zip(xb, _halos(xb), parts):
+        ref = tops.norm_gelu_dwconv3x3_plain(b, *args, halo=h, **kw)
+        assert (p[0].float() - ref[0].float()).abs().max() <= tol * ref[0].float().abs().max()
+    whole = tops.norm_gelu_dwconv3x3(x, *args, **kw)
+    assert torch.equal(torch.cat([p[0] for p in parts], 1), whole[0])
+    for j in (1, 2, 3):
+        tot = sum(p[j] for p in parts)
+        assert ((tot - whole[j]).abs() / whole[j].abs().clamp(min=1.0)).max() <= 1e-5

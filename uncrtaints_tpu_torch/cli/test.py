@@ -19,7 +19,7 @@ import os
 import torch
 
 from uncrtaints_tpu_torch.config import (
-    NO_OVERWRITE_TEST, Config, derive, parse_config, reject_unported)
+    NO_OVERWRITE_TEST, Config, derive, parse_config)
 from uncrtaints_tpu_torch.cli.train import (
     Profile, build_datasets, data_parallel, need_outputs, save_results)
 from uncrtaints_tpu_torch.data.pipeline import BatchLoader, Subset, select_collate
@@ -70,7 +70,6 @@ def custom_dataset(cfg: Config):
 
 
 def main(cfg: Config) -> dict:
-    reject_unported(cfg)
     if cfg.plot_every > 0:
         require_matplotlib(f"plot_every={cfg.plot_every}")
     rank, world, shard, local_bs = data_parallel(cfg)

@@ -39,12 +39,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from uncrtaints_tpu_torch.config import (
-    Config, apply_resume, derive, parse_config, reject_unported)
+from uncrtaints_tpu_torch.config import Config, apply_resume, derive, parse_config
 from uncrtaints_tpu_torch.data.pipeline import BatchLoader, Subset, select_collate
 from uncrtaints_tpu_torch.models import get_generator
 from uncrtaints_tpu_torch.train.checkpoint import (
-    load_checkpoint, load_pretrained_partial, save_checkpoint, unfreeze_all)
+    load_checkpoint, load_pretrained_partial, save_checkpoint, unfreeze_all,
+    wait_for_checkpoints)
 from uncrtaints_tpu_torch.parallel import (
     active, barrier, broadcast_module, make_mesh, maybe_init_distributed)
 from uncrtaints_tpu_torch.train.engine import (
@@ -117,13 +117,17 @@ def need_outputs(cfg: Config) -> bool:
             or cfg.loss in ("GNLL", "MGNLL"))
 
 
+CHECKPOINT_SUFFIXES = (".pth.tar", ".dcp")  # --ckpt_backend msgpack, orbax
+
+
 def checkpoint_name(path: str) -> str:
-    """``.../model_epoch_k.pth.tar`` -> ``model_epoch_k``."""
+    """``.../model_epoch_k.pth.tar`` (or ``.dcp``) -> ``model_epoch_k``."""
     name = os.path.basename(path.rstrip("/"))
-    if not name.endswith(".pth.tar"):
-        raise ValueError(f"{path}: this package reads .pth.tar checkpoints only "
-                         "(not the JAX package's .ckpt or .orbax)")
-    return name.removesuffix(".pth.tar")
+    for suffix in CHECKPOINT_SUFFIXES:
+        if name.endswith(suffix):
+            return name.removesuffix(suffix)
+    raise ValueError(f"{path}: this package reads .pth.tar checkpoints and .dcp directories "
+                     "only (not the JAX package's .ckpt or .orbax)")
 
 
 def data_parallel(cfg: Config):
@@ -173,7 +177,6 @@ class Profile:
 
 
 def main(cfg: Config) -> dict:
-    reject_unported(cfg)
     if cfg.plot_every > 0:
         require_matplotlib(f"plot_every={cfg.plot_every}")
     rank, world, shard, local_bs = data_parallel(cfg)
@@ -289,13 +292,15 @@ def main(cfg: Config) -> dict:
         print(f"Completed current epoch of experiment {cfg.experiment_name}.")
         trace.stop()  # the trace holds the first epoch
     trace.stop()
+    # an asynchronous (.dcp) save lands under its name only when written
+    wait_for_checkpoints()
     barrier()  # the checkpoints rank 0 wrote are read by every rank below
 
     # test the best checkpoint (fall back to the last epoch if validation
     # never ran and no best-on-val checkpoint exists)
     print("Testing best epoch . . .")
-    best_name = "model" if os.path.exists(os.path.join(exp_dir, "model.pth.tar")) \
-        else f"model_epoch_{cfg.epochs}"
+    best = any(os.path.exists(os.path.join(exp_dir, "model" + x)) for x in CHECKPOINT_SUFFIXES)
+    best_name = "model" if best else f"model_epoch_{cfg.epochs}"
     state, _ = load_checkpoint(cfg, cfg.res_dir, state, best_name)
     state, test_metrics, test_img_metrics = iterate(
         state, test_loader, cfg, writer, "test", cfg.epochs, eval_step=eval_step)
@@ -329,6 +334,7 @@ def cli_main():
     try:
         main(cfg)
     finally:
+        wait_for_checkpoints()  # asynchronous saves must land before the exit
         if active():
             torch.distributed.destroy_process_group()
 

@@ -8,12 +8,11 @@ fields), so a conf.json written by either package loads in the other
 for a CUDA device); ``remat``, ``prng_impl`` and ``debug_nans`` name JAX/TPU
 mechanisms without a counterpart here and are not carried.
 
-Fields that name what this package does not have yet are kept, so that the
-files stay interchangeable, and the CLIs refuse them at start
-(:func:`reject_unported`), never ignore them: ``ckpt_backend="orbax"`` (the
-default "msgpack" means the package's one single-file format, the
-reference's ``.pth.tar``; train/checkpoint.py). ``mesh_shape`` is the number
-of data-parallel ranks, one process per GPU (parallel/mesh.py).
+``ckpt_backend`` "msgpack" (the default) means the package's single-file
+format, the reference's ``.pth.tar``, and "orbax" its asynchronous
+counterpart, a ``torch.distributed.checkpoint`` directory (train/checkpoint.py).
+``mesh_shape`` is the number of data-parallel ranks, one process per GPU
+(parallel/mesh.py).
 
 Flag-for-flag parity with the reference argparse parser (parse_args.py:5-95)
 and the post-parse derived-rule pass (train_reconstruct.py:36-84), on a
@@ -179,8 +178,8 @@ class Config:
                                          # one optimizer update
                                          # on the mean gradient
     ckpt_backend: str = "msgpack"        # checkpoint format: msgpack (single
-                                         # file, reference-style) | orbax
-                                         # (async, multi-host, atomic)
+                                         # .pth.tar, reference-style) | orbax
+                                         # (async .dcp directory, atomic)
     trace_dir: str = ""                  # profiler trace output directory
     fused_eval: str = "auto"             # fused eval MBConv through the
                                          # hand-written kernels: auto|on|off
@@ -399,15 +398,6 @@ def apply_resume(cfg: Config) -> Config:
     if cfg.resume_at >= 0:
         cfg = cfg.replace(lr=cfg.lr * cfg.gamma ** cfg.resume_at)
     return cfg
-
-
-def reject_unported(cfg: Config) -> None:
-    """Raise for a field that asks for what this package does not have (the
-    CLIs call it first)."""
-    if cfg.ckpt_backend == "orbax":
-        raise NotImplementedError(
-            "ckpt_backend='orbax' is not ported: checkpoints are single .pth.tar files "
-            "(keep the default)")
 
 
 def input_dim(cfg: Config) -> int:

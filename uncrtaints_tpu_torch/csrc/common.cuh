@@ -90,10 +90,23 @@ enum DwMode : int { kZeros = 0, kReflect = 1, kReflectAdjoint = 2 };
 
 // Geometry of a stride-1 depthwise correlation over NHWC maps: input
 // [N,H,W,C], output [N,Ho,Wo,C], top/left pads pt/pl (zeros, or mirrored
-// pixels in kReflect, where pt = pl = 1 and Ho = H, Wo = W).
+// pixels in kReflect, where pt = pl = 1 and Ho = H, Wo = W). In kReflect a
+// map may be one band of rows of a taller scene: then `top` and `bot`
+// ([N,W,C], the input's dtype) are the rows just above and below it, read
+// for rows -1 and H instead of the mirrored rows; a null one mirrors (the
+// scene's own edge). Columns always mirror.
 struct DwGeo {
   int N, H, W, C, Ho, Wo, pt, pl, mode;
+  const void* top;
+  const void* bot;
 };
+
+// the halo row that stands for row r of a band of H rows (top for -1, bot
+// for H), or null where r is read from the band itself or mirrored
+__device__ __forceinline__ const void* dw_halo_row(int r, int H, const void* top,
+                                                   const void* bot) {
+  return r == -1 ? top : (r == H ? bot : nullptr);
+}
 
 // torch's reflect index for a pad of one (-1 -> 1, n -> n-2), clamped into
 // [0, n) so that rows past a ragged tile still name a valid row
@@ -103,15 +116,17 @@ __device__ __forceinline__ int dw_mirror(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-// the VEC channels at (n, r, s, ch) of the input: in kReflect the mirrored
-// pixel, else zeros outside the map (the padding as an index rule or a
+// the VEC channels at (n, r, s, ch) of the input: in kReflect the halo row's
+// pixel (rows -1 and H of a band) or the mirrored pixel, else zeros outside the map (the padding as an index rule or a
 // bounds check, no padded copy)
 template <typename T, int VEC>
 __device__ __forceinline__ RawVec<T, VEC> dw_load(const T* __restrict__ x, const DwGeo& g, int n,
                                                   int r, int s, int ch) {
   if (g.mode == kReflect) {
-    r = dw_mirror(r, g.H);
     s = dw_mirror(s, g.W);
+    const T* halo = static_cast<const T*>(dw_halo_row(r, g.H, g.top, g.bot));
+    if (halo) return load_raw<T, VEC>(halo + (static_cast<long long>(n) * g.W + s) * g.C + ch);
+    r = dw_mirror(r, g.H);
   } else if (r < 0 || r >= g.H || s < 0 || s >= g.W) {
     return zero_raw<T, VEC>();
   }

@@ -8,6 +8,13 @@
 //             out[n,r,s,c]   = sum g[n,h,w,c] * w[c,dy,dx] over all (h,dy) with
 //             m(h+dy-1) = r and all (w,dx) with m(w+dx-1) = s
 //
+// Halo mode (uncr_dw_stencil_halo): the map is one band of rows of a scene
+// split over ranks (the 2-D data x spatial mesh). The reflect rule reads
+// rows -1 and H from the neighbours' edge rows where there is a neighbour
+// and mirrors only at the scene's edge (columns always mirror); its adjoint
+// folds only at the scene's edge and also returns the gradient of the two
+// halo rows, which the caller sends back to their owners.
+//
 // x (or g) [N,H,W,C] and out [N,Ho,Wo,C] NHWC in one dtype (bf16 or fp32), w
 // the port's depthwise weight [C,1,kh,kw] in the same dtype. Sums in fp32,
 // rounded once to the output dtype.
@@ -93,7 +100,8 @@ __global__ void __launch_bounds__(DW_THREADS, DW_MINB)
     auto stage = [&](int k) {
       if (k < nbands)
         dw_stage_rows<T, DW_XCOLS, DW_XSLOTS>(ring, x, reflect, n, g.H, g.W, g.C, row0, col0, c0,
-                                              k == 0 ? 0 : k * DW_R + 2, (k + 1) * DW_R + 2);
+                                              k == 0 ? 0 : k * DW_R + 2, (k + 1) * DW_R + 2,
+                                              g.top, g.bot);
       cp_async_commit();
     };
 #pragma unroll
@@ -254,10 +262,14 @@ void launch_direct(const void* x, const void* w, void* out, const DwGeo& g,
 // sums all pairs in fp32 for the 2W + 2H frame pixels of each map (4/H of
 // the pixels) and writes them again, rounded once. A pixel where a frame row
 // crosses a frame column is written twice with the same value. One thread
-// per (pixel, VEC channels). g [N,H,W,C], w [C,9] the primal kernel.
+// per (pixel, VEC channels). g [N,H,W,C], w [C,9] the primal kernel. In a
+// band of a taller scene (halo mode) a row next to a neighbour is not
+// folded: fold_top / fold_bot say whether rows 1 / H-2 take the fold (the
+// scene's own edge) or not (the forward read the neighbour's row there).
 template <typename T, int VEC>
 __global__ void dw_adjoint_frame_kernel(const T* __restrict__ g, const T* __restrict__ w,
-                                        T* __restrict__ out, int N, int H, int W, int C) {
+                                        T* __restrict__ out, int N, int H, int W, int C,
+                                        bool fold_top, bool fold_bot) {
   const int cvecs = C / VEC, frame = 2 * W + 2 * H;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<long long>(N) * frame * cvecs) return;
@@ -274,8 +286,8 @@ __global__ void dw_adjoint_frame_kernel(const T* __restrict__ g, const T* __rest
     if (r + 1 - d >= 0 && r + 1 - d < H) rh[nr] = r + 1 - d, rd[nr++] = d;
     if (s + 1 - d >= 0 && s + 1 - d < W) cw[nc] = s + 1 - d, cd[nc++] = d;
   }
-  if (r == 1) rh[nr] = 0, rd[nr++] = 0;
-  if (r == H - 2) rh[nr] = H - 1, rd[nr++] = 2;
+  if (r == 1 && fold_top) rh[nr] = 0, rd[nr++] = 0;
+  if (r == H - 2 && fold_bot) rh[nr] = H - 1, rd[nr++] = 2;
   if (s == 1) cw[nc] = 0, cd[nc++] = 0;
   if (s == W - 2) cw[nc] = W - 1, cd[nc++] = 2;
   float acc[VEC];
@@ -298,25 +310,87 @@ __global__ void dw_adjoint_frame_kernel(const T* __restrict__ g, const T* __rest
 }
 
 template <typename T, int VEC>
-void launch_frame(const void* g, const void* w, void* out, const DwGeo& geo, cudaStream_t s) {
+void launch_frame(const void* g, const void* w, void* out, const DwGeo& geo, bool fold_top,
+                  bool fold_bot, cudaStream_t s) {
   const long long threads =
       static_cast<long long>(geo.N) * (2 * geo.W + 2 * geo.H) * (geo.C / VEC);
   dw_adjoint_frame_kernel<T, VEC><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
       static_cast<const T*>(g), static_cast<const T*>(w), static_cast<T*>(out), geo.N, geo.H,
-      geo.W, geo.C);
+      geo.W, geo.C, fold_top, fold_bot);
 }
 
-// 3x3 with 16-byte vectors goes to the tiles, the rest to the direct kernel
+// The folded adjoint's gradient of a band's halo rows (halo mode): output
+// row 0 read the row above at dy = 0 and row H-1 the row below at dy = 2,
+// so with m the reflect index of the columns
+//   gtop[n,s,c] = sum g[n,0,w,c] * k[c,0,dx]    over (w, dx) with m(w+dx-1) = s
+//   gbot[n,s,c] = sum g[n,H-1,w,c] * k[c,2,dx]  likewise
+// ([N,W,C] each, g's dtype; a null one is not written). One thread per
+// (halo row, pixel, VEC channels), all pairs summed in fp32, rounded once.
+template <typename T, int VEC>
+__global__ void dw_adjoint_halo_kernel(const T* __restrict__ g, const T* __restrict__ w,
+                                       T* __restrict__ gtop, T* __restrict__ gbot, int N, int H,
+                                       int W, int C) {
+  const int cvecs = C / VEC;
+  const long long per_edge = static_cast<long long>(N) * W * cvecs;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= 2 * per_edge) return;
+  const int edge = static_cast<int>(i / per_edge);
+  T* dst = edge == 0 ? gtop : gbot;
+  if (dst == nullptr) return;
+  const long long j = i % per_edge;
+  const int ch = static_cast<int>(j % cvecs) * VEC;
+  const int s = static_cast<int>(j / cvecs % W), n = static_cast<int>(j / cvecs / W);
+  const int row = edge == 0 ? 0 : H - 1, dy = edge == 0 ? 0 : 2;
+  int cw[5], cd[5], nc = 0;
+  for (int d = 0; d < 3; ++d)
+    if (s + 1 - d >= 0 && s + 1 - d < W) cw[nc] = s + 1 - d, cd[nc++] = d;
+  if (s == 1) cw[nc] = 0, cd[nc++] = 0;
+  if (s == W - 2) cw[nc] = W - 1, cd[nc++] = 2;
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
+  for (int b = 0; b < nc; ++b) {
+    const RawVec<T, VEC> gv =
+        load_raw<T, VEC>(g + ((static_cast<long long>(n) * H + row) * W + cw[b]) * C + ch);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      acc[e] = fmaf(to_f32(gv.v[e]),
+                    to_f32(w[static_cast<long long>(ch + e) * 9 + dy * 3 + cd[b]]), acc[e]);
+  }
+  RawVec<T, VEC> o;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) o.v[e] = from_f32<T>(acc[e]);
+  *reinterpret_cast<RawVec<T, VEC>*>(dst + (static_cast<long long>(n) * W + s) * C + ch) = o;
+}
+
+template <typename T, int VEC>
+void launch_halo_grad(const void* g, const void* w, void* gtop, void* gbot, const DwGeo& geo,
+                      cudaStream_t s) {
+  const long long threads = 2LL * geo.N * geo.W * (geo.C / VEC);
+  dw_adjoint_halo_kernel<T, VEC><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(w), static_cast<T*>(gtop),
+      static_cast<T*>(gbot), geo.N, geo.H, geo.W, geo.C);
+}
+
+// 3x3 with 16-byte vectors goes to the tiles, the rest to the direct kernel.
+// In kReflectAdjoint, gtop / gbot (halo mode, may be null) receive the halo
+// rows' gradient, and a band's row next to a given one is not folded.
 template <typename T, int VEC>
 bool dispatch(int kh, int kw, bool vec_ok, const void* x, const void* w, void* out,
-              const DwGeo& g, cudaStream_t s) {
+              const DwGeo& g, void* gtop, void* gbot, cudaStream_t s) {
   if (kh == 3 && kw == 3) {
     if (vec_ok)
       launch_tiles<T>(x, w, out, g, s);
     else
       launch_direct<T, 1, 3, 3>(x, w, out, g, s);
-    if (g.mode == kReflectAdjoint)
-      vec_ok ? launch_frame<T, VEC>(x, w, out, g, s) : launch_frame<T, 1>(x, w, out, g, s);
+    if (g.mode == kReflectAdjoint) {
+      const bool ft = gtop == nullptr, fb = gbot == nullptr;
+      vec_ok ? launch_frame<T, VEC>(x, w, out, g, ft, fb, s)
+             : launch_frame<T, 1>(x, w, out, g, ft, fb, s);
+      if (gtop || gbot)
+        vec_ok ? launch_halo_grad<T, VEC>(x, w, gtop, gbot, g, s)
+               : launch_halo_grad<T, 1>(x, w, gtop, gbot, g, s);
+    }
     return true;
   }
   if (g.mode != kZeros) return false;
@@ -333,6 +407,31 @@ bool dispatch(int kh, int kw, bool vec_ok, const void* x, const void* w, void* o
   return false;
 }
 
+// The checks and the dispatch of both entry points below.
+int run(const void* x, const void* w, void* out, int N, int H, int W, int C, int kh, int kw,
+        int pt, int pb, int pl, int pr, int mode, int dtype, const void* top, const void* bot,
+        void* gtop, void* gbot, cudaStream_t s) {
+  if (mode != kZeros && mode != kReflect && mode != kReflectAdjoint)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode != kZeros &&
+      !(kh == 3 && kw == 3 && pt == 1 && pb == 1 && pl == 1 && pr == 1 && H >= 2 && W >= 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DwGeo g{N, H, W, C, H + pt + pb - kh + 1, W + pl + pr - kw + 1, pt, pl, mode, top, bot};
+  // 16-byte channel vectors where C and the pointers allow, else one by one
+  bool aligned = aligned16(x) && aligned16(out);
+  aligned = aligned && (top == nullptr || aligned16(top)) && (bot == nullptr || aligned16(bot)) &&
+            (gtop == nullptr || aligned16(gtop)) && (gbot == nullptr || aligned16(gbot));
+  bool ok;
+  if (dtype == kBFloat16)
+    ok = dispatch<__nv_bfloat16, 8>(kh, kw, aligned && C % 8 == 0, x, w, out, g, gtop, gbot, s);
+  else if (dtype == kFloat32)
+    ok = dispatch<float, 4>(kh, kw, aligned && C % 4 == 0, x, w, out, g, gtop, gbot, s);
+  else
+    ok = false;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x [N,H,W,C], w [C,kh*kw], out [N,Ho,Wo,C] with Ho = H+pt+pb-kh+1 and
@@ -343,22 +442,26 @@ bool dispatch(int kh, int kw, bool vec_ok, const void* x, const void* w, void* o
 extern "C" int uncr_dw_stencil(const void* x, const void* w, void* out, int N, int H, int W,
                                int C, int kh, int kw, int pt, int pb, int pl, int pr, int mode,
                                int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode != kZeros && mode != kReflect && mode != kReflectAdjoint)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (mode != kZeros &&
-      !(kh == 3 && kw == 3 && pt == 1 && pb == 1 && pl == 1 && pr == 1 && H >= 2 && W >= 2))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const DwGeo g{N, H, W, C, H + pt + pb - kh + 1, W + pl + pr - kw + 1, pt, pl, mode};
-  // 16-byte channel vectors where C and the pointers allow, else one by one
-  const bool aligned = aligned16(x) && aligned16(out);
-  bool ok;
-  if (dtype == kBFloat16)
-    ok = dispatch<__nv_bfloat16, 8>(kh, kw, aligned && C % 8 == 0, x, w, out, g, s);
-  else if (dtype == kFloat32)
-    ok = dispatch<float, 4>(kh, kw, aligned && C % 4 == 0, x, w, out, g, s);
-  else
-    ok = false;
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return run(x, w, out, N, H, W, C, kh, kw, pt, pb, pl, pr, mode, dtype, nullptr, nullptr,
+             nullptr, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The halo mode of the two reflect rules (3x3, pads of one, H, W >= 2): the
+// map is one band of rows of a taller scene.
+// - kReflect: top / bot [N,W,C] are the rows just above and below the band
+//   (the neighbours' edge rows), read for rows -1 and H; a null one is the
+//   scene's edge and mirrors as in uncr_dw_stencil.
+// - kReflectAdjoint: x is the band's output gradient; gtop / gbot [N,W,C],
+//   where not null, receive the gradient of the halo rows (which the caller
+//   sends back to the neighbour that owns them), and the band's row next to
+//   such a neighbour takes no fold. top and bot are ignored.
+// All in the dtype given by `dtype`, contiguous.
+extern "C" int uncr_dw_stencil_halo(const void* x, const void* w, void* out, const void* top,
+                                    const void* bot, void* gtop, void* gbot, int N, int H, int W,
+                                    int C, int mode, int dtype, void* stream) {
+  if (mode != kReflect && mode != kReflectAdjoint) return static_cast<int>(cudaErrorInvalidValue);
+  const bool adj = mode == kReflectAdjoint;
+  return run(x, w, out, N, H, W, C, 3, 3, 1, 1, 1, 1, mode, dtype, adj ? nullptr : top,
+             adj ? nullptr : bot, adj ? gtop : nullptr, adj ? gbot : nullptr,
+             static_cast<cudaStream_t>(stream));
 }

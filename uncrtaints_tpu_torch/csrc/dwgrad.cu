@@ -4,7 +4,10 @@
 //   zeros:   xb = x inside the map, 0 outside (any pads, 3x3 / 1x3 / 3x1)
 //   reflect: xb[n,r,s,c] = x[n, m(r), m(s), c], m(-1) = 1, m(L) = L-2
 //            (torch's reflect pad of one around a 3x3 kernel, on the
-//            unpadded x)
+//            unpadded x); in halo mode (uncr_dw_kernel_grad_halo) x is one
+//            band of rows of a taller scene and rows -1 and H are the
+//            neighbours' edge rows where given (then gw is this band's
+//            partial sum, which the train step's all-reduce completes)
 //
 // x [N,H,W,C] (the primal conv's input) and g [N,Ho,Wo,C] (its output
 // gradient) NHWC in one dtype (bf16 or fp32); gw [C,kh,kw] fp32 (the port's
@@ -83,7 +86,8 @@ __global__ void __launch_bounds__(DW_THREADS, DW_MINB)
     auto stage = [&](int k) {
       if (k < nbands) {
         dw_stage_rows<T, DW_XCOLS, DW_XSLOTS>(ring, x, reflect, n, g.H, g.W, g.C, row0, col0, c0,
-                                              k == 0 ? 0 : k * DW_R + 2, (k + 1) * DW_R + 2);
+                                              k == 0 ? 0 : k * DW_R + 2, (k + 1) * DW_R + 2,
+                                              g.top, g.bot);
         dw_stage_rows<T, DW_WT, DW_GSLOTS>(gring, gy, false, n, g.Ho, g.Wo, g.C, ho0, wo0, c0,
                                            k * DW_R, (k + 1) * DW_R);
       }
@@ -337,21 +341,19 @@ extern "C" int uncr_dw_kernel_grad_blocks(int N, int Ho, int Wo, int C, int kh, 
   return pass1_blocks(N, Ho, Wo, C, kh, kw, dtype, aligned != 0);
 }
 
-// x [N,H,W,C], g [N,Ho,Wo,C] (Ho = H+pt+pb-kh+1, Wo = W+pl+pr-kw+1), both
-// contiguous in the dtype given by `dtype`; part fp32 scratch as above; gw
-// [C,kh*kw] fp32. kh x kw is one of 3x3, 1x3, 3x1; mode is kZeros or
-// kReflect (3x3, pads of 1, H, W >= 2), else cudaErrorInvalidValue.
-extern "C" int uncr_dw_kernel_grad(const void* x, const void* g, float* part, float* gw, int N,
-                                   int H, int W, int C, int kh, int kw, int pt, int pb, int pl,
-                                   int pr, int mode, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+namespace {
+
+int run_grad(const void* x, const void* g, float* part, float* gw, int N, int H, int W, int C,
+             int kh, int kw, int pt, int pb, int pl, int pr, int mode, int dtype, const void* top,
+             const void* bot, cudaStream_t s) {
   if (mode != kZeros && mode != kReflect) return static_cast<int>(cudaErrorInvalidValue);
   if (mode == kReflect &&
       !(kh == 3 && kw == 3 && pt == 1 && pb == 1 && pl == 1 && pr == 1 && H >= 2 && W >= 2))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != kBFloat16 && dtype != kFloat32) return static_cast<int>(cudaErrorInvalidValue);
-  const DwGeo geo{N, H, W, C, H + pt + pb - kh + 1, W + pl + pr - kw + 1, pt, pl, mode};
-  const bool aligned = aligned16(x) && aligned16(g);
+  const DwGeo geo{N, H, W, C, H + pt + pb - kh + 1, W + pl + pr - kw + 1, pt, pl, mode, top, bot};
+  bool aligned = aligned16(x) && aligned16(g);
+  aligned = aligned && (top == nullptr || aligned16(top)) && (bot == nullptr || aligned16(bot));
   const int nb = pass1_blocks(N, geo.Ho, geo.Wo, C, kh, kw, dtype, aligned);
   if (tiled(kh, kw, C, dtype, aligned)) {
     if (dtype == kBFloat16)
@@ -368,4 +370,30 @@ extern "C" int uncr_dw_kernel_grad(const void* x, const void* g, float* part, fl
   const int n = kh * kw * C;
   dw_grad_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, gw, nb, kh * kw, C);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x [N,H,W,C], g [N,Ho,Wo,C] (Ho = H+pt+pb-kh+1, Wo = W+pl+pr-kw+1), both
+// contiguous in the dtype given by `dtype`; part fp32 scratch as above; gw
+// [C,kh*kw] fp32. kh x kw is one of 3x3, 1x3, 3x1; mode is kZeros or
+// kReflect (3x3, pads of 1, H, W >= 2), else cudaErrorInvalidValue.
+extern "C" int uncr_dw_kernel_grad(const void* x, const void* g, float* part, float* gw, int N,
+                                   int H, int W, int C, int kh, int kw, int pt, int pb, int pl,
+                                   int pr, int mode, int dtype, void* stream) {
+  return run_grad(x, g, part, gw, N, H, W, C, kh, kw, pt, pb, pl, pr, mode, dtype, nullptr,
+                  nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The halo mode of the reflect rule (3x3, pads of one, H, W >= 2): x [N,H,W,C]
+// is one band of rows of a taller scene and g its output gradient; top / bot
+// [N,W,C] (x's dtype, contiguous) are the rows just above and below the band,
+// read for rows -1 and H, or null at the scene's edge (mirrored). part as for
+// uncr_dw_kernel_grad, with `aligned` of the blocks query covering top and
+// bot too.
+extern "C" int uncr_dw_kernel_grad_halo(const void* x, const void* g, const void* top,
+                                        const void* bot, float* part, float* gw, int N, int H,
+                                        int W, int C, int dtype, void* stream) {
+  return run_grad(x, g, part, gw, N, H, W, C, 3, 3, 1, 1, 1, 1, kReflect, dtype, top, bot,
+                  static_cast<cudaStream_t>(stream));
 }

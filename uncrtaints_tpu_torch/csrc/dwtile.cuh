@@ -76,12 +76,18 @@ struct DwPatch {
 // Start the copies of tile rows [t0, t1) into a ring of SLOTS row slabs of
 // COLS pixels. Tile row t, column p is the pixel (row0 + t, col0 + p) of
 // frame n of src [N,H,W,C], channels c0 .. c0 + CB. With reflect the pixel
-// is mirrored into the map; otherwise a pixel outside it (and a channel
-// chunk past C) is zero-filled. All THREADS threads of the block call it.
+// is mirrored into the map, except that rows -1 and H come from the halo
+// rows `top` and `bot` ([N,W,C]) where they are given (the map is a band of
+// a taller scene; columns still mirror); otherwise a pixel outside the map
+// (and a channel chunk past C) is zero-filled. This is the one place where
+// the tiled kernels K5, K2 and K4 decide what a row beyond the map is. All
+// THREADS threads of the block call it.
 template <typename T, int COLS, int SLOTS, int THREADS = DW_THREADS>
 __device__ __forceinline__ void dw_stage_rows(unsigned char* ring, const T* __restrict__ src,
                                               bool reflect, int n, int H, int W, int C, int row0,
-                                              int col0, int c0, int t0, int t1) {
+                                              int col0, int c0, int t0, int t1,
+                                              const void* top = nullptr,
+                                              const void* bot = nullptr) {
   constexpr int EPC = 16 / sizeof(T);
   constexpr int PER_ROW = COLS * DW_CPP;
   const int total = (t1 - t0) * PER_ROW;
@@ -91,13 +97,17 @@ __device__ __forceinline__ void dw_stage_rows(unsigned char* ring, const T* __re
     int r = row0 + t, s = col0 + p;
     const int ch = c0 + q * EPC;
     bool ok = ch < C;
+    const T* halo = nullptr;
     if (reflect) {
+      halo = static_cast<const T*>(dw_halo_row(r, H, top, bot));
       r = dw_mirror(r, H);
       s = dw_mirror(s, W);
     } else {
       ok = ok && r >= 0 && r < H && s >= 0 && s < W;
     }
-    const T* from = ok ? src + ((static_cast<long long>(n) * H + r) * W + s) * C + ch : src;
+    const T* from = !ok ? src
+                    : halo ? halo + (static_cast<long long>(n) * W + s) * C + ch
+                           : src + ((static_cast<long long>(n) * H + r) * W + s) * C + ch;
     cp_async16(ring + ((t % SLOTS) * COLS + p) * DW_PIX + q * 16, from, ok);
   }
 }

@@ -5,6 +5,8 @@
 //   h[n,r,s,c]   = gelu(((x[n,r,s,c] - mean[n,g(c)]) * coef[n,g(c)]) * scale[c] + bias[c])
 //   out[n,y,x,c] = sum_{dx} sum_{dy} h[n, refl(y+dy-1), refl(x+dx-1), c] * w[dy,dx,c]
 //   refl(-1) = 1, refl(H) = H-2 (columns alike);  out is cast to x's dtype
+//   (halo mode: x is a band of a taller scene and rows -1, H are the raw
+//   rows of its neighbours where given, normalised and activated alike)
 //   sum/sumsq[n,g] over the frame's pixels and group g's channels of the
 //   rounded output q                                       (when psum is given)
 //   pool[n,c]    = sum over the frame's pixels of gelu(q * pscale[c] + pbias[c])
@@ -125,6 +127,8 @@ struct Args {
   int H, W, C, groups_in;
   int nchunk, nstrip, ncb;  // items per frame: row chunks, column strips, channel tiles
   long long items;
+  const void* top;  // halo mode: raw rows above / below the band [N,W,C], or null
+  const void* bot;
 };
 
 __device__ __forceinline__ float tap(float h, float w, float acc) {
@@ -189,7 +193,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) ngd_tile_kernel(Args a) {
       if (k < nbands)
         dw_stage_rows<T, XCOLS, RAW_SLOTS, THREADS>(raw, x, true, n, a.H, a.W, a.C, ho0 - 1,
                                                     wo0 - 1, c0, k == 0 ? 0 : k * R + 2,
-                                                    (k + 1) * R + 2);
+                                                    (k + 1) * R + 2, a.top, a.bot);
       cp_async_commit();
     };
 #pragma unroll
@@ -355,6 +359,30 @@ extern "C" int uncr_ngd_blocks(int H, int W) {
   return ((H + ROWS - 1) / ROWS) * ((W + WT - 1) / WT);
 }
 
+namespace {
+
+int run(const void* x, int dtype, const float* mean, const float* coef, int groups_in,
+        const float* scale, const float* bias, const float* w9, void* out, int N, int H, int W,
+        int C, float* psum, float* psq, float* sum, float* sumsq, int groups_out,
+        const float* pscale, const float* pbias, float* ppool, float* pool, const void* top,
+        const void* bot, cudaStream_t s) {
+  Args a{x, mean, coef, scale, bias, w9, out, psum, psq, pscale, pbias, ppool,
+         H, W,    C,    groups_in, 0, 0, 0, 0, top, bot};
+  if (dtype == kBFloat16 && C % 8 == 0)
+    launch<__nv_bfloat16>(a, N, s);
+  else if (dtype == kFloat32 && C % 4 == 0)
+    launch<float>(a, N, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = uncr_ngd_blocks(H, W);
+  if (psum) launch_group_stats(psum, psq, sum, sumsq, N, rows, C, groups_out, s);
+  if (pscale)
+    channel_sum_kernel<512><<<N * ((C + 31) / 32), 512, 0, s>>>(ppool, pool, rows, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // x and out [N,H,W,C] (dtype, contiguous, 16-byte aligned; C a multiple of
 // the 16-byte vector: 8 in bf16, 4 in fp32; H, W >= 2), mean/coef
 // [N,groups_in], scale/bias [C], w9 [9,C] (tap dy*3+dx); all fp32 unless
@@ -370,18 +398,26 @@ extern "C" int uncr_norm_gelu_dwconv3x3(const void* x, int dtype, const float* m
                                         float* sumsq, int groups_out, const float* pscale,
                                         const float* pbias, float* ppool, float* pool,
                                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Args a{x, mean, coef, scale, bias, w9, out, psum, psq, pscale, pbias, ppool,
-         H, W,    C,    groups_in, 0, 0, 0, 0};
-  if (dtype == kBFloat16 && C % 8 == 0)
-    launch<__nv_bfloat16>(a, N, s);
-  else if (dtype == kFloat32 && C % 4 == 0)
-    launch<float>(a, N, s);
-  else
+  return run(x, dtype, mean, coef, groups_in, scale, bias, w9, out, N, H, W, C, psum, psq, sum,
+             sumsq, groups_out, pscale, pbias, ppool, pool, nullptr, nullptr,
+             static_cast<cudaStream_t>(stream));
+}
+
+// The halo mode: x is one band of rows of a taller scene, and top / bot
+// [N,W,C] (x's dtype, contiguous, 16-byte aligned) are the raw input rows
+// just above and below it, or null at the scene's edge (mirrored as above).
+// The kernel normalises and activates them exactly like its own rows; the
+// statistics and the pooled sum cover the band's own output rows only, so
+// they are this band's partial sums. Otherwise as uncr_norm_gelu_dwconv3x3.
+extern "C" int uncr_norm_gelu_dwconv3x3_halo(
+    const void* x, const void* top, const void* bot, int dtype, const float* mean,
+    const float* coef, int groups_in, const float* scale, const float* bias, const float* w9,
+    void* out, int N, int H, int W, int C, float* psum, float* psq, float* sum, float* sumsq,
+    int groups_out, const float* pscale, const float* pbias, float* ppool, float* pool,
+    void* stream) {
+  if ((top && !aligned16(top)) || (bot && !aligned16(bot)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = uncr_ngd_blocks(H, W);
-  if (psum) launch_group_stats(psum, psq, sum, sumsq, N, rows, C, groups_out, s);
-  if (pscale)
-    channel_sum_kernel<512><<<N * ((C + 31) / 32), 512, 0, s>>>(ppool, pool, rows, C);
-  return static_cast<int>(cudaGetLastError());
+  return run(x, dtype, mean, coef, groups_in, scale, bias, w9, out, N, H, W, C, psum, psq, sum,
+             sumsq, groups_out, pscale, pbias, ppool, pool, top, bot,
+             static_cast<cudaStream_t>(stream));
 }

@@ -14,6 +14,15 @@ parameters, the model runs in eval mode under ``torch.inference_mode()`` (on a C
 fused MBConv chain, kernels K1, K3 and K4), and the mean is divided by
 ``scale_by``, the variance by ``scale_by**2``.
 
+With ``mesh=`` (a 2-D ``data x spatial`` mesh, parallel/mesh.py) the ranks
+share a scene too large for one card: the window batches split over
+``data`` (data rank d runs batches d, d + n_data, ...), the window rows over
+``spatial`` (each rank runs its band of every window of its batch, the
+layers exchanging halo rows), and every rank's output bands are gathered on
+every rank before the host's blend, which is unchanged; every rank returns
+the whole scene. The JAX package names the same use of its 2-D mesh
+(infer.py, module docstring) and leaves it to GSPMD.
+
 Variance handling: the predicted aleatoric variances are blended with the
 same weights as the means. This is the convex combination of the windows'
 variances without the spread of their means, so a mild under-estimate
@@ -28,6 +37,7 @@ import numpy as np
 import torch
 
 from uncrtaints_tpu_torch.config import Config
+from uncrtaints_tpu_torch.parallel import mesh as mesh_mod
 from uncrtaints_tpu_torch.train.engine import eval_forward
 
 
@@ -75,7 +85,8 @@ def _live_forward(model: torch.nn.Module, cfg: Config) -> Callable:
 def predict_scene(model: Optional[torch.nn.Module], cfg: Optional[Config],
                   scene_x, dates=None, *, tile: int = 256, overlap: int = 64,
                   batch_size: int = 8, device=None,
-                  forward_fn: Optional[Callable] = None) -> Dict[str, np.ndarray]:
+                  forward_fn: Optional[Callable] = None,
+                  mesh: Optional[mesh_mod.Mesh2D] = None) -> Dict[str, np.ndarray]:
     """Run the model over an arbitrarily large scene.
 
     scene_x: [T,H,W,C] preprocessed inputs (numpy or a tensor; the band
@@ -88,6 +99,11 @@ def predict_scene(model: Optional[torch.nn.Module], cfg: Optional[Config],
     (an exported artifact): a callable ``fn(x [B,T,t,t,C], dates [B,T]) ->
     {'pred', 'var'?}`` taking tensors on ``device``; ``model`` and ``cfg``
     may then be None, ``device`` must be given, and ``dates`` are required.
+
+    ``mesh``: a 2-D mesh (:func:`make_mesh_2d`) over which every rank calls
+    this with the same arguments: batches over ``data``, each window's rows
+    (``tile`` a multiple of ``n_spatial``) over ``spatial``, the live model
+    only; every rank returns the whole scene.
 
     Returns {"pred": [1,H,W,13], "var": [1,H,W,13]} numpy fp32 arrays in
     data units (no "var" for a mean-only head).
@@ -138,36 +154,77 @@ def predict_scene(model: Optional[torch.nn.Module], cfg: Optional[Config],
         d_batch = torch.as_tensor(np.asarray(dates), dtype=torch.float32,
                                   device=device)[None].expand(batch_size, T)
 
+    rows = slice(None)
+    if mesh is not None:
+        if forward_fn is not None:
+            raise ValueError("predict_scene(mesh=...) runs the live model only")
+        if tile % mesh.n_spatial:
+            raise ValueError(f"predict_scene: a tile of {tile} rows does not split into "
+                             f"{mesh.n_spatial} even bands")
+        band = tile // mesh.n_spatial
+        rows = slice(mesh.spatial_rank * band, (mesh.spatial_rank + 1) * band)
+
     def dispatch(b0: int):
         chunk = origins[b0:b0 + batch_size]
-        xb = np.stack([scene_np[:, y:y + tile, x:x + tile] for y, x in chunk])
+        xb = np.stack([scene_np[:, y:y + tile, x:x + tile][:, rows] for y, x in chunk])
         if len(chunk) < batch_size:  # one batch shape: repeat the last window
             xb = np.concatenate([xb, np.repeat(xb[-1:], batch_size - len(chunk), axis=0)])
         out = run(torch.from_numpy(xb).to(device, non_blocking=True), d_batch)
         return chunk, out["pred"], out.get("var")  # not yet waited for
 
-    # one-deep pipeline: batch i+1 is launched before the blocking copy of
-    # batch i to the host, so the device computes while the host blends
-    num = vnum = den = None
     starts = list(range(0, len(origins), batch_size))
-    pending = dispatch(starts[0])
-    for b0 in starts[1:] + [None]:
-        nxt = dispatch(b0) if b0 is not None else None
-        chunk, mean, var = pending
+    if mesh is not None:
+        with mesh_mod.use_mesh_2d(mesh):
+            outputs = list(_mesh_outputs(mesh, starts, dispatch,
+                                         lambda b0: origins[b0:b0 + batch_size]))
+    else:
+        outputs = _pipelined(starts, dispatch)
+
+    num = vnum = den = None
+    for chunk, mean, var in outputs:
         if num is None:  # sized off the first output (the head split)
             num = np.zeros((H, W, mean.shape[-1]), np.float32)
             vnum = np.zeros_like(num) if var is not None else None
             den = np.zeros((H, W, 1), np.float32)
-        mean = mean.float().cpu().numpy()  # [B,1,tile,tile,13]
-        var = var.float().cpu().numpy() if var is not None else None
         for i, (y, x) in enumerate(chunk):
             num[y:y + tile, x:x + tile] += w2d * mean[i, 0]
             if var is not None:
                 vnum[y:y + tile, x:x + tile] += w2d * var[i, 0]
             den[y:y + tile, x:x + tile] += w2d
-        pending = nxt
 
     out = {"pred": (num / den)[None, :H0, :W0]}
     if vnum is not None:
         out["var"] = (vnum / den)[None, :H0, :W0]
     return out
+
+
+def _pipelined(starts, dispatch):
+    """(windows, pred, var) of each batch, numpy [B,1,tile,tile,C], in order,
+    one deep: batch i+1 is launched before the blocking copy of batch i to
+    the host, so the device computes while the host blends."""
+    pending = dispatch(starts[0])
+    for b0 in starts[1:] + [None]:
+        nxt = dispatch(b0) if b0 is not None else None
+        chunk, mean, var = pending
+        yield (chunk, mean.float().cpu().numpy(),
+               var.float().cpu().numpy() if var is not None else None)
+        pending = nxt
+
+
+def _mesh_outputs(mesh, starts, dispatch, chunk_of):
+    """(windows, pred, var) of each batch, numpy, whole windows, in order,
+    on a 2-D mesh: in round r data rank d runs batch r * n_data + d (the
+    last one again past the end) on its band of rows; every rank's output
+    is gathered on every rank and the bands are put back together."""
+    import torch.distributed as dist
+    nd, ns = mesh.n_data, mesh.n_spatial
+    for r0 in range(0, len(starts), nd):
+        _, mean, var = dispatch(starts[min(r0 + mesh.data_rank, len(starts) - 1)])
+        out = torch.cat([mean] if var is None else [mean, var], -1).float().contiguous()
+        got = [torch.empty_like(out) for _ in range(mesh.size)]
+        dist.all_gather(got, out)
+        c = mean.shape[-1]
+        for d in range(min(nd, len(starts) - r0)):
+            whole = torch.cat(got[d * ns:(d + 1) * ns], dim=2).cpu().numpy()
+            yield (chunk_of(starts[r0 + d]), whole[..., :c],
+                   whole[..., c:] if var is not None else None)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from uncrtaints_tpu_torch.ops.ssim import ssim
+from uncrtaints_tpu_torch.parallel import mesh
 
 
 def img_metrics(target: torch.Tensor, pred: torch.Tensor,
@@ -49,10 +50,33 @@ def img_metrics(target: torch.Tensor, pred: torch.Tensor,
     return out
 
 
+def _band_mean(t: torch.Tensor, dims, sp) -> torch.Tensor:
+    """The mean over ``dims`` of the scene whose band t is: the band's sums
+    summed over the spatial group, over the scene's count."""
+    n = sp.n_spatial
+    for d in dims:
+        n *= t.shape[d]
+    return mesh.spatial_sum(t.sum(dim=dims), sp) / n
+
+
+def _band_nanmean(t: torch.Tensor, sp) -> torch.Tensor:
+    """t [B, ...] -> the scene's nanmean per sample (sums and counts of the
+    non-NaN elements summed over the spatial group)."""
+    flat = t.reshape(t.shape[0], -1)
+    tot = mesh.spatial_sum(torch.stack([flat.nansum(dim=1),
+                                        (~flat.isnan()).sum(dim=1).to(flat.dtype)]), sp)
+    return tot[0] / tot[1]
+
+
 def img_metrics_batch(target: torch.Tensor, pred: torch.Tensor,
                       var: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """target, pred (and var) [B,1,H,W,C] -> {metric: [B]} on their device.
-    The spectral angle reduces over the channel axis, in degrees."""
+    The spectral angle reduces over the channel axis, in degrees. Under a
+    spatial split the arrays are bands of the scenes (axis 2) and every
+    metric is the scene's, the same on each rank of a spatial group."""
+    sp = mesh.spatial()
+    if sp is not None:
+        return _img_metrics_bands(target, pred, var, sp)
     dims = tuple(range(1, target.dim()))
     err = target - pred
     rmse = err.square().mean(dim=dims).sqrt()
@@ -76,6 +100,35 @@ def img_metrics_batch(target: torch.Tensor, pred: torch.Tensor,
             "mean ae": err.abs().reshape(B, -1).nanmean(dim=1),
             "mean se": err.square().reshape(B, -1).nanmean(dim=1),
             "mean var": var.reshape(B, -1).nanmean(dim=1),
+        })
+    return out
+
+
+def _img_metrics_bands(target, pred, var, sp) -> Dict[str, torch.Tensor]:
+    """:func:`img_metrics_batch` of the scenes whose bands the arrays are."""
+    dims = tuple(range(1, target.dim()))
+    err = target - pred
+    rmse = _band_mean(err.square(), dims, sp).sqrt()
+    dot = (target * pred).sum(dim=-1)
+    denom = target.square().sum(dim=-1).sqrt() * pred.square().sum(dim=-1).sqrt()
+    sam = _band_mean(torch.arccos(torch.clamp(dot / denom, -1.0, 1.0)) * 180.0 / math.pi,
+                     dims[:-1], sp)
+    B = target.shape[0]
+    out = {
+        "RMSE": rmse,
+        "MAE": _band_mean(err.abs(), dims, sp),
+        "PSNR": 20.0 * torch.log10(1.0 / rmse),
+        "SAM": sam,
+        "SSIM": ssim(target.reshape(-1, *target.shape[-3:]),
+                     pred.reshape(-1, *pred.shape[-3:]),
+                     size_average=False).reshape(B, -1).mean(dim=1),
+    }
+    if var is not None:
+        out.update({
+            "error": _band_nanmean(err, sp),
+            "mean ae": _band_nanmean(err.abs(), sp),
+            "mean se": _band_nanmean(err.square(), sp),
+            "mean var": _band_nanmean(var, sp),
         })
     return out
 

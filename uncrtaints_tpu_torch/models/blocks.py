@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from uncrtaints_tpu_torch.models.layers import (
     Conv2d, ConvLayer, Linear, Norm2d, gelu, smart_apply)
 from uncrtaints_tpu_torch.ops.mbconv import norm_gelu_dwconv3x3, norm_gelu_matmul
+from uncrtaints_tpu_torch.parallel import mesh
 
 
 class SE(nn.Module):
@@ -35,10 +36,16 @@ class SE(nn.Module):
     def forward(self, x: torch.Tensor, mean: Optional[torch.Tensor] = None,
                 scale_only: bool = False) -> torch.Tensor:
         """x [N,H,W,C]. ``mean`` [N,C] replaces the pooled vector (the fused
-        body computes it in fp32); ``scale_only`` returns the [N,C] gate."""
+        body computes it in fp32); ``scale_only`` returns the [N,C] gate.
+        Under a spatial split the mean is the scene's: the bands' sums are
+        summed over the spatial group."""
         if mean is None:
             N, H, W, C = x.shape
-            y = (x.sum(dim=(1, 2), dtype=torch.float32) / (H * W)).to(x.dtype)
+            pooled = x.sum(dim=(1, 2), dtype=torch.float32)
+            sp = mesh.spatial()
+            if sp is not None:
+                pooled, H = mesh.spatial_sum(pooled, sp), H * sp.n_spatial
+            y = (pooled / (H * W)).to(x.dtype)
         else:
             y = mean
         y = gelu(F.linear(y, self.fc[0].weight.to(y.dtype)))
@@ -147,7 +154,12 @@ class MBConv(nn.Module):
         as [3,3,C]. K4's group statistics are not asked for (batch norm
         needs none). The small weight transforms and folds are redone every
         forward: the eval step hands the module fresh casts of its
-        parameters each time, so there is nothing stable to key a cache on."""
+        parameters each time, so there is nothing stable to key a cache on.
+
+        Under a spatial split ``a`` is a band of the scene: K4 runs in halo
+        mode on h1's neighbouring rows, and its pooled sum, the band's, is
+        summed over the spatial group before the SE gate and divided by the
+        scene's pixels (one all-reduce a block)."""
         fn = self.conv.fn
         NF, H, W, C = a.shape
         P, hidden = H * W, self.hidden
@@ -163,10 +175,15 @@ class MBConv(nn.Module):
         c1, o1 = fn[1].fold()
         c2, o2 = fn[4].fold()
         wd = fn[3].weight[:, 0].permute(1, 2, 0)  # [C,1,3,3] -> [3,3,C]
+        h1 = h1.view(NF, H, W, hidden)
+        sp = mesh.spatial()
         h2, _, _, pool = norm_gelu_dwconv3x3(
-            h1.view(NF, H, W, hidden), zero, one, c1, o1, wd, groups_in=1,
-            groups_out=1, do_stats=False, pool_affine=(c2, o2))
-        s = fn[6](h2, mean=pool / (H * W), scale_only=True)
+            h1, zero, one, c1, o1, wd, groups_in=1, groups_out=1, do_stats=False,
+            pool_affine=(c2, o2), halo=None if sp is None else mesh.halo_exchange(h1, 1, 1, sp))
+        if sp is not None:
+            pool = mesh.spatial_sum(pool, sp)
+        s = fn[6](h2, mean=pool / (H * W * (1 if sp is None else sp.n_spatial)),
+                  scale_only=True)
 
         w2 = fn[7].weight[:, :, 0, 0].t().to(torch.bfloat16).contiguous()
         y, _, _ = norm_gelu_matmul(

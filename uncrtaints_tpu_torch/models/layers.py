@@ -14,6 +14,12 @@ memory is a ``channels_last`` tensor, so no copy is made.
 
 Parameters carry the reference PyTorch names and layouts (conv weights
 OIHW, linear weights [out, in]), so ``state_dict()`` is reference-format.
+
+Under a spatial split (a 2-D mesh with ``n_spatial > 1``, parallel/mesh.py)
+a map is one band of rows of the scene: a convolution that reads across rows
+takes its neighbours' rows (``halo_exchange``) and pads only at the scene's
+edge, and the group and instance norms sum their statistics over the
+spatial group. The batch norms' statistics already sum over every rank.
 """
 
 from __future__ import annotations
@@ -47,6 +53,21 @@ def _moments_f32(x: torch.Tensor, dims, keepdim: bool = True):
     m = x.mean(dim=dims, keepdim=keepdim, dtype=torch.float32)
     m2 = x.float().square().mean(dim=dims, keepdim=keepdim)
     return m, torch.clamp(m2 - m.square(), min=0.0)
+
+
+def _moments_band_f32(x: torch.Tensor, dims, keepdim: bool, sp):
+    """:func:`_moments_f32` of the scene when x is one band of it: the fp32
+    sums and sums of squares over ``dims`` summed over the spatial group by
+    a differentiable all-reduce (the gradient reaches every band's rows),
+    divided by the scene's count."""
+    xf = x.float()
+    tot = mesh.spatial_sum(torch.stack([xf.sum(dim=dims, keepdim=keepdim),
+                                        xf.square().sum(dim=dims, keepdim=keepdim)]), sp)
+    n = sp.n_spatial
+    for d in dims:
+        n *= x.shape[d]
+    m = tot[0] / n
+    return m, torch.clamp(tot[1] / n - m.square(), min=0.0)
 
 
 def batch_moments_f32(x: torch.Tensor, dims):
@@ -133,6 +154,10 @@ class Conv2d(nn.Module):
             nn.init.normal_(self.bias, generator=generator)
 
     def forward(self, x: torch.Tensor, input_affine=None) -> torch.Tensor:
+        """x [N,H,W,C]. Under a spatial split x is a band of the scene: a
+        kernel taller than one row reads the neighbours' rows (the folded
+        depthwise conv through K5 / K2's halo mode) and pads only at the
+        scene's edge; it must be a stride-1 'same' convolution."""
         w, b = self.weight, self.bias
         if input_affine is not None:
             coef, offs = input_affine
@@ -159,6 +184,17 @@ class Conv2d(nn.Module):
         # the pad's adjoint folded into gx, no padded tensor either way
         folded = (differentiated and self.padding_mode == "reflect" and pad == 1
                   and w.shape[-2:] == (3, 3) and min(x.shape[1:3]) >= 2)
+        sp = mesh.spatial() if w.shape[-2] > 1 else None
+        if sp is not None:
+            if self.stride != 1 or 2 * pad != self.dilation * (w.shape[-2] - 1):
+                raise NotImplementedError(
+                    "Conv2d under a spatial split takes stride-1 'same' convolutions only "
+                    f"(stride {self.stride}, pad {pad}, kernel {tuple(w.shape[-2:])})")
+            if folded:
+                y = dw_stencil(x.contiguous(), w.contiguous(), ((1, 1), (1, 1)), "reflect",
+                               halo=mesh.halo_exchange(x, 1, 1, sp))
+                return y if b is None else y + b.to(y.dtype)
+            x, pad = band_pad(x, pad, self.padding_mode, sp), 0
         if pad and self.padding_mode != "zeros" and not folded:
             # pad H and W of the NHWC tensor as the last-but-channel dims of
             # a 5-D view: one pass that keeps NHWC memory (the 2-D pad of
@@ -176,6 +212,28 @@ class Conv2d(nn.Module):
         if b is not None:  # added after the conv, in its dtype (JAX's order)
             y = y + b.to(y.dtype)
         return y
+
+
+def band_pad(x: torch.Tensor, pad: int, mode: str, sp) -> torch.Tensor:
+    """Pad a band [N,H,W,C] of the scene by ``pad`` rows and columns: its
+    neighbours' rows (``halo_exchange``, differentiable) where it has them,
+    the padding mode's rows at the scene's edge, and the mode's columns."""
+    if mode == "circular":
+        raise NotImplementedError("a circular pad wraps to the scene's other edge: not "
+                                  "under a spatial split")
+    top, bot = mesh.halo_exchange(x, pad, 1, sp)
+    if top is None:
+        top = (x[:, 1:pad + 1].flip(1) if mode == "reflect" else
+               x[:, :1].expand(-1, pad, -1, -1) if mode == "replicate" else
+               x.new_zeros((x.shape[0], pad, *x.shape[2:])))
+    if bot is None:
+        bot = (x[:, -pad - 1:-1].flip(1) if mode == "reflect" else
+               x[:, -1:].expand(-1, pad, -1, -1) if mode == "replicate" else
+               x.new_zeros((x.shape[0], pad, *x.shape[2:])))
+    xe = torch.cat([top, x, bot], dim=1)
+    if mode == "zeros":
+        return F.pad(xe, (0, 0, pad, pad))
+    return F.pad(xe.unsqueeze(1), (0, 0, pad, pad, 0, 0), mode=mode).squeeze(1)
 
 
 class Norm2d(nn.Module):
@@ -213,12 +271,15 @@ class Norm2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm == "batch":
             return self._batch_norm(x)
+        sp = mesh.spatial()
+        moments = (_moments_f32 if sp is None else
+                   lambda t, dims, keepdim=True: _moments_band_f32(t, dims, keepdim, sp))
         if self.norm == "instance":
-            m, v = _moments_f32(x, (-3, -2))
+            m, v = moments(x, (-3, -2))
             return (x - m.to(x.dtype)) * torch.rsqrt(v + 1e-5).to(x.dtype)
         if self.norm == "group":
             N, C, g = x.shape[0], x.shape[-1], self.n_groups
-            m, v = _moments_f32(x.reshape(N, -1, g, C // g), (1, 3), keepdim=False)
+            m, v = moments(x.reshape(N, -1, g, C // g), (1, 3), keepdim=False)
             mc = m.repeat_interleave(C // g, -1)
             cc = torch.rsqrt(v + 1e-5).repeat_interleave(C // g, -1) * self.weight.float()
             off = self.bias.float() - mc * cc
@@ -273,6 +334,8 @@ def smart_apply(fn: Callable, x: torch.Tensor,
     pad_mask = None
     if pad_value is not None:
         pad_mask = (x == pad_value).all(dim=(2, 3, 4))
+        if mesh.spatial() is not None:  # all pixels of the scene, not of the band
+            pad_mask = mesh.spatial_all(pad_mask)
     y = fn(x.reshape(b * t, *x.shape[2:]))
     y = y.reshape(b, t, *y.shape[1:])
     if pad_mask is not None:

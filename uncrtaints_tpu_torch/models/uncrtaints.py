@@ -12,6 +12,12 @@ Port of uncrtaints_tpu/models/uncrtaints.py:
 Layout: x [B,T,H,W,C_in], dates [B,T] -> [B,1,H,W,C_out] with the mean in
 channels [0:13] and the variance in [13:vars_idx]. The JAX package's
 ``remat`` (a memory knob of its compiler) has no counterpart.
+
+Under a spatial split (parallel/mesh.py) x holds one band of rows of each
+scene: the pad mask is the scene's, and the layers exchange rows and sum
+statistics over the spatial group themselves (models/layers.py, blocks.py,
+ops/pooling.py, ops/resize.py); L-TAE and the aggregation work pixel by
+pixel.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from uncrtaints_tpu_torch.models.layers import (
 from uncrtaints_tpu_torch.models.ltae import LTAE2d, LTAE2dtiny
 from uncrtaints_tpu_torch.ops.pooling import adaptive_max_pool2d
 from uncrtaints_tpu_torch.ops.resize import upsample_bilinear
+from uncrtaints_tpu_torch.parallel import mesh
 
 S2_BANDS = 13
 
@@ -115,6 +122,8 @@ class UNCRTAINTS(nn.Module):
         full L-TAE's MLP dropout)."""
         H, W = x.shape[2:4]
         pad_mask = (x == self.pad_value).all(dim=(2, 3, 4))  # [B, T]
+        if mesh.spatial() is not None:  # x is a band: all pixels of the scene
+            pad_mask = mesh.spatial_all(pad_mask)
         out = self.in_conv(x)
         for blk in self.in_block:
             out = blk(out)

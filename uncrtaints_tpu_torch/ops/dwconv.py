@@ -13,6 +13,14 @@ The third rule is the adjoint of the reflect correlation
 inside, so that no padded tensor exists on the way forward or back, as in
 the JAX package's fused VJP (layers.py:_dw_reflect3x3).
 
+In halo mode (``halo=(top, bot)``, reflect only) x is one band of rows of a
+scene split over the ranks of a 2-D mesh (parallel/mesh.py): rows -1 and H
+are the neighbours' edge rows ``top`` and ``bot`` [N,1,W,C], and only a None
+one (the scene's edge) mirrors; columns always mirror. Its adjoint folds
+only at the scene's edge and also returns the gradient of the two halo rows.
+The JAX package has no counterpart inside its kernel: its partition rule
+gathers the rows before the kernel (pallas_dwconv.py:171-176).
+
 Port of uncrtaints_tpu/ops/pallas_dwconv.py:dw_stencil; the CUDA kernel is
 csrc/dwconv.cu. The train step runs it for the differentiated depthwise
 forward and its input gradient (models/layers.py:Conv2d).
@@ -25,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -104,6 +112,72 @@ def dw_stencil_reflect_adjoint_plain(g: torch.Tensor, w: torch.Tensor) -> torch.
     return full[:, :, 1:-1].to(g.dtype).contiguous()
 
 
+def halo_rows(x: torch.Tensor, top: Optional[torch.Tensor],
+              bot: Optional[torch.Tensor]) -> torch.Tensor:
+    """A band [N,H,W,C] with the row above and the row below: the
+    neighbours' rows ``top`` / ``bot`` [N,1,W,C], or at the scene's edge
+    (None) the mirrored rows 1 and H-2 -> [N,H+2,W,C]."""
+    t = top if top is not None else x[:, 1:2]
+    b = bot if bot is not None else x[:, -2:-1]
+    return torch.cat([t, x, b], dim=1)
+
+
+def mirror_cols(x: torch.Tensor) -> torch.Tensor:
+    """Reflect-pad the columns of an NHWC map by one pixel."""
+    return torch.cat([x[:, :, 1:2], x, x[:, :, -2:-1]], dim=2)
+
+
+def dw_stencil_halo_plain(x: torch.Tensor, w: torch.Tensor, top: Optional[torch.Tensor],
+                          bot: Optional[torch.Tensor]) -> torch.Tensor:
+    """The plain PyTorch version of the halo mode: the band with its halo
+    rows (mirrored at the scene's edge), the columns mirrored, then the nine
+    shifted fp32 multiply-adds (VALID in H)."""
+    N, H, W, C = x.shape
+    return _shift_add_f32(mirror_cols(halo_rows(x, top, bot)), w, H, W).to(x.dtype)
+
+
+def dw_stencil_halo_adjoint_plain(g: torch.Tensor, w: torch.Tensor, has_top: bool,
+                                  has_bot: bool):
+    """The plain PyTorch version of the halo mode's adjoint: the FULL
+    zero-pad shift-add of g with the flipped kernel is the gradient of the
+    band with its halo rows, padded by a column each side; the column pad
+    folds as always, the row pad only at the scene's edge (no neighbour),
+    and rows 0 and H+1 are the halo rows' gradients. -> (gx [N,H,W,C], gtop
+    [N,1,W,C] or [0], gbot likewise), in g's dtype."""
+    N, H, W, C = g.shape
+    full = _shift_add_f32(zero_pad(g, ((2, 2), (2, 2))), w.flip((-2, -1)), H + 2, W + 2)
+    if not has_top:
+        full[:, 2] += full[:, 0]
+    if not has_bot:
+        full[:, -3] += full[:, -1]
+    full[:, :, 2] += full[:, :, 0]
+    full[:, :, -3] += full[:, :, -1]
+    full = full[:, :, 1:-1].to(g.dtype)
+    empty = g.new_empty(0)
+    return (full[:, 1:-1].contiguous(), full[:, :1].contiguous() if has_top else empty,
+            full[:, -1:].contiguous() if has_bot else empty.clone())
+
+
+def check_halo(name: str, x: torch.Tensor, halo) -> None:
+    """Raise unless ``halo`` is (top, bot), each None or [N,1,W,C] in x's
+    dtype, on its device and contiguous, and the band has the two rows the
+    kernels need."""
+    if len(halo) != 2:
+        raise ValueError(f"{name}: halo must be (top, bot)")
+    N, H, W, C = x.shape
+    if H < 2 or W < 2:
+        raise ValueError(f"{name}: a band needs H, W >= 2, got {H}x{W}")
+    for side, t in zip(("top", "bot"), halo):
+        if t is None:
+            continue
+        if tuple(t.shape) != (N, 1, W, C) or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name}: halo {side} must be [N,1,W,C] = {(N, 1, W, C)} "
+                             f"{x.dtype} on {x.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: halo {side} must be contiguous")
+
+
 def check_pads(name: str, x: torch.Tensor, kh: int, kw: int, pads: Pads) -> None:
     """Raise unless pads are non-negative and leave an output of size >= 1."""
     if any(p < 0 for pair in pads for p in pair):
@@ -168,6 +242,31 @@ def _launch(x: torch.Tensor, w: torch.Tensor, pads: Pads, mode_code: int) -> tor
     _build.check(err, "uncr_dw_stencil")
     dw_stencil.launches += 1
     return out
+
+
+def _launch_halo(x: torch.Tensor, w: torch.Tensor, top, bot, mode_code: int,
+                 has_top: bool = False, has_bot: bool = False):
+    """One launch of the CUDA kernel's halo mode (uncr_dw_stencil_halo);
+    counted in ``dw_stencil.launches`` and ``dw_stencil.halo_launches``.
+    Reflect: -> out. Adjoint (x the output gradient): -> (gx, gtop, gbot),
+    a halo gradient [N,1,W,C] where the band has that neighbour, else [0]."""
+    N, H, W, C = x.shape
+    out = torch.empty_like(x)
+    adj = mode_code == _REFLECT_ADJOINT
+    edge = lambda has: (x.new_empty((N, 1, W, C)) if has else x.new_empty(0)) if adj else None
+    gtop, gbot = edge(has_top), edge(has_bot)
+    if out.numel():
+        ptr = lambda t: t.data_ptr() if t is not None and t.numel() else None
+        ci, vp = ctypes.c_int, ctypes.c_void_p
+        fn = _build.kernel("uncr_dw_stencil_halo", [vp] * 7 + [ci] * 6 + [vp])
+        with torch.cuda.device(x.device):
+            err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), ptr(top), ptr(bot),
+                     ptr(gtop), ptr(gbot), N, H, W, C, mode_code, _build.DTYPE_CODES[x.dtype],
+                     torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "uncr_dw_stencil_halo")
+        dw_stencil.launches += 1
+        dw_stencil.halo_launches += 1
+    return (out, gtop, gbot) if adj else out
 
 
 def pads_of(flat) -> Pads:
@@ -242,8 +341,80 @@ def _k5_flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
     return 2 * math.prod(out_shape) * w_shape[-2] * w_shape[-1]
 
 
+# K5's halo mode as two operators: the forward (``dw_stencil_halo``,
+# differentiable in x, w and the halo rows: its input gradient by the halo
+# adjoint, its weight gradient by K2's halo mode) and the adjoint
+# (``dw_stencil_halo_adjoint``), which returns the band's gradient and the
+# halo rows' ([0] where there is no neighbour: an operator's outputs are
+# fixed).
+
+@torch.library.custom_op("uncrtaints::dw_stencil_halo", mutates_args=(), device_types="cuda")
+def _k5h(x: torch.Tensor, w: torch.Tensor, top: Optional[torch.Tensor],
+         bot: Optional[torch.Tensor]) -> torch.Tensor:
+    return _launch_halo(x, w, top, bot, MODES["reflect"])
+
+
+@_k5h.register_kernel("cpu")
+def _k5h_cpu(x, w, top, bot):
+    return dw_stencil_halo_plain(x, w, top, bot)
+
+
+@_k5h.register_fake
+def _k5h_fake(x, w, top, bot):
+    return x.new_empty(x.shape)
+
+
+@torch.library.custom_op("uncrtaints::dw_stencil_halo_adjoint", mutates_args=(),
+                         device_types="cuda")
+def _k5ha(g: torch.Tensor, w: torch.Tensor, has_top: bool,
+          has_bot: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _launch_halo(g, w, None, None, _REFLECT_ADJOINT, has_top, has_bot)
+
+
+@_k5ha.register_kernel("cpu")
+def _k5ha_cpu(g, w, has_top, has_bot):
+    return dw_stencil_halo_adjoint_plain(g, w, has_top, has_bot)
+
+
+@_k5ha.register_fake
+def _k5ha_fake(g, w, has_top, has_bot):
+    N, H, W, C = g.shape
+    edge = lambda has: g.new_empty((N, 1, W, C)) if has else g.new_empty(0)
+    return g.new_empty(g.shape), edge(has_top), edge(has_bot)
+
+
+def _k5h_setup(ctx, inputs, output):
+    x, w, top, bot = inputs
+    ctx.save_for_backward(x, w, top, bot)
+
+
+def _k5h_backward(ctx, g):
+    x, w, top, bot = ctx.saved_tensors
+    g = g.contiguous()
+    gx = gw = gtop = gbot = None
+    if ctx.needs_input_grad[0] or ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+        gx, gtop, gbot = torch.ops.uncrtaints.dw_stencil_halo_adjoint(
+            g, w, top is not None, bot is not None)
+    if ctx.needs_input_grad[1]:
+        gw = torch.ops.uncrtaints.dw_kernel_grad_halo(x, g, top, bot).to(w.dtype)
+    return (gx, gw, gtop if top is not None else None, gbot if bot is not None else None)
+
+
+_k5h.register_autograd(_k5h_backward, setup_context=_k5h_setup)
+
+
+@register_flop_formula(torch.ops.uncrtaints.dw_stencil_halo)
+def _k5h_flops(x_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * 9 * math.prod(x_shape)
+
+
+@register_flop_formula(torch.ops.uncrtaints.dw_stencil_halo_adjoint)
+def _k5ha_flops(g_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * 9 * math.prod(g_shape)
+
+
 def dw_stencil(x: torch.Tensor, w: torch.Tensor, pads: Pads,
-               mode: str = "zeros") -> torch.Tensor:
+               mode: str = "zeros", halo=None) -> torch.Tensor:
     """x [N,H,W,C], w [C,1,kh,kw] (contiguous, one dtype: fp32 or bf16) ->
     [N,Ho,Wo,C] in x's dtype. ``mode="reflect"`` takes the unpadded x, a 3x3
     kernel and ``pads`` of one, and mirrors the border instead of padding.
@@ -255,18 +426,30 @@ def dw_stencil(x: torch.Tensor, w: torch.Tensor, pads: Pads,
     (the input gradient by this kernel, the weight gradient by K2,
     :func:`dw_kernel_grad`; the JAX package's VJPs of _dw_conv_valid and
     _dw_reflect3x3). ``dw_stencil.launches`` counts the kernel launches,
-    those of :func:`dw_stencil_reflect_adjoint` included (one kernel, K5)."""
+    those of :func:`dw_stencil_reflect_adjoint` included (one kernel, K5).
+
+    ``halo=(top, bot)`` (reflect only) runs the halo mode on a band of a
+    taller scene: ``top`` / ``bot`` [N,1,W,C] the rows just above and below
+    it, None at the scene's edge (operator ``uncrtaints::dw_stencil_halo``,
+    differentiable in x, w and both halo rows). ``dw_stencil.halo_launches``
+    counts its launches (also counted in ``launches``)."""
     _check_operands("dw_stencil", x, w)
     kh, kw = w.shape[-2:]
     check_pads("dw_stencil", x, kh, kw, pads)
     check_mode("dw_stencil", x, kh, kw, pads, mode)
+    if halo is not None:
+        if mode != "reflect":
+            raise ValueError("dw_stencil: the halo mode is a reflect mode")
+        check_halo("dw_stencil", x, halo)
+        return torch.ops.uncrtaints.dw_stencil_halo(x, w, *halo)
     return torch.ops.uncrtaints.dw_stencil(x, w, [*pads[0], *pads[1]], MODES[mode])
 
 
 dw_stencil.launches = 0
+dw_stencil.halo_launches = 0
 
 
-def dw_stencil_reflect_adjoint(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def dw_stencil_reflect_adjoint(g: torch.Tensor, w: torch.Tensor, halo=None):
     """The input gradient of ``dw_stencil(x, w, pads of one, "reflect")``:
     g [N,H,W,C] the output gradient, w [C,1,3,3] the primal kernel (not
     flipped) -> gx [N,H,W,C] in g's dtype,
@@ -277,10 +460,19 @@ def dw_stencil_reflect_adjoint(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor
     nine terms inside, up to sixteen next to a corner. No [N,H+2,W+2,C]
     tensor is made. A CUDA tensor launches the CUDA kernel (counted in
     ``dw_stencil.launches``); a CPU tensor runs
-    :func:`dw_stencil_reflect_adjoint_plain`."""
+    :func:`dw_stencil_reflect_adjoint_plain`.
+
+    ``halo=(has_top, has_bot)``: the adjoint of the halo mode, for a band
+    with a neighbour above / below where True -> (gx, gtop, gbot), a halo
+    row's gradient [N,1,W,C] where the band has that neighbour, else None."""
     name = "dw_stencil_reflect_adjoint"
     _check_operands(name, g, w)
     check_mode(name, g, *w.shape[-2:], _PADS_ONE, "reflect")
+    if halo is not None:
+        has_top, has_bot = map(bool, halo)
+        check_halo(name, g, (None, None))
+        gx, gtop, gbot = torch.ops.uncrtaints.dw_stencil_halo_adjoint(g, w, has_top, has_bot)
+        return gx, gtop if has_top else None, gbot if has_bot else None
     return torch.ops.uncrtaints.dw_stencil(g, w, [1, 1, 1, 1], _REFLECT_ADJOINT)
 
 

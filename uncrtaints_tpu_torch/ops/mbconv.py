@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from uncrtaints_tpu_torch import _build
+from uncrtaints_tpu_torch.ops.dwconv import check_halo, halo_rows, mirror_cols
 
 BLOCK_M = 128  # P must be a multiple: a CUDA block's rows must not straddle two frames
 
@@ -238,20 +239,28 @@ def _k3_flops(x_shape, mean_shape, coef_shape, scale_shape, bias_shape, w_shape,
 
 def norm_gelu_dwconv3x3_plain(x, mean, coef, scale, bias, w,
                               groups_in: int = 4, groups_out: int = 4,
-                              do_stats: bool = True, pool_affine=None):
+                              do_stats: bool = True, pool_affine=None, halo=None):
     """The plain PyTorch version of kernel K4: the prologue and the exact
     GELU in fp32, a reflect pad of one pixel, then the nine fp32 shifted
     multiply-adds in the JAX kernel's order (dx-major, dy-minor; product
     and sum rounded separately), one cast, and the sums of the cast output
     (zeros when ``do_stats`` is False). With ``pool_affine=(scale, bias)``
     a fourth value: the per-(frame, channel) sum over the pixels of
-    ``gelu(q * scale + bias)``, q the cast output taken back to fp32."""
+    ``gelu(q * scale + bias)``, q the cast output taken back to fp32.
+
+    ``halo=(top, bot)``: x is a band of a taller scene and its raw halo rows
+    [N,1,W,C] (None at the scene's edge: mirrored) are normalised and
+    activated with it; the statistics and the pooled sum are the band's."""
     N, H, W, C = x.shape
     m = mean.float().repeat_interleave(C // groups_in, -1)[:, None, None, :]
     cf = coef.float().repeat_interleave(C // groups_in, -1)[:, None, None, :]
-    h = F.gelu((x.float() - m) * cf * scale.float() + bias.float())
-    # pad H and W of the NHWC map as the inner dims of a 5-D view
-    hp = F.pad(h.unsqueeze(1), (0, 0, 1, 1, 1, 1), mode="reflect").squeeze(1)
+    xe = x if halo is None else halo_rows(x, *halo)
+    h = F.gelu((xe.float() - m) * cf * scale.float() + bias.float())
+    if halo is None:
+        # pad H and W of the NHWC map as the inner dims of a 5-D view
+        hp = F.pad(h.unsqueeze(1), (0, 0, 1, 1, 1, 1), mode="reflect").squeeze(1)
+    else:
+        hp = mirror_cols(h)
     w9 = w.float().reshape(9, C)
     acc = torch.zeros((N, H, W, C), dtype=torch.float32, device=x.device)
     for dx in range(3):
@@ -275,7 +284,8 @@ def norm_gelu_dwconv3x3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
                         scale: torch.Tensor, bias: torch.Tensor, w: torch.Tensor,
                         groups_in: int = 4, groups_out: int = 4,
                         do_stats: bool = True,
-                        pool_affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                        pool_affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        halo=None):
     """dw3x3(gelu(norm(x))) with reflect borders, fused.
 
     x [N,H,W,C] (bf16 or fp32, NHWC contiguous, H and W >= 2); mean/coef
@@ -296,7 +306,15 @@ def norm_gelu_dwconv3x3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
     (anything else raises); a CPU tensor runs
     :func:`norm_gelu_dwconv3x3_plain`. ``norm_gelu_dwconv3x3.launches``
     counts the kernel launches. Like K3 the kernel has no backward and
-    raises on the card when grad is enabled and an input requires grad."""
+    raises on the card when grad is enabled and an input requires grad.
+
+    ``halo=(top, bot)``: the halo mode. x is one band of rows of a scene
+    split over the ranks of a 2-D mesh and ``top`` / ``bot`` [N,1,W,C] are
+    the raw input rows just above and below it (None at the scene's edge,
+    which mirrors), normalised and activated like the band's own; the
+    statistics and the pooled sum cover the band's own rows (operator
+    ``uncrtaints::norm_gelu_dwconv3x3_halo``; its launches are counted in
+    ``launches`` and ``halo_launches``)."""
     name = "norm_gelu_dwconv3x3"
     if x.dim() != 4 or tuple(w.shape) != (3, 3, x.shape[-1]):
         raise ValueError(f"{name}: x [N,H,W,C] and w [3,3,C] expected, got "
@@ -322,13 +340,19 @@ def norm_gelu_dwconv3x3(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
         _refuse_grad(name, (x, mean, coef, scale, bias, w,
                             *(pool_affine if pool_affine is not None else ())))
     pscale, pbias = pool_affine if pool_affine is not None else (None, None)
+    if halo is not None:
+        check_halo(name, x, halo)
+        *result, pool = torch.ops.uncrtaints.norm_gelu_dwconv3x3_halo(
+            x, *halo, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_out,
+            do_stats)
+        return tuple(result) if pool_affine is None else (*result, pool)
     *result, pool = torch.ops.uncrtaints.norm_gelu_dwconv3x3(
         x, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_out, do_stats)
     return tuple(result) if pool_affine is None else (*result, pool)
 
 
 def _k4_launch(x, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_out,
-               do_stats):
+               do_stats, halo=None):
     """The CUDA kernel's launch (the operator's CUDA implementation); the
     fourth value is [0] without ``pscale``."""
     name = "norm_gelu_dwconv3x3"
@@ -347,8 +371,8 @@ def _k4_launch(x, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_o
     small = (mean, coef, scale, bias, w9, *((pscale, pbias) if pooled else ()))
     if any(t.device != x.device for t in small):
         raise ValueError(f"{name}: all tensors must be on x's device")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (x, *(halo or ())) if t is not None):
+        raise ValueError(f"{name}: x and its halo rows must be 16-byte aligned")
 
     dev = x.device
     out = torch.empty_like(x)
@@ -368,18 +392,25 @@ def _k4_launch(x, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_o
     if pooled:
         ppool = torch.empty((rows, C), dtype=torch.float32, device=dev)
     ptr = lambda t: t.data_ptr() if t is not None else None
-    fn = _build.kernel("uncr_norm_gelu_dwconv3x3", [
-        vp, ci, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, ci,
-        vp, vp, vp, vp, vp])
+    args = (_build.DTYPE_CODES[x.dtype], mean.data_ptr(),
+            coef.data_ptr(), groups_in, scale.data_ptr(), bias.data_ptr(),
+            w9.data_ptr(), out.data_ptr(), N, H, W, C, ptr(psum),
+            ptr(psq), s1.data_ptr(), s2.data_ptr(), groups_out,
+            ptr(pscale), ptr(pbias), ptr(ppool), ptr(pool if pooled else None),
+            torch.cuda.current_stream(dev).cuda_stream)
+    types = [ci, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, ci,
+             vp, vp, vp, vp, vp]
+    entry = "uncr_norm_gelu_dwconv3x3" if halo is None else "uncr_norm_gelu_dwconv3x3_halo"
     with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), _build.DTYPE_CODES[x.dtype], mean.data_ptr(),
-                 coef.data_ptr(), groups_in, scale.data_ptr(), bias.data_ptr(),
-                 w9.data_ptr(), out.data_ptr(), N, H, W, C, ptr(psum),
-                 ptr(psq), s1.data_ptr(), s2.data_ptr(), groups_out,
-                 ptr(pscale), ptr(pbias), ptr(ppool), ptr(pool if pooled else None),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "uncr_norm_gelu_dwconv3x3")
+        if halo is None:
+            err = _build.kernel(entry, [vp] + types)(x.data_ptr(), *args)
+        else:
+            err = _build.kernel(entry, [vp] * 3 + types)(
+                x.data_ptr(), *(ptr(t) for t in halo), *args)
+    _build.check(err, entry)
     norm_gelu_dwconv3x3.launches += 1
+    if halo is not None:
+        norm_gelu_dwconv3x3.halo_launches += 1
     return out, s1, s2, pool
 
 
@@ -424,4 +455,42 @@ def _k4_flops(x_shape, *args, out_shape=None, **kwargs) -> int:
     return 2 * 9 * math.prod(x_shape)
 
 
+# K4's halo mode (``torch.ops.uncrtaints.norm_gelu_dwconv3x3_halo``): the
+# raw halo rows ``top`` / ``bot`` [N,1,W,C] (None at the scene's edge) after
+# x, otherwise the operator above
+
+@torch.library.custom_op("uncrtaints::norm_gelu_dwconv3x3_halo", mutates_args=(),
+                         device_types="cuda")
+def _k4h(x: torch.Tensor, top: Optional[torch.Tensor], bot: Optional[torch.Tensor],
+         mean: torch.Tensor, coef: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+         w: torch.Tensor, pscale: Optional[torch.Tensor], pbias: Optional[torch.Tensor],
+         groups_in: int, groups_out: int,
+         do_stats: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _k4_launch(x, mean, coef, scale, bias, w, pscale, pbias, groups_in,
+                      groups_out, do_stats, halo=(top, bot))
+
+
+@_k4h.register_kernel("cpu")
+def _k4h_cpu(x, top, bot, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_out,
+             do_stats):
+    pooled = pscale is not None
+    res = norm_gelu_dwconv3x3_plain(
+        x, mean, coef, scale, bias, w, groups_in=groups_in, groups_out=groups_out,
+        do_stats=do_stats, pool_affine=(pscale, pbias) if pooled else None, halo=(top, bot))
+    return res if pooled else (*res, x.new_zeros((0,), dtype=torch.float32))
+
+
+@_k4h.register_fake
+def _k4h_fake(x, top, bot, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_out,
+              do_stats):
+    return _k4_fake(x, mean, coef, scale, bias, w, pscale, pbias, groups_in, groups_out,
+                    do_stats)
+
+
+@register_flop_formula(torch.ops.uncrtaints.norm_gelu_dwconv3x3_halo)
+def _k4h_flops(x_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * 9 * math.prod(x_shape)
+
+
 norm_gelu_dwconv3x3.launches = 0
+norm_gelu_dwconv3x3.halo_launches = 0

@@ -133,7 +133,12 @@ def make_eval_step(cfg: Config, with_metrics: bool = False,
     The step runs under ``torch.inference_mode()`` with the model in eval
     mode. ``pred`` and ``var`` are rescaled to data units (mean / scale_by,
     variance / scale_by^2); ``with_metrics`` adds {name: [B]} image metrics;
-    ``return_outputs=False`` (with metrics only) leaves pred and var out."""
+    ``return_outputs=False`` (with metrics only) leaves pred and var out.
+
+    Under a spatial split (a 2-D mesh, parallel/mesh.py) ``batch`` holds
+    this rank's band of rows of its samples (``shard_batch``): pred and var
+    are the band's, the loss and the metrics the whole samples', the same
+    on every rank of the spatial group."""
     if not return_outputs and not with_metrics:
         raise ValueError("return_outputs=False requires with_metrics=True "
                          "(the step would compute nothing observable)")
@@ -146,6 +151,9 @@ def make_eval_step(cfg: Config, with_metrics: bool = False,
         x, y, y_u = _prepare_xy(cfg, batch, rescale_method)
         mean, var = eval_forward(cfg, model, x, batch.get("dates"))
         loss, variance = calc_loss(criterion, cfg, mean, y, var=var)
+        sp = mesh.spatial()
+        if sp is not None:  # the mean over the scenes' pixels (even bands)
+            loss = mesh.spatial_sum(loss, sp) / sp.n_spatial
         pred = mean / s
         rvar = variance / (s * s) if variance is not None else None
         aux = {"loss": loss}
@@ -279,11 +287,13 @@ def make_train_step(cfg: Config, rescale_method: str = "default") -> Callable:
     microbatch losses.
 
     Under data parallel (a process group initialised, parallel/mesh.py)
-    ``batch`` holds this rank's rows of the global batch: each rank weighs
-    its loss by its share of the global rows, the gradients and the loss are
-    summed over the ranks in one all-reduce before Adam, and the batch norms
-    take the global batch's statistics; so every rank makes the update of
-    the global batch's mean loss, and the returned loss is that loss."""
+    ``batch`` holds this rank's rows of the global batch (on a 2-D mesh,
+    its band of rows of its samples): each rank weighs its loss by its
+    share of the global pixels, the gradients and the loss are summed over
+    the ranks in one all-reduce before Adam, and the batch norms take the
+    global batch's statistics; so every rank makes the update of the global
+    batch's mean loss, and the returned loss is that loss. (Weighing by
+    rows would count each sample once a band.)"""
     criterion = get_loss(cfg)
     s = cfg.scale_by
     k = max(1, int(getattr(cfg, "accum_steps", 1) or 1))
@@ -315,10 +325,12 @@ def make_train_step(cfg: Config, rescale_method: str = "default") -> Callable:
         weight = None
         if mesh.active():
             # data parallel: each rank's microbatch losses weigh by its share
-            # of the global rows, so that the summed gradient is the global
-            # mean loss's, an uneven split included
-            rows = mesh.all_reduce_sum(torch.full((1,), float(B), device=x.device))
-            weight = (B / k) / rows
+            # of the global pixels (rows x the band's pixels), so that the
+            # summed gradient is the global mean loss's, an uneven split and
+            # a spatial split included
+            pix = y.shape[-3] * y.shape[-2]
+            total = mesh.all_reduce_sum(torch.full((1,), float(B * pix), device=x.device))
+            weight = (B / k * pix) / total
         grads: List[torch.Tensor] = []
         losses, means, variances = [], [], []
         for i in range(k):  # one microbatch unless accumulating
