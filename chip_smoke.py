@@ -61,6 +61,13 @@ runs under ``torch.profiler``: no ``reflection_pad`` kernel may appear (the
 reflect border lives in K5 and K2), and the device time is printed by kind.
 Phase 5 compares one fp32 train step on the card with the same step on
 the CPU on a small input.
+The remat phase runs the paper recipe's train step at B=4 and B=8 without
+and with ``remat`` (each block recomputed in the backward under
+``torch.utils.checkpoint``), from the same weights on the same batch: peak
+memory, step time, device-busy time and launches a step (remat: 18 K5, 6
+K2, 1 K1, 1 K1-bwd); remat's peak must be below the plain one, its first
+loss bit-equal and its gradients within 1e-3 RMSE of each largest element
+or twice the plain step's own run-to-run gap.
 Phase 6 runs the entry points a user starts, in a temporary directory, at
 the paper recipe's full width (bf16, B=4, T=3, 256x256, synthetic data, 8
 samples a split, gamma 0.8): ``cli.train.main`` for one epoch, the same run
@@ -151,6 +158,10 @@ gradient for every parameter but those zero in exact arithmetic) and
 and each rank's launches (1 K1 + 10 K3 + 5 K4 a forward, K4 in halo mode; 1
 K1 + 1 K1-bwd + 12 K5 + 6 K2 a train step, K5 and K2 in halo mode), its
 train-step peak memory and its collectives' host time are printed.
+The ranks and this process also run UNet3D (T=4), FPN + ConvLSTM and U-TAE
+at its published widths (MSE, attention dropout off) on the same layout:
+eval step, ``predict_scene(mesh=)`` and one train step, held against one
+process with the same gates, each rank's launches equal to one process's.
 Meanwhile this process runs ``cli.train --ckpt_backend orbax`` (asynchronous
 ``.dcp`` checkpoints) for one epoch, resumed to two, and ``cli.test``, whose
 metrics must equal to the bit a ``cli.test`` of the same weights written
@@ -1280,6 +1291,107 @@ def phase4_train(dev, batches):
     return counts, ms
 
 
+# the remat phase: the paper recipe's train step with and without --remat
+REMAT_BATCHES, REMAT_STEPS = (4, 8), 3
+
+
+def phase_remat(dev):
+    """The paper recipe's train step (bf16) at B=4 and B=8, without and
+    with ``remat`` (each UnCRtainTS block recomputed in the backward), from
+    the same seeded weights on the same batch: peak device memory, median
+    step ms of ``REMAT_STEPS``, one more step's device time under the
+    profiler, the launches a step (remat: K5 18 = 6 forwards + 6 recomputed
+    forwards + 6 folded adjoints; K2 6, K1 1, K1-bwd 1). Gates: remat's
+    peak below the plain one at each batch, the first step's loss
+    bit-equal, every gradient within RMSE max(1e-3, twice the plain step's
+    own run-to-run gap) of its largest element from the plain one (not
+    those zero in exact arithmetic, whose rounding noise is not
+    comparable), every gradient finite and non-zero but those zero in exact
+    arithmetic. Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from uncrtaints_tpu_torch.config import Config, derive
+    from uncrtaints_tpu_torch.data import SyntheticSEN12MSCRTS, collate_multi
+    from uncrtaints_tpu_torch.train import batch_to_device, create_train_state, make_train_step
+    kernels = kernel_wrappers()
+    total = dict.fromkeys(kernels, 0)
+    ds = SyntheticSEN12MSCRTS(n_samples=max(REMAT_BATCHES), n_input_t=T, patch_size=PATCH,
+                              seed=SEED + 15)
+    for nb in REMAT_BATCHES:
+        batch = batch_to_device(collate_multi([ds[i] for i in range(nb)], use_sar=True), dev)
+        res = {}
+        for remat in (False, True):
+            cfg = derive(Config(use_sar=True, scale_by=10.0, remat=remat))
+            model = seeded_model(cfg, dev)
+            state, step = create_train_state(cfg, model), make_train_step(cfg)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            for f in kernels.values():
+                f.launches = 0
+            times, first = [], None
+            for _ in range(REMAT_STEPS):
+                t0 = time.perf_counter()
+                state, aux = step(state, batch, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if first is None:
+                    first = (aux["loss"].clone(), {n: g.clone() for n, g in aux["grads"].items()})
+            counts = {k: f.launches for k, f in kernels.items()}
+            peak = torch.cuda.max_memory_allocated(dev)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step(state, batch, gen)
+                torch.cuda.synchronize()
+            kinds, _, _ = device_time_by_kind(prof, KERNEL_KINDS)
+            for k, n in counts.items():
+                total[k] += n
+            res[remat] = dict(peak=peak, ms=statistics.median(times), counts=counts,
+                              busy=sum(t for t, _ in kinds.values()), first=first,
+                              zero=exact_zero_gradients(model))
+            if not remat:  # the plain first step once more: the run-to-run noise
+                _, aux = step(create_train_state(cfg, seeded_model(cfg, dev)), batch,
+                              torch.Generator(device=dev).manual_seed(SEED + 4))
+                again = {n: g.clone() for n, g in aux["grads"].items()}
+            del model, state, aux
+            torch.cuda.empty_cache()
+        plain, rem = res[False], res[True]
+        for remat, r in res.items():
+            per = {k: r["counts"][k] // REMAT_STEPS for k in ("K5", "K2", "K1", "K1-bwd")}
+            print(f"remat phase: paper recipe train step, bf16, B={nb}, T={T}, {PATCH}x{PATCH}, "
+                  f"remat {remat}: peak device memory {r['peak'] / 2**30:.3f} GiB ({r['peak']} "
+                  f"bytes), step {r['ms']:.2f} ms (median of {REMAT_STEPS}), device busy "
+                  f"{r['busy']:.2f} ms (one step under the profiler), launches a step {per}")
+            want = {"K5": 18 if remat else 12, "K2": 6, "K1": 1, "K1-bwd": 1, "K3": 0, "K4": 0}
+            check(r["counts"] == {k: n * REMAT_STEPS for k, n in want.items()},
+                  f"B={nb} remat {remat}: launches {r['counts']} in {REMAT_STEPS} steps, "
+                  f"expected {want} a step")
+        (lp, gp), (lr, gr) = plain["first"], rem["first"]
+        # held: every gradient but those zero in exact arithmetic (noise),
+        # against the plain step's own run-to-run noise (the attention
+        # upsample's backward sums bf16 with atomics, in no fixed order)
+        held = [n for n in gp if n not in plain["zero"]]
+        rel = lambda a, n: float((a[n] - gp[n]).float().square().mean().sqrt()) / float(
+            gp[n].abs().max())
+        gaps = {n: rel(gr, n) for n in held}
+        worst = max(gaps, key=gaps.get)
+        floor = max(rel(again, n) for n in held)
+        bound = max(1e-3, 2 * floor)
+        bad = [n for n, g in gr.items()
+               if not bool(torch.isfinite(g).all()) or (float(g.abs().max()) == 0
+                                                        and n not in rem["zero"])]
+        print(f"  B={nb}: remat / plain peak {rem['peak'] / plain['peak']:.3f}, step time "
+              f"{rem['ms'] / plain['ms']:.3f}, device busy {rem['busy'] / plain['busy']:.3f}; "
+              f"first loss {float(lr)!r} vs {float(lp)!r} (bit-equal {bool(torch.equal(lr, lp))});"
+              f" largest gradient RMSE over max {gaps[worst]:.3g} ({worst}; {len(held)} of "
+              f"{len(gp)} gradients held), plain against plain {floor:.3g} (bound "
+              f"{bound:.3g})")
+        check(rem["peak"] < plain["peak"], f"B={nb}: remat peak {rem['peak']} not below "
+                                           f"{plain['peak']}")
+        check(torch.equal(lr, lp), f"B={nb}: remat's first loss {float(lr)} != {float(lp)}")
+        check(gaps[worst] <= bound, f"B={nb}: remat gradient of {worst} off by {gaps[worst]}")
+        check(not bad, f"B={nb}: remat gradients zero or not finite: {bad[:8]}")
+    return total
+
+
 # device kernels of a train step by kind: the first fragment found in a
 # kernel's name decides (the hand-written kernels first; a GELU or a copy is
 # an elementwise kernel by name, so they come before it)
@@ -1888,12 +2000,20 @@ FAMILIES = {"unet (pretrain)": dict(model="unet", encoder_widths=[64, 64, 64, 12
 def exact_zero_gradients(model):
     """The parameters whose gradient is zero in exact arithmetic in a train
     step: a bias that feeds a batch norm in training (the norm takes out its
-    mean) and the L-TAE's key bias (a shift of every logit of a pixel, under
-    the softmax over T). Rounding leaves noise there, or an exact zero."""
+    mean), also through a bias-free convolution (a batch-norm MBConv's
+    PreNorm bias ahead of pw1), and the L-TAE's key bias and, in the tiny
+    L-TAE whose input feeds only the keys, its input norm's and input conv's
+    biases (a shift of every logit of a pixel, under the softmax over T).
+    Rounding leaves noise there, or an exact zero."""
+    from uncrtaints_tpu_torch.models.blocks import MBConv
     from uncrtaints_tpu_torch.models.layers import Norm2d
-    from uncrtaints_tpu_torch.models.ltae import BatchNorm1d
+    from uncrtaints_tpu_torch.models.ltae import BatchNorm1d, LTAE2dtiny
     names = set()
     for prefix, mod in model.named_modules():
+        if isinstance(mod, MBConv) and mod.norm == "batch" and mod.expansion != 1:
+            names.add(f"{prefix}.conv.norm.bias")
+        if isinstance(mod, LTAE2dtiny):
+            names |= {f"{prefix}.in_norm.bias", f"{prefix}.inconv.bias"}
         if isinstance(mod, torch.nn.Sequential):
             kids = list(mod.children())
             for i, (a, b) in enumerate(zip(kids, kids[1:])):
@@ -2455,6 +2575,99 @@ def _phase10_steps(dev, batch, scene, mesh=None, timing=None):
     return res
 
 
+# the other families phase 10 holds on the mesh (MSE, bf16, B=4, 256x256):
+# UNet3D at T=4, FPN + ConvLSTM, and U-TAE at its published widths (K1 at its
+# skip levels); the attention dropout off (each band would draw its own)
+SPATIAL_FAMILIES = {"unet3d": dict(model="unet3d", input_t=4), "fpn": dict(model="fpn"),
+                    "utae": dict(model="utae", encoder_widths=[64, 64, 64, 128],
+                                 decoder_widths=[32, 32, 64, 128], out_conv=[13], n_head=16,
+                                 d_model=256, d_k=4)}
+
+
+def _phase10_family(dev, name, mesh=None):
+    """A family's eval step, ``predict_scene`` on a 512x512 scene and one
+    train step (seeded weights) on B=4 synthetic samples, this rank's band
+    of them under ``mesh``: losses, outputs, gradients and launches."""
+    from uncrtaints_tpu_torch.config import Config, derive
+    from uncrtaints_tpu_torch.data import SyntheticSEN12MSCRTS, collate_multi
+    from uncrtaints_tpu_torch.infer import predict_scene
+    from uncrtaints_tpu_torch.parallel import shard_batch
+    from uncrtaints_tpu_torch.train import (batch_to_device, create_train_state,
+                                            make_eval_step, make_train_step)
+    cfg = derive(Config(use_sar=True, loss="l2", **SPATIAL_FAMILIES[name]))
+    model = seeded_model(cfg, dev)
+    te = getattr(model, "temporal_encoder", None)
+    if te is not None and hasattr(te, "use_dropout"):
+        te.use_dropout, te.dropout = False, 0.0
+    kernels = kernel_wrappers()
+    ds = SyntheticSEN12MSCRTS(n_samples=B, n_input_t=cfg.input_t, patch_size=PATCH, seed=SEED + 13)
+    batch = collate_multi([ds[j] for j in range(B)], use_sar=True)
+    sc = collate_multi([SyntheticSEN12MSCRTS(n_samples=1, n_input_t=cfg.input_t,
+                                             patch_size=SCENE_2D, seed=SEED + 14)[0]])
+    b = batch_to_device(batch if mesh is None else shard_batch(batch, mesh), dev)
+
+    def counted(fn):
+        for f in kernels.values():
+            f.launches = 0
+        r = fn()
+        torch.cuda.synchronize()
+        return r, {k: f.launches for k, f in kernels.items()}
+
+    step = make_eval_step(cfg, with_metrics=True)
+    step(model, b)  # warm-up
+    res = {"top": float(batch["y"].max())}
+    ev, res["eval counts"] = counted(lambda: step(model, b))
+    res["eval"] = {"loss": float(ev["loss"]), "pred": ev["pred"].float().cpu()}
+    out, res["scene counts"] = counted(lambda: predict_scene(
+        model, cfg, sc["x"][0], sc["dates"][0], mesh=mesh, tile=PATCH, overlap=64, batch_size=B))
+    res["scene"] = out["pred"]
+    tstep = make_train_step(cfg)
+    (_, aux), res["train counts"] = counted(
+        lambda: tstep(create_train_state(cfg, model), b, torch.Generator(device=dev)))
+    res["train loss"] = float(aux["loss"])
+    res["grads"] = {n: (bool(torch.isfinite(g).all()), float(g.abs().max()))
+                    for n, g in aux["grads"].items()}
+    res["zero ok"] = sorted(exact_zero_gradients(model))
+    return res
+
+
+def family_report(one, got, n_data, n_spatial, label):
+    """Hold each family's results on the mesh (``got``: the ranks' results,
+    each with its ``families``) against one process's ``one`` with phase
+    10's gates; returns the launches of all of them."""
+    ns, total = n_spatial, collections.Counter()
+    for name, o in one.items():
+        fam = [g["families"][name] for g in got]
+        groups = [fam[d * ns:(d + 1) * ns] for d in range(n_data)]
+        lgap = _relgap(statistics.mean(g[0]["eval"]["loss"] for g in groups), o["eval"]["loss"])
+        whole = torch.cat([torch.cat([v["eval"]["pred"] for v in g], dim=2) for g in groups])
+        check(tuple(whole.shape) == tuple(o["eval"]["pred"].shape),
+              f"{name}: stitched pred {tuple(whole.shape)}")
+        rmse = float((whole - o["eval"]["pred"]).square().mean().sqrt()) / o["top"]
+        d = fam[0]["scene"] - o["scene"]
+        srmse = float(np.sqrt(np.mean(np.square(d)))) / float(np.abs(o["scene"]).max())
+        tgap = max(_relgap(f["train loss"], o["train loss"]) for f in fam)
+        bad = [n for f in fam for n, (fin, mx) in f["grads"].items()
+               if not fin or (mx == 0 and n not in f["zero ok"])]
+        print(f"{label}: {name} on the {n_data} x {ns} mesh (MSE, bf16, B={B}, "
+              f"{PATCH // ns}-row bands) against one process: eval loss relative gap {lgap:.3g} "
+              f"(<= 1e-3), pred RMSE over max|y| {rmse:.3g} (<= 5e-3); predict_scene RMSE over "
+              f"max {srmse:.3g} (<= 5e-3); train loss largest relative gap {tgap:.3g} (<= 5e-3); "
+              f"launches a rank: eval {fam[0]['eval counts']}, train {fam[0]['train counts']}")
+        check(lgap <= 1e-3 and rmse <= 5e-3, f"{name} on the mesh: eval {lgap}, {rmse}")
+        check(srmse <= 5e-3, f"{name} on the mesh: predict_scene {srmse}")
+        check(tgap <= 5e-3, f"{name} on the mesh: train loss {tgap}")
+        check(not bad, f"{name} on the mesh: gradients zero or not finite: {bad[:8]}")
+        for f in fam:
+            check(f["eval counts"] == o["eval counts"] and f["train counts"] == o["train counts"],
+                  f"{name}: a rank launched {f['eval counts']} / {f['train counts']}, one "
+                  f"process {o['eval counts']} / {o['train counts']}")
+        for r in (o, *fam):
+            for part in ("eval counts", "scene counts", "train counts"):
+                total.update(r[part])
+    return dict(total)
+
+
 def spatial_rank(out_dir, n_data, n_spatial):
     """One rank of an n_data x n_spatial mesh (phase 10, started by
     torchrun): NCCL with a card a rank, else gloo (ranks sharing a card:
@@ -2497,6 +2710,7 @@ def spatial_rank(out_dir, n_data, n_spatial):
                 mesh_mod._gather, mesh_mod.all_reduce_sum = saved
 
         res = _phase10_steps(dev, shard_batch(batch, m), scene, mesh=m, timing=timing)
+        res["families"] = {name: _phase10_family(dev, name, m) for name in SPATIAL_FAMILIES}
         res["coords"] = (m.data_rank, m.spatial_rank)
         res["backend"] = torch.distributed.get_backend()
         if rank:
@@ -2720,11 +2934,13 @@ def phase10_spatial(dev, tmp):
     try:
         batch, scene = _spatial_inputs()
         one = _phase10_steps(dev, batch, scene)
+        one_families = {name: _phase10_family(dev, name) for name in SPATIAL_FAMILIES}
         orbax = _phase10_orbax(tmp)
     finally:
         got = finish_spatial_ranks(ranks, out, 1, SPATIAL)
     counts = spatial_report(one, got, batch, 1, SPATIAL, "phase 10")
-    return {k: orbax[k] + n for k, n in counts.items()}
+    fams = family_report(one_families, got, 1, SPATIAL, "phase 10")
+    return {k: orbax[k] + n + fams.get(k, 0) for k, n in counts.items()}
 
 
 def main():
@@ -2765,6 +2981,8 @@ def main():
     took("phase 4")
     phase5_train_reference(dev)
     took("phase 5")
+    remat = phase_remat(dev)
+    took("the remat phase")
     del batches
     native = {}  # the loader alone with and without the native slab writers
     with tempfile.TemporaryDirectory() as work:
@@ -2782,16 +3000,17 @@ def main():
         took("phase 9")
         spatial = phase10_spatial(dev, work)
         took("phase 10")
-    print(f"launches by path: eval {evalc}; scene {scene}; train {train}; CLIs {cli}; "
+    print(f"launches by path: eval {evalc}; scene {scene}; train {train}; remat {remat}; "
+          f"CLIs {cli}; "
           f"real data {real}; U-TAE {utae}; other families {families}; ensemble members "
           f"{members}; export and the traced run {modules}; spatial mesh and orbax {spatial}")
 
-    # launches: the sum over the paths' runs (eval, scene, train, the CLI
-    # chain, the real-data CLIs, U-TAE's CLIs and bare steps, the other
+    # launches: the sum over the paths' runs (eval, scene, train, remat, the
+    # CLI chain, the real-data CLIs, U-TAE's CLIs and bare steps, the other
     # families, the ensemble's members, one exported call and the traced
     # run, the spatial ranks and the orbax chain), each counted from 0 just
     # before the path to just after it
-    paths = (evalc, scene, train, cli, real, utae, families, members, modules, spatial)
+    paths = (evalc, scene, train, remat, cli, real, utae, families, members, modules, spatial)
     meta = {  # name: (source, the TPU kernel it replaces, its counter)
         "att_group_aggregate": ("aggregate.cu", "pallas_aggregate.py:268", "K1"),
         "att_group_aggregate_bwd": ("aggregate.cu", "pallas_aggregate.py:164", "K1-bwd"),

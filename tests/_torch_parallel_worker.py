@@ -12,8 +12,11 @@ with its file writers counted; writes ``cli_rank<r>.pt``. ``spatial``: on a
 ``spatial_inputs.pt`` (written by ``tests/test_torch_spatial.py``): the halo
 exchange's gradient through K5's halo mode, the eval step (also with the
 attention pooled and upsampled), one train step, a ``.dcp`` checkpoint
-written by rank 0 and read by every rank, and ``predict_scene``; writes
-``spatial_rank<r>.pt``."""
+written by rank 0 and read by every rank, ``predict_scene``, two train
+steps with and without ``remat``; then every other family of
+``get_generator`` (:data:`FAMILIES`: eval step, ``predict_scene``, one
+train step), the layer cases of :func:`layer_cases` band by band with their
+gradients, and ``spatial_max``; writes ``spatial_rank<r>.pt``."""
 
 import os
 import sys
@@ -131,6 +134,111 @@ def dcp_round_trip(cfg, state, rank):
     return all(torch.equal(a[k], b[k]) for k in a) and fresh.opt_state.count == 1
 
 
+# every family get_generator builds besides UnCRtainTS, fp32 on the CPU, at
+# small widths where the config's widths reach the model (the recurrent ones
+# take the JAX package's defaults), the MSE loss (no variance head)
+SMALL = dict(encoder_widths=[8, 8, 8, 16], decoder_widths=[8, 8, 8, 16], n_head=4, d_model=16)
+FAMILIES = {"unet": dict(model="unet", **SMALL), "utae": dict(model="utae", **SMALL),
+            "unet3d": dict(model="unet3d", input_t=4), "uconvlstm": dict(model="uconvlstm"),
+            "buconvlstm": dict(model="buconvlstm"), "convlstm": dict(model="convlstm"),
+            "convgru": dict(model="convgru"), "fpn": dict(model="fpn")}
+FAMILY_SCENE_KW = dict(tile=32, overlap=8, batch_size=2)
+
+
+def family_cfg(name):
+    return derive(Config(use_sar=True, compute_dtype="float32", device="cpu", loss="l2",
+                         lr=1e-3, batch_size=2, **FAMILIES[name]))
+
+
+def family_inputs(T, B=2, H=32):
+    """A batch of B samples (one frame's top half all pad: its top band is
+    pad, the scene's frame is not) and a 64x48 scene."""
+    rng = np.random.default_rng(3)
+    x = rng.random((B, T, H, H, 15)).astype(np.float32)
+    x[1, T - 1, :H // 2] = 0.0
+    batch = {"x": x, "y": rng.random((B, 1, H, H, 13)).astype(np.float32),
+             "dates": rng.integers(0, 1500, (B, T)).astype(np.float32)}
+    scene = rng.random((T, 64, 48, 15)).astype(np.float32)
+    return batch, (scene, np.sort(rng.integers(0, 1500, T)).astype(np.float32))
+
+
+def run_family(name, state_dict=None, mesh=None):
+    """The eval step, ``predict_scene`` and one train step of a family (the
+    seeded weights, or ``state_dict``; attention dropout off: each band
+    would draw its own) on :func:`family_inputs`, this rank's part of them
+    under ``mesh``."""
+    from uncrtaints_tpu_torch.infer import predict_scene
+    cfg = family_cfg(name)
+    model = get_generator(cfg)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    te = getattr(model, "temporal_encoder", None)
+    if te is not None and hasattr(te, "use_dropout"):
+        te.use_dropout, te.dropout = False, 0.0
+    batch, (scene, dates) = family_inputs(cfg.input_t)
+    b = batch_to_device(batch if mesh is None else shard_batch(batch, mesh), "cpu")
+    res = {"eval": make_eval_step(cfg, with_metrics=True)(model, b),
+           "scene": predict_scene(model, cfg, scene, dates, mesh=mesh, **FAMILY_SCENE_KW)}
+    _, aux = make_train_step(cfg)(create_train_state(cfg, model), b,
+                                  torch.Generator().manual_seed(0))
+    res["train"] = {"loss": float(aux["loss"]), "pred": aux["pred"], "grads": aux["grads"]}
+    return res
+
+
+def layer_cases():
+    """name: (module or function, input shape, row axis) of the layers held
+    band by band against the whole scene: U-Net's strided 4x4 conv and its
+    transposed conv, UNet3D's conv and transposed conv, MBConv downsample's
+    depthwise 3x3 stride-2 conv and its 3x3 stride-2 max pool, and the
+    spatial max (ties across bands planted by :func:`layer_inputs`)."""
+    from uncrtaints_tpu_torch.models import blocks, layers, unet, unet3d
+    from uncrtaints_tpu_torch.parallel import mesh as mesh_mod
+    torch.manual_seed(7)
+    return {
+        "down": (layers.Conv2d(4, 6, kernel=4, stride=2, pad=1), (2, 32, 9, 4), 1),
+        "up": (unet.ConvTranspose2d(4, 6), (2, 16, 9, 4), 1),
+        "conv3d": (unet3d.Conv3d(4, 6), (2, 3, 16, 9, 4), 2),
+        "up3d": (unet3d.Conv3d(4, 6, transposed=True), (2, 2, 8, 5, 4), 2),
+        "dw_s2": (layers.Conv2d(4, 4, stride=2, bias=False, groups=4), (2, 16, 9, 4), 1),
+        "pool": (blocks._max_pool_3x3_s2, (2, 16, 9, 4), 1),
+        "max": (lambda a: a.amax(dim=(1, 2)) if mesh_mod.spatial() is None
+                else mesh_mod.spatial_max(a, (1, 2)), (2, 32, 5, 3), 1),
+    }
+
+
+def layer_inputs(name, shape):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    x = rng.standard_normal(shape).astype(np.float32)
+    if name == "max":  # equal maxima: two in one band, one in the other
+        x[0, 3, 1, 0] = x[0, 20, 2, 0] = x[0, 25, 4, 0] = 9.0
+        x[1, 5, 0, 2] = x[1, 30, 3, 2] = 7.5
+    return torch.from_numpy(x)
+
+
+def run_layer(name, mesh=None):
+    """(output, input gradient, parameter gradients) of a layer case on the
+    whole input, or on this rank's band under ``mesh``, against a seeded
+    output gradient."""
+    fn, shape, h = layer_cases()[name]
+    x = layer_inputs(name, shape)
+    if mesh is not None:
+        band = shape[h] // mesh.n_spatial
+        x = x.narrow(h, mesh.spatial_rank * band, band)
+    xb = x.clone().requires_grad_()
+    y = fn(xb)
+    if mesh is None:
+        gy = layer_inputs(name + " gy", y.shape)
+    elif name == "max":  # the scene's max on every band: each holds a share of its loss
+        gy = layer_inputs(name + " gy", y.shape) / mesh.n_spatial
+    else:  # this band's rows of the scene's output gradient
+        whole = [d * mesh.n_spatial if i == h else d for i, d in enumerate(y.shape)]
+        gy = layer_inputs(name + " gy", whole).narrow(h, mesh.spatial_rank * y.shape[h],
+                                                      y.shape[h])
+    (y * gy).sum().backward()
+    params = fn.named_parameters() if isinstance(fn, torch.nn.Module) else ()
+    return y.detach(), xb.grad, {n: p.grad for n, p in params}
+
+
 def job_spatial(out_dir, rank, world):
     from uncrtaints_tpu_torch.infer import predict_scene
     from uncrtaints_tpu_torch.ops.dwconv import dw_stencil
@@ -170,6 +278,11 @@ def job_spatial(out_dir, rank, world):
         model.load_state_dict(inp["state_dict"])
         scene, dates = inp["scene"]
         res["scene"] = predict_scene(model, cfg, scene, dates, mesh=mesh, **inp["scene_kw"])
+        res["remat"] = {flag: train_two_steps(cfg.replace(remat=flag), [batch, batch])
+                        for flag in (False, True)}
+    res["families"] = {name: run_family(name, inp["family_weights"].get(name), mesh)
+                       for name in FAMILIES}
+    res["layers"] = {name: run_layer(name, mesh) for name in layer_cases()}
     torch.save(res, os.path.join(out_dir, f"spatial_rank{rank}.pt"))
 
 

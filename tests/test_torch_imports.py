@@ -85,9 +85,11 @@ CONFIGS = {
                           decoder_widths="[8,16]"),
 }
 # fields that differ by design: the port's default device is the card, and
-# it does not carry the JAX/TPU mechanisms remat, prng_impl and debug_nans
+# it does not carry prng_impl (the JAX PRNG algorithm of the dropout noise;
+# the port draws it from a torch.Generator, whose algorithm CUDA offers no
+# choice of)
 PORT_ONLY_DIFFERENCES = {"device"}
-NOT_CARRIED = {"remat", "prng_impl", "debug_nans"}
+NOT_CARRIED = {"prng_impl"}
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -118,16 +120,60 @@ def test_config_defaults_flags_and_json_round_trip(tmp_path):
     assert (tc.NO_OVERWRITE_RESUME, tc.NO_OVERWRITE_TEST) == (
         jc.NO_OVERWRITE_RESUME,
         jc.NO_OVERWRITE_TEST + ["use_custom", "mesh_shape", "trace_dir", "profile"])
-    # a conf.json written by the JAX package loads in the port (the fields
-    # it does not carry are dropped) and the other way round
+    # a conf.json written by the JAX package loads in the port (the field
+    # it does not carry is dropped; remat and debug_nans are carried) and
+    # the other way round
     path = str(tmp_path / "conf.json")
-    jc.derive(jc.Config(use_sar=True, remat=True)).save_json(path)
+    jc.derive(jc.Config(use_sar=True, remat=True, debug_nans=True,
+                        prng_impl="rbg")).save_json(path)
     cfg = tc.Config.load_json(path)
-    assert cfg.use_sar and cfg.out_conv == [26] and not hasattr(cfg, "remat")
+    assert cfg.use_sar and cfg.out_conv == [26] and cfg.remat and cfg.debug_nans
+    assert not hasattr(cfg, "prng_impl")
     cfg.save_json(path)
-    assert jc.Config.load_json(path).out_conv == [26]
+    back = jc.Config.load_json(path)
+    assert back.out_conv == [26] and back.remat and back.prng_impl == "threefry2x32"
     with pytest.raises(TypeError):
-        tc.Config(remat=True)
+        tc.Config(prng_impl="rbg")
+
+
+# the seven parsers of the JAX package and their counterparts: (JAX module,
+# port module, how each builds its parser)
+PARSERS = {
+    "config": ("config", lambda m: m.create_parser()),
+    "cli.train": ("config", lambda m: m.create_parser("train")),
+    "cli.test": ("config", lambda m: m.create_parser("test")),
+    "cli.ensemble": ("cli.ensemble", lambda m: m.create_parser()),
+    "cli.precompute": ("cli.precompute", lambda m: m.create_parser()),
+    "cli.convert": ("cli.convert", lambda m: m.create_parser()),
+    "cli.download": ("cli.download", lambda m: m.create_parser()),
+}
+# flags the port does not carry (above), and the port's own: where the masks
+# or the metrics run (the card by default)
+JAX_ONLY_FLAGS = {"--prng_impl"}
+PORT_ONLY_FLAGS = {"cli.ensemble": {"--device"}, "cli.precompute": {"--device"},
+                   "cli.convert": {"--device"}}
+
+
+@pytest.mark.parametrize("name", list(PARSERS))
+def test_parsers_have_the_jax_packages_flags(name):
+    """Every flag of each JAX parser parses in the port's counterpart, but
+    ``--prng_impl``; the port adds only ``--device`` where it names one."""
+    import importlib
+    mod, build = PARSERS[name]
+    flags = lambda pkg: set(build(importlib.import_module(f"{pkg}.{mod}"))._option_string_actions)
+    ref, got = flags("uncrtaints_tpu"), flags("uncrtaints_tpu_torch")
+    assert ref - got == (JAX_ONLY_FLAGS if mod == "config" else set())
+    assert got - ref == PORT_ONLY_FLAGS.get(name, set())
+
+
+def test_new_flags_parse():
+    """``--remat``, ``--debug_nans`` and ``--vary`` parse in the port."""
+    from uncrtaints_tpu_torch import config as tc
+    from uncrtaints_tpu_torch.cli import precompute
+    cfg = tc.parse_config(["--remat", "--debug_nans"])
+    assert cfg.remat and cfg.debug_nans
+    assert not tc.parse_config([]).remat and not tc.parse_config([]).debug_nans
+    assert precompute.create_parser().parse_args(["--root", "r", "--vary", "30"]).vary == 30
 
 
 # --------------------------------------------------------------- data --

@@ -11,16 +11,30 @@ halo-concatenated input, their operators through ``opcheck``. One start of
 fp32) against one process: the halo exchange's gradient, the eval step
 (also with the attention pooled to 8x8 and upsampled), one train step and
 ``predict_scene(mesh=)``; and the same eval against the JAX package's own
-2 x 4 mesh on the 8 virtual CPU devices, on the same weights.
+2 x 4 mesh on the 8 virtual CPU devices, on the same weights. In the same
+start: two train steps with and without ``remat``; every other family
+``get_generator`` builds (U-Net, U-TAE, UNet3D, the recurrent U-Nets,
+ConvLSTM, ConvGRU, FPN) against one process, UNet3D and FPN also against
+the JAX 2 x 4 mesh; and the layers that read across bands (strided and
+transposed convs, MBConv downsample's pool, the spatial max with ties
+across bands) band by band, with their gradients, against the whole scene.
+The refusals that remain run in one process on a mesh of two bands.
 
 Tolerances (fp32): the bands sum their statistics, losses and metrics in
 another order than one process, so outputs agree to 1e-5 (the eval loss and
-metrics relative, pred and var absolute), the train loss to 1e-5 relative
+metrics relative, pred and var absolute; the families' to 1e-5 of the
+largest output), the train loss to 1e-5 relative
 and the parameters after one Adam step to 1e-5, except where a gradient is
 zero in exact arithmetic (ROADMAP section 3): there both sides hold rounding
 noise that Adam turns into a step of up to lr, held to 2 lr. The plain halo
 modes stitch to 1e-6 of the largest output (the forward bit-equal; the
-adjoint's edge rows and K2's and K4's partial sums add in another order). Against the JAX 2 x 4 mesh
+adjoint's edge rows and K2's and K4's partial sums add in another order).
+A family's train step (train-mode batch statistics of two 32x32 samples)
+is held to its tolerance in ``tests/test_torch_baselines.py``,
+``test_torch_utae.py`` and ``test_torch_recurrent.py``: the loss and the
+train-mode outputs to 1e-4 (RecUNet 2e-3), the gradients to 0.25 of their
+norm (U-TAE's bound; the other families read 2e-7 to 1.6e-2). The remat
+steps equal the plain ones to 1e-6. Against the JAX 2 x 4 mesh
 the JAX test's own tolerances hold (loss rtol 2e-4, pred 2e-3); the measured
 gaps are printed.
 """
@@ -43,6 +57,7 @@ from uncrtaints_tpu_torch.train.engine import make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tests"))
+import _torch_parallel_worker as worker  # noqa: E402
 from test_torch_parallel import _run_ranks  # noqa: E402
 
 # the JAX test's tiny recipe (tests/test_spatial_sharding.py:_tiny_cfg), fp32
@@ -293,6 +308,31 @@ def _jax_side(batch):
     return grab(one), grab(sharded), sd
 
 
+def _jax_families():
+    """UNet3D (T=4) and FPN of the JAX package (MSE, fp32, random batch
+    statistics): {name: (the port's state_dict of their weights, their eval
+    forward on one device, on make_mesh_2d(2, 4))} on
+    ``worker.family_inputs``."""
+    import jax
+    import jax.numpy as jnp
+    from _torch_pairs import pair
+    from uncrtaints_tpu.parallel import make_mesh_2d as jax_mesh_2d
+    from uncrtaints_tpu.parallel import replicated_sharding
+    from uncrtaints_tpu.parallel import spatial_sharding as jax_spatial_sharding
+    mesh = jax_mesh_2d(2, 4)
+    out = {}
+    for name in ("unet3d", "fpn"):
+        model, v, port, tcfg, _ = pair(dict(worker.FAMILIES[name], loss="l2"),
+                                       np.random.default_rng(5))
+        x = jnp.asarray(worker.family_inputs(tcfg.input_t)[0]["x"])
+        fwd = jax.jit(lambda v, x: model.apply(v, x, train=False))
+        one = fwd(v, x)
+        sharded = fwd(jax.device_put(v, replicated_sharding(mesh)),
+                      jax.device_put(x, jax_spatial_sharding(mesh, 5)))
+        out[name] = (port.state_dict(), np.asarray(one), np.asarray(sharded))
+    return out
+
+
 def _stitch(ranks, key, n_data=2):
     """The bands of ``key`` ([b,1,band,W,C] per rank, data-major) put back
     into the global batch."""
@@ -314,8 +354,11 @@ def spatial_run(tmp_path_factory):
     configs = {"tiny": dict(TINY, device="cpu"),
                "pooled": dict(TINY, device="cpu", low_res_size=8)}
     scene_kw = dict(tile=32, overlap=8, batch_size=2)
+    jax_families = _jax_families()
+    family_weights = {name: v[0] for name, v in jax_families.items()}
     torch.save({"state_dict": sd, "batch": batch, "halo": halo, "configs": configs,
-                "scene": scene, "scene_kw": scene_kw}, out / "spatial_inputs.pt")
+                "scene": scene, "scene_kw": scene_kw, "family_weights": family_weights},
+               out / "spatial_inputs.pt")
     ranks = _run_ranks(["spatial"], 4, out)["spatial"]
 
     ref = {}
@@ -337,6 +380,11 @@ def spatial_run(tmp_path_factory):
     x, w, gy = (t.clone().requires_grad_() for t in halo)
     (dwconv.dw_stencil(x, w, ONE, "reflect") * gy).sum().backward()
     ref["halo"] = (x.grad, w.grad)
+    with use_mesh_2d(None):
+        ref["families"] = {name: worker.run_family(name, family_weights.get(name))
+                           for name in worker.FAMILIES}
+        ref["layers"] = {name: worker.run_layer(name) for name in worker.layer_cases()}
+    ref["jax families"] = jax_families
     return ranks, ref, jax_one, jax_mesh
 
 
@@ -424,6 +472,142 @@ def test_port_mesh_matches_the_jax_2x4_mesh(spatial_run):
     gaps["jax 2x4 vs jax 1 device, pred"] = float(np.abs(jax_mesh["pred"] - jax_one["pred"]).max())
     print(f"port 2x2 mesh vs JAX 2x4 mesh (fp32): {gaps}")
     np.testing.assert_allclose(loss, float(jax_mesh["loss"]), rtol=2e-4, atol=2e-4)
+
+
+def test_remat_train_steps_on_the_mesh_equal_plain_steps(spatial_run):
+    """Two remat train steps on the 2 x 2 mesh (the blocks' recompute runs
+    their halo exchanges, group-norm sums and batch-norm all-reduces again
+    in the backward, in one order on every rank) against two plain ones:
+    losses, gradients, and the parameters and running statistics after."""
+    for r in spatial_run[0]:
+        (lp, sp, gp), (lr, sr, gr) = r["remat"][False], r["remat"][True]
+        assert lr == pytest.approx(lp, rel=1e-6)
+        for n, g in gp.items():
+            assert float((gr[n] - g).abs().max()) <= 1e-6 * float(g.abs().max()), n
+        for k, v in sp[-1].items():
+            assert float((sr[-1][k] - v).abs().max()) <= 1e-6 * max(float(v.abs().max()), 1.), k
+
+
+def _stitch_family(ranks, name, part, key):
+    return _stitch([r["families"][name][part] for r in ranks], key)
+
+
+def _of_max(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+# a family's train step: (loss relative and train-mode output RMSE, the
+# gradients' gap over their norm)
+TRAIN_TOL = {name: (2e-3 if name in ("uconvlstm", "buconvlstm") else 1e-4, 0.25)
+             for name in worker.FAMILIES}
+
+
+@pytest.mark.parametrize("name", list(worker.FAMILIES))
+def test_every_family_on_the_mesh_matches_one_process(spatial_run, name):
+    """The eval step (loss, pred, metrics), ``predict_scene(mesh=)`` and one
+    train step of each family on the 2 x 2 mesh against one process."""
+    ranks, ref = spatial_run[:2]
+    want = ref["families"][name]
+    ev = want["eval"]
+    loss = np.mean([float(ranks[d * 2]["families"][name]["eval"]["loss"]) for d in range(2)])
+    assert loss == pytest.approx(float(ev["loss"]), rel=1e-5)
+    assert _of_max(_stitch_family(ranks, name, "eval", "pred"), ev["pred"]) <= 1e-5
+    for k, v in ev["metrics"].items():
+        got = torch.cat([ranks[d * 2]["families"][name]["eval"]["metrics"][k] for d in range(2)])
+        assert torch.allclose(got, v, rtol=1e-5, atol=1e-7), (k, got, v)
+    for r in ranks:
+        assert _of_max(r["families"][name]["scene"]["pred"], want["scene"]["pred"]) <= 1e-5
+
+    out_tol, grad_tol = TRAIN_TOL[name]
+    tr = want["train"]
+    got = _stitch_family(ranks, name, "train", "pred")
+    rmse = float((got - tr["pred"]).square().mean().sqrt())
+    gaps = []
+    for r in ranks:
+        t = r["families"][name]["train"]
+        assert t["loss"] == pytest.approx(tr["loss"], rel=out_tol)
+        num = sum(float((t["grads"][n] - g).square().sum()) for n, g in tr["grads"].items())
+        gaps.append((num / sum(float(g.square().sum()) for g in tr["grads"].values())) ** 0.5)
+    print(f"{name} on the 2x2 mesh: train pred RMSE {rmse:.3g}, gradient gap {max(gaps):.3g}")
+    assert rmse <= out_tol and max(gaps) <= grad_tol
+
+
+@pytest.mark.parametrize("name", ["unet3d", "fpn"])
+def test_families_on_the_mesh_match_the_jax_2x4_mesh(spatial_run, name):
+    """UNet3D and FPN on the port's 2 x 2 mesh against the JAX package's
+    make_mesh_2d(2, 4) eval forward of the same weights (GSPMD: the
+    one-device answer) within 1e-5 of the largest output."""
+    ranks, ref = spatial_run[:2]
+    _, one, sharded = ref["jax families"][name]
+    got = _stitch_family(ranks, name, "eval", "pred")
+    gaps = {"port mesh vs JAX mesh": _of_max(got, sharded),
+            "JAX mesh vs JAX one device": _of_max(sharded, one)}
+    print(f"{name}: {gaps}")
+    assert gaps["port mesh vs JAX mesh"] <= 1e-5
+
+
+@pytest.mark.parametrize("name", list(worker.layer_cases()))
+def test_layer_bands_match_the_whole_scene(spatial_run, name):
+    """Each layer that reads across bands, run band by band: the outputs
+    stitch into the whole scene's, the input gradients (each halo's sent
+    back to its owner) too, and the bands' parameter gradients sum to the
+    whole one's; the spatial max's gradient splits over its ties in both
+    bands as ``amax``'s does."""
+    ranks, ref = spatial_run[:2]
+    y, gx, gp = ref["layers"][name]
+    h = worker.layer_cases()[name][2]
+    bands = [ranks[s]["layers"][name] for s in range(2)]
+    if name == "max":  # every band holds the scene's max
+        assert all(torch.equal(b[0], y) for b in bands)
+    else:
+        assert float((torch.cat([b[0] for b in bands], h) - y).abs().max()) <= 1e-6 * float(
+            y.abs().max())
+    assert float((torch.cat([b[1] for b in bands], h) - gx).abs().max()) <= 1e-6 * float(
+        gx.abs().max())
+    for n, g in gp.items():
+        assert float((bands[0][2][n] + bands[1][2][n] - g).abs().max()) <= 1e-5 * float(
+            g.abs().max()), n
+    for s in range(2):  # the data ranks repeat the bands
+        assert torch.equal(ranks[2 + s]["layers"][name][1], bands[s][1])
+
+
+def _refusal_cases():
+    from uncrtaints_tpu_torch.models import blocks, layers, unet, unet3d
+    t = lambda *shape: torch.zeros(shape)
+    return {
+        "odd band of a strided conv": (
+            lambda: layers.Conv2d(4, 4, kernel=4, stride=2, pad=1)(t(1, 5, 8, 4)),
+            NotImplementedError, "even output bands"),
+        "a strided conv of uneven output": (
+            lambda: layers.Conv2d(4, 4, kernel=4, stride=2, pad=2)(t(1, 8, 8, 4)),
+            NotImplementedError, "even output bands"),
+        "a transposed conv not 2x": (
+            lambda: unet.ConvTranspose2d(4, 4, kernel=3)(t(1, 4, 8, 4)),
+            NotImplementedError, "not 2 x the scene"),
+        "UNet3D band not a multiple of 4": (
+            lambda: unet3d.UNet3D(15, feats=2)(t(1, 4, 6, 8, 15)),
+            NotImplementedError, "multiple of 4"),
+        "a band smaller than the halo": (
+            lambda: layers.Conv2d(4, 4, pad=4, dilation=4)(t(1, 2, 16, 4)),
+            ValueError, "too small for a halo"),
+        "MBConv downsample's pool on an odd band": (
+            lambda: blocks._max_pool_3x3_s2(t(1, 5, 8, 4)),
+            NotImplementedError, "odd"),
+        "a circular pad": (
+            lambda: layers.Conv2d(4, 4, padding_mode="circular")(t(1, 4, 8, 4)),
+            NotImplementedError, "circular"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_refusal_cases()))
+def test_the_split_refuses_what_would_cut_a_window(case):
+    """What the split still refuses (ROADMAP section 3), each with its
+    message, before any collective (one process, a mesh of two bands)."""
+    fn, err, msg = _refusal_cases()[case]
+    with use_mesh_2d(Mesh2D(0, 1, 2)), pytest.raises(err, match=msg):
+        fn()
 
 
 # ------------------------------------------------- the orbax counterpart --

@@ -11,8 +11,11 @@ train steps. When the ranks are done, this process runs the same on card 0
 alone, and ``chip_smoke.py:spatial_report`` holds the ranks against it
 (losses, outputs, the launches through the halo modes, the gradients) and
 prints each rank's train-step peak memory, its step times, its collectives'
-host time and the device time of its host copies and NCCL kernels. Exits
-non-zero when a check fails.
+host time and the device time of its host copies and NCCL kernels. The ranks
+and the reference also run UNet3D, FPN + ConvLSTM and U-TAE
+(``chip_smoke.py:SPATIAL_FAMILIES``: eval step, ``predict_scene(mesh=)``,
+one train step), held by ``chip_smoke.py:family_report``. Exits non-zero
+when a check fails.
 """
 
 import importlib.util
@@ -47,8 +50,11 @@ def main():
         got = smoke.finish_spatial_ranks(smoke.start_spatial_ranks(out, n_data, n_spatial), out,
                                          n_data, n_spatial)
     batch, scene = smoke._spatial_inputs()
-    one = smoke._phase10_steps(torch.device("cuda", 0), batch, scene)
+    dev = torch.device("cuda", 0)
+    one = smoke._phase10_steps(dev, batch, scene)
     smoke.spatial_report(one, got, batch, n_data, n_spatial, "spatial_mesh_h100")
+    families = {name: smoke._phase10_family(dev, name) for name in smoke.SPATIAL_FAMILIES}
+    smoke.family_report(families, got, n_data, n_spatial, "spatial_mesh_h100")
     return 0
 
 

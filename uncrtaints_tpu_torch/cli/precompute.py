@@ -32,6 +32,8 @@ def create_parser():
     p.add_argument("--out_dir", default="precomputed", type=str)
     p.add_argument("--sample_dates", action="store_true",
                    help="also export fixed-sampler date indices per patch")
+    p.add_argument("--vary", default=1, type=int,
+                   help="number of passes (reference uses 30 for 'random')")
     p.add_argument("--device", default="cuda", type=str,
                    help="where the cloud masks run (default the card)")
     return p

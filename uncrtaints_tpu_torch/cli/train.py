@@ -48,8 +48,8 @@ from uncrtaints_tpu_torch.train.checkpoint import (
 from uncrtaints_tpu_torch.parallel import (
     active, barrier, broadcast_module, make_mesh, maybe_init_distributed)
 from uncrtaints_tpu_torch.train.engine import (
-    batch_to_device, create_train_state, epoch_lr, make_eval_step, make_train_step,
-    profile_flops, set_learning_rate)
+    batch_to_device, check_nans, create_train_state, epoch_lr, make_eval_step,
+    make_train_step, profile_flops, set_learning_rate)
 from uncrtaints_tpu_torch.train.loop import iterate
 from uncrtaints_tpu_torch.train.observe import Writer, require_matplotlib
 
@@ -186,6 +186,12 @@ def main(cfg: Config) -> dict:
     if lead:
         os.makedirs(exp_dir, exist_ok=True)
     seed_everything(cfg.rdm_seed)
+    if cfg.debug_nans:
+        # fault isolation: the step that made a NaN stops (the JAX CLI's
+        # jax_debug_nans); the module hooks go on once the model is built
+        print("debug_nans: autograd anomaly detection on, and every module's output checked "
+              "for NaN (each check waits for the device)")
+        torch.autograd.set_detect_anomaly(True)
     if lead:
         pprint.pprint(cfg.to_dict())
 
@@ -212,6 +218,8 @@ def main(cfg: Config) -> dict:
     model = get_generator(cfg)
     if shard is not None:  # every rank starts from rank 0's weights
         broadcast_module(model)
+    if cfg.debug_nans:
+        check_nans(model)
     state = create_train_state(cfg, model)
     n_params = sum(p.numel() for p in model.parameters())
     cfg = cfg.replace(N_params=n_params)

@@ -5,8 +5,12 @@ and derived rules (the tests hold ``derive`` of the two equal on the shared
 fields), so a conf.json written by either package loads in the other
 (``from_dict`` ignores unknown keys). Differences: ``device`` defaults to
 "cuda"; ``fused_eval`` has the port's meaning (models/registry.py: auto = on
-for a CUDA device); ``remat``, ``prng_impl`` and ``debug_nans`` name JAX/TPU
-mechanisms without a counterpart here and are not carried.
+for a CUDA device); ``remat`` recomputes each UnCRtainTS block in the
+backward (``torch.utils.checkpoint``, models/uncrtaints.py) and
+``debug_nans`` stops the step that made a NaN (cli/train.py). ``prng_impl``
+is not carried: it picks the JAX PRNG algorithm (threefry or rbg) for the
+dropout noise, and the port draws that noise from a ``torch.Generator``,
+whose algorithm CUDA offers no choice of.
 
 ``ckpt_backend`` "msgpack" (the default) means the package's single-file
 format, the reference's ``.pth.tar``, and "orbax" its asynchronous
@@ -173,6 +177,9 @@ class Config:
                                          # (exact numerics; auto-falls back
                                          # to the numpy collate when the
                                          # native lib or uniform T is absent)
+    remat: bool = False                  # rematerialize conv blocks (memory<->FLOPs):
+                                         # torch.utils.checkpoint of each
+                                         # UnCRtainTS block in training
     accum_steps: int = 1                 # gradient accumulation: split the
                                          # batch into this many microbatches,
                                          # one optimizer update
@@ -180,6 +187,8 @@ class Config:
     ckpt_backend: str = "msgpack"        # checkpoint format: msgpack (single
                                          # .pth.tar, reference-style) | orbax
                                          # (async .dcp directory, atomic)
+    debug_nans: bool = False             # fault isolation: anomaly detection and
+                                         # a NaN check of every module's output
     trace_dir: str = ""                  # profiler trace output directory
     fused_eval: str = "auto"             # fused eval MBConv through the
                                          # hand-written kernels: auto|on|off
@@ -323,6 +332,8 @@ def create_parser(mode: str = "train") -> argparse.ArgumentParser:
     p.add_argument("--synthetic_data", dest="synthetic_data", action="store_true")
     p.add_argument("--synthetic_patch", default=d.synthetic_patch, type=int,
                    help="patch size of the synthetic data source")
+    p.add_argument("--remat", dest="remat", action="store_true",
+                   help="rematerialize conv blocks to cut activation memory")
     p.add_argument("--no_fast_collate", dest="fast_collate",
                    action="store_false",
                    help="disable the single-pass native batch assembly")
@@ -336,6 +347,7 @@ def create_parser(mode: str = "train") -> argparse.ArgumentParser:
                    choices=["auto", "on", "off"],
                    help="fused eval MBConv through the hand-written "
                         "kernels (auto = on for a CUDA device)")
+    p.add_argument("--debug_nans", dest="debug_nans", action="store_true")
     p.add_argument("--trace_dir", default="", type=str,
                    help="write a torch.profiler trace (Chrome trace JSON, one file a "
                         "rank) from the start of the run to the end of its first epoch")

@@ -23,6 +23,25 @@ from uncrtaints_tpu_torch.ops.mbconv import norm_gelu_dwconv3x3, norm_gelu_matmu
 from uncrtaints_tpu_torch.parallel import mesh
 
 
+def _max_pool_3x3_s2(a: torch.Tensor) -> torch.Tensor:
+    """3x3 max pool of [N,H,W,C] at stride 2, pad 1 (MBConv ``downsample``'s
+    residual). Under a spatial split ``a`` is a band of even rows: output
+    row m reads rows 2m-1 to 2m+1, so the band takes the last row of the
+    band above (nothing at the scene's top, as the pad)."""
+    sp = mesh.spatial()
+    if sp is None:
+        return F.max_pool2d(a.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+    if a.shape[1] % 2:
+        raise NotImplementedError(f"MBConv downsample under a spatial split: a band of "
+                                  f"{a.shape[1]} rows (odd) would start a pool window mid-band")
+    top, bot = mesh.halo_exchange(a, 1, 1, sp, keep_edges=True)
+    if not top.shape[1]:  # the scene's top: the pad's -inf row
+        top = torch.cat([top, a.new_full((a.shape[0], 1, *a.shape[2:]), float("-inf"))], 1)
+    # the unused halo enters with no rows, so every rank runs the exchange's backward
+    ext = torch.cat([top, a, bot.narrow(1, 0, 0)], dim=1).permute(0, 3, 1, 2)
+    return F.max_pool2d(ext, 3, 2, padding=(0, 1)).permute(0, 2, 3, 1)
+
+
 class SE(nn.Module):
     """Squeeze-and-excitation: global average pool -> Linear(oup -> inp/4)
     -> GELU -> Linear(-> oup) -> sigmoid, applied as a channel gate."""
@@ -74,7 +93,8 @@ class MBConv(nn.Module):
     ``downsample`` halves H and W (the first conv of the body at stride 2)
     and replaces the residual by ``proj``, a bias-free 1x1 conv of the 3x3
     stride-2 max pool of the input (pad 1). No configured model builds these
-    two variants; they complete the reference block.
+    two variants; they complete the reference block. Under a spatial split
+    the strided convs and the pool read the rows above a band (even bands).
 
     ``fused_eval`` runs the eval-mode batch-norm body as the kernel chain
     K3 -> K4 -> K3 (:func:`norm_gelu_matmul`, :func:`norm_gelu_dwconv3x3`)
@@ -138,8 +158,7 @@ class MBConv(nn.Module):
             h = gelu(fn[4](fn[3](h)))
             h = fn[8](fn[7](fn[6](h)))
         if self.downsample:
-            pooled = F.max_pool2d(a.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
-            return self.proj(pooled) + h
+            return self.proj(_max_pool_3x3_s2(a)) + h
         return a + h
 
     def _fused_body(self, a: torch.Tensor) -> torch.Tensor:

@@ -17,13 +17,17 @@ OIHW, linear weights [out, in]), so ``state_dict()`` is reference-format.
 
 Under a spatial split (a 2-D mesh with ``n_spatial > 1``, parallel/mesh.py)
 a map is one band of rows of the scene: a convolution that reads across rows
-takes its neighbours' rows (``halo_exchange``) and pads only at the scene's
-edge, and the group and instance norms sum their statistics over the
-spatial group. The batch norms' statistics already sum over every rank.
+takes its neighbours' rows (``halo_exchange``; strided and transposed ones
+the rows their windows reach, :func:`conv_rows`, :func:`conv_transpose_rows`)
+and pads only at the scene's edge, and the group and instance norms sum
+their statistics over the spatial group. The batch norms' statistics
+already sum over every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -34,6 +38,21 @@ from uncrtaints_tpu_torch.ops.dwconv import dw_stencil
 from uncrtaints_tpu_torch.parallel import mesh
 
 _PAD_MODES = ("reflect", "replicate", "circular")  # F.pad modes
+_RECOMPUTE = threading.local()  # set while a block runs again in the backward
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of a block's second forward in the backward (``remat``,
+    ``torch.utils.checkpoint``'s recompute): the train-mode batch norms
+    normalise as before but leave their running statistics alone, which the
+    first forward updated (flax's ``nn.remat`` updates them once too)."""
+    before = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = before
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -157,7 +176,8 @@ class Conv2d(nn.Module):
         """x [N,H,W,C]. Under a spatial split x is a band of the scene: a
         kernel taller than one row reads the neighbours' rows (the folded
         depthwise conv through K5 / K2's halo mode) and pads only at the
-        scene's edge; it must be a stride-1 'same' convolution."""
+        scene's edge; a strided one reads the rows :func:`conv_rows` names
+        and must give even output bands."""
         w, b = self.weight, self.bias
         if input_affine is not None:
             coef, offs = input_affine
@@ -184,17 +204,17 @@ class Conv2d(nn.Module):
         # the pad's adjoint folded into gx, no padded tensor either way
         folded = (differentiated and self.padding_mode == "reflect" and pad == 1
                   and w.shape[-2:] == (3, 3) and min(x.shape[1:3]) >= 2)
-        sp = mesh.spatial() if w.shape[-2] > 1 else None
+        sp = mesh.spatial() if w.shape[-2] > 1 or self.stride > 1 else None
+        band = None
         if sp is not None:
-            if self.stride != 1 or 2 * pad != self.dilation * (w.shape[-2] - 1):
-                raise NotImplementedError(
-                    "Conv2d under a spatial split takes stride-1 'same' convolutions only "
-                    f"(stride {self.stride}, pad {pad}, kernel {tuple(w.shape[-2:])})")
             if folded:
                 y = dw_stencil(x.contiguous(), w.contiguous(), ((1, 1), (1, 1)), "reflect",
                                halo=mesh.halo_exchange(x, 1, 1, sp))
                 return y if b is None else y + b.to(y.dtype)
-            x, pad = band_pad(x, pad, self.padding_mode, sp), 0
+            band = x.shape[1]
+            top, bot = conv_rows(band, sp.n_spatial, w.shape[-2], self.stride, pad,
+                                 self.dilation)
+            x, pad = band_pad(x, top, bot, pad, self.padding_mode, sp), 0
         if pad and self.padding_mode != "zeros" and not folded:
             # pad H and W of the NHWC tensor as the last-but-channel dims of
             # a 5-D view: one pass that keeps NHWC memory (the 2-D pad of
@@ -209,31 +229,113 @@ class Conv2d(nn.Module):
         else:
             y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride, padding=pad,
                          dilation=self.dilation, groups=self.groups).permute(0, 2, 3, 1)
+        if band is not None:  # the outputs of the band's own rows
+            y = y[:, :band // self.stride]
         if b is not None:  # added after the conv, in its dtype (JAX's order)
             y = y + b.to(y.dtype)
         return y
 
 
-def band_pad(x: torch.Tensor, pad: int, mode: str, sp) -> torch.Tensor:
-    """Pad a band [N,H,W,C] of the scene by ``pad`` rows and columns: its
-    neighbours' rows (``halo_exchange``, differentiable) where it has them,
-    the padding mode's rows at the scene's edge, and the mode's columns."""
+def conv_rows(band: int, n_spatial: int, k: int, stride: int = 1, pad: int = 0,
+              dilation: int = 1):
+    """(top, bot): the rows above and below a band that a convolution's
+    outputs on the band read (kernel ``k``, ``stride``, ``pad`` and
+    ``dilation`` along H), when the scene of ``n_spatial`` bands of ``band``
+    rows splits into bands of ``band / stride`` output rows: output row m
+    reads input rows ``stride * m - pad`` to ``stride * m - pad + dilation *
+    (k - 1)``. A split that would cut an output band is refused: a band
+    whose rows are not a multiple of the stride (its first row would be
+    odd), or a scene whose output is not its rows / stride."""
+    rows, span = band * n_spatial, dilation * (k - 1)
+    if band % stride or ((rows + 2 * pad - span - 1) // stride + 1) * stride != rows:
+        raise NotImplementedError(
+            f"Conv2d under a spatial split: a convolution of kernel {k}, stride {stride}, "
+            f"pad {pad}, dilation {dilation} on bands of {band} of {rows} rows does not give "
+            f"even output bands (the band's rows must be a multiple of the stride, the "
+            f"scene's output rows its rows / stride)")
+    return pad, max(span - pad - stride + 1, 0)
+
+
+def conv_transpose_rows(band: int, n_spatial: int, k: int, stride: int, pad: int,
+                        output_padding: int = 0):
+    """(top, bot): the input rows above and below a band that a transposed
+    convolution's outputs of that band read, its output band being rows
+    ``stride * r`` to ``stride * (r + band)`` (output row o reads input rows
+    i with ``o = stride * i - pad + j``, j a tap); refused when the scene's
+    output is not ``stride`` times its rows."""
+    rows = band * n_spatial
+    if (rows - 1) * stride - 2 * pad + k + output_padding != stride * rows:
+        raise NotImplementedError(
+            f"a transposed convolution of kernel {k}, stride {stride}, pad {pad} under a "
+            f"spatial split: its output is not {stride} x the scene's {rows} rows")
+    return (k - 1 - pad) // stride, (pad - 1) // stride + 1
+
+
+def conv_transpose_band(x: torch.Tensor, conv: Callable, k: int, stride: int, pad: int,
+                        output_padding: int, sp, h_axis: int) -> torch.Tensor:
+    """``conv`` (a transposed convolution of kernel ``k``, ``stride``,
+    ``pad`` and ``output_padding`` along ``h_axis``) of a band of the
+    scene: the band with its neighbours' rows (zero rows at the scene's
+    edge, where the scene's transposed conv has no input), transposed, and
+    cropped to the band's output rows."""
+    band = x.shape[h_axis]
+    top, bot = conv_transpose_rows(band, sp.n_spatial, k, stride, pad, output_padding)
+    # the scene's output being stride x its rows, the band's output holds
+    # stride x (top + band + bot) rows, its own from stride x top on
+    y = conv(halo_rows(x, top, bot, "zeros", sp, h_axis))
+    return y.narrow(h_axis, stride * top, stride * band)
+
+
+def _edge_rows(x: torch.Tensor, n: int, mode: str, at_top: bool, h: int) -> torch.Tensor:
+    """The ``n`` rows (along axis ``h``) that the padding ``mode`` puts
+    beyond the scene's top or bottom edge of ``x``."""
+    H = x.shape[h]
+    if mode == "zeros":
+        shape = list(x.shape)
+        shape[h] = n
+        return x.new_zeros(shape)
+    if mode == "replicate":
+        edge = x.narrow(h, 0 if at_top else H - 1, 1)
+        return edge.expand(*[n if i == h else -1 for i in range(x.dim())])
+    if H < n + 1:
+        raise ValueError(f"a reflect pad of {n} rows at the scene's edge needs a band of at "
+                         f"least {n + 1} rows, not {H}")
+    return x.narrow(h, 1 if at_top else H - n - 1, n).flip(h)
+
+
+def halo_rows(x: torch.Tensor, top: int, bot: int, mode: str, sp, h_axis: int = 1):
+    """A band with ``top`` rows above and ``bot`` rows below it (along
+    ``h_axis``): its neighbours' rows (``halo_exchange``, differentiable)
+    where it has them, the padding ``mode``'s rows at the scene's edge. Both
+    halos enter the result on every rank (empty where unused), so every
+    rank runs the exchange's backward."""
     if mode == "circular":
         raise NotImplementedError("a circular pad wraps to the scene's other edge: not "
                                   "under a spatial split")
-    top, bot = mesh.halo_exchange(x, pad, 1, sp)
-    if top is None:
-        top = (x[:, 1:pad + 1].flip(1) if mode == "reflect" else
-               x[:, :1].expand(-1, pad, -1, -1) if mode == "replicate" else
-               x.new_zeros((x.shape[0], pad, *x.shape[2:])))
-    if bot is None:
-        bot = (x[:, -pad - 1:-1].flip(1) if mode == "reflect" else
-               x[:, -1:].expand(-1, pad, -1, -1) if mode == "replicate" else
-               x.new_zeros((x.shape[0], pad, *x.shape[2:])))
-    xe = torch.cat([top, x, bot], dim=1)
+    h = h_axis % x.dim()
+    k = max(top, bot)
+    if not k:
+        return x
+    above, below = mesh.halo_exchange(x, k, h, sp, keep_edges=True)
+    # at the scene's edge the exchange gives no rows: the mode's rows follow
+    above = (above.narrow(h, k - top, top) if above.shape[h]
+             else torch.cat([above, _edge_rows(x, top, mode, True, h)], dim=h))
+    below = (below.narrow(h, 0, bot) if below.shape[h]
+             else torch.cat([below, _edge_rows(x, bot, mode, False, h)], dim=h))
+    return torch.cat([above, x, below], dim=h)
+
+
+def band_pad(x: torch.Tensor, top: int, bot: int, cols: int, mode: str, sp) -> torch.Tensor:
+    """Pad a band [N,H,W,C] of the scene by ``top`` rows above, ``bot``
+    below and ``cols`` columns on each side: its neighbours' rows where it
+    has them (:func:`halo_rows`), the padding mode's rows at the scene's
+    edge, and the mode's columns."""
+    xe = halo_rows(x, top, bot, mode, sp)
+    if not cols:
+        return xe
     if mode == "zeros":
-        return F.pad(xe, (0, 0, pad, pad))
-    return F.pad(xe.unsqueeze(1), (0, 0, pad, pad, 0, 0), mode=mode).squeeze(1)
+        return F.pad(xe, (0, 0, cols, cols))
+    return F.pad(xe.unsqueeze(1), (0, 0, cols, cols, 0, 0), mode=mode).squeeze(1)
 
 
 class Norm2d(nn.Module):
@@ -290,10 +392,11 @@ class Norm2d(nn.Module):
     def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             m, v, n = batch_moments_f32(x, tuple(range(x.dim() - 1)))
-            with torch.no_grad():
-                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * m)
-                self.running_var.copy_(0.9 * self.running_var
-                                       + 0.1 * (v * unbiased_factor(n)))
+            if not getattr(_RECOMPUTE, "on", False):
+                with torch.no_grad():
+                    self.running_mean.copy_(0.9 * self.running_mean + 0.1 * m)
+                    self.running_var.copy_(0.9 * self.running_var
+                                           + 0.1 * (v * unbiased_factor(n)))
         else:
             m, v = self.running_mean, self.running_var
         r = torch.rsqrt(v + 1e-5)
@@ -324,6 +427,13 @@ class ConvLayer(nn.Module):
         return self.conv(x)
 
 
+def frame_pad_mask(x: torch.Tensor, pad_value: float) -> torch.Tensor:
+    """[B,T] mask of the frames of x [B,T,H,W,C] that are all ``pad_value``;
+    under a spatial split, all pixels of the scene, not of the band."""
+    mask = (x == pad_value).all(dim=(2, 3, 4))
+    return mask if mesh.spatial() is None else mesh.spatial_all(mask)
+
+
 def smart_apply(fn: Callable, x: torch.Tensor,
                 pad_value: Optional[float] = None) -> torch.Tensor:
     """Apply an [N,H,W,C] function over [B,T,H,W,C] by folding time into
@@ -331,11 +441,7 @@ def smart_apply(fn: Callable, x: torch.Tensor,
     if x.dim() == 4:
         return fn(x)
     b, t = x.shape[:2]
-    pad_mask = None
-    if pad_value is not None:
-        pad_mask = (x == pad_value).all(dim=(2, 3, 4))
-        if mesh.spatial() is not None:  # all pixels of the scene, not of the band
-            pad_mask = mesh.spatial_all(pad_mask)
+    pad_mask = None if pad_value is None else frame_pad_mask(x, pad_value)
     y = fn(x.reshape(b * t, *x.shape[2:]))
     y = y.reshape(b, t, *y.shape[1:])
     if pad_mask is not None:

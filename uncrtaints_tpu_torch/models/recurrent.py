@@ -30,8 +30,9 @@ import torch.nn as nn
 
 from uncrtaints_tpu_torch.config import Config, input_dim
 from uncrtaints_tpu_torch.models.aggregator import TemporalAggregator
-from uncrtaints_tpu_torch.models.layers import Conv2d, ConvBlock, smart_apply
+from uncrtaints_tpu_torch.models.layers import Conv2d, ConvBlock, frame_pad_mask, smart_apply
 from uncrtaints_tpu_torch.models.unet import S2_BANDS, DownConvBlock, UpConvBlock
+from uncrtaints_tpu_torch.parallel import mesh
 
 
 def _last_valid(seq: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
@@ -145,7 +146,7 @@ class ConvLSTMSeg(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_positions: Optional[torch.Tensor] = None,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        pad_mask = (x == self.pad_value).all(dim=(2, 3, 4))
+        pad_mask = frame_pad_mask(x, self.pad_value)
         _, (_, c) = self.convlstm_encoder(x, pad_mask=pad_mask)
         return self.classification_layer(c)[:, None]
 
@@ -163,7 +164,7 @@ class ConvGRUSeg(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_positions: Optional[torch.Tensor] = None,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        pad_mask = (x == self.pad_value).all(dim=(2, 3, 4))
+        pad_mask = frame_pad_mask(x, self.pad_value)
         _, h = self.convgru_encoder(x, pad_mask=pad_mask)
         return self.classification_layer(h)[:, None]
 
@@ -210,7 +211,7 @@ class RecUNet(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_positions: Optional[torch.Tensor] = None,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        pad_mask = (x == self.pad_value).all(dim=(2, 3, 4))
+        pad_mask = frame_pad_mask(x, self.pad_value)
         feats = [self.in_conv(x)]
         for blk in self.down_blocks:
             feats.append(blk(feats[-1]))
@@ -245,7 +246,8 @@ class PyramidBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.inconv(x)
-        gmp = out.amax(dim=(1, 2))  # [N, C]
+        sp = mesh.spatial()  # under a spatial split, the scene's max
+        gmp = out.amax(dim=(1, 2)) if sp is None else mesh.spatial_max(out, (1, 2), sp)  # [N, C]
         levels = [conv(out) for conv in self.convs]
         g = gmp[:, None, None, :].expand(-1, *out.shape[1:3], -1)
         return torch.cat(levels + [g], dim=-1)
@@ -271,7 +273,7 @@ class FPNConvLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_positions: Optional[torch.Tensor] = None,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        pad_mask = (x == self.pad_value).all(dim=(2, 3, 4))
+        pad_mask = frame_pad_mask(x, self.pad_value)
         out = smart_apply(self.pyramid, self.inconv(x), self.pad_value)
         if self.mid_conv is not None:
             out = self.mid_conv(out)

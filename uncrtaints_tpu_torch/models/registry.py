@@ -67,6 +67,7 @@ def _build(cfg: Config, device: torch.device) -> torch.nn.Module:
             is_mono=cfg.pretrain,
             low_res_size=cfg.low_res_size,
             fused_eval=_resolve_fused_eval(cfg, device),
+            remat=cfg.remat,
         )
     if "unet3d" in cfg.model:
         from uncrtaints_tpu_torch.models.unet3d import UNet3D

@@ -10,8 +10,15 @@ Port of uncrtaints_tpu/models/uncrtaints.py:
   mean and variance nonlinearities.
 
 Layout: x [B,T,H,W,C_in], dates [B,T] -> [B,1,H,W,C_out] with the mean in
-channels [0:13] and the variance in [13:vars_idx]. The JAX package's
-``remat`` (a memory knob of its compiler) has no counterpart.
+channels [0:13] and the variance in [13:vars_idx].
+
+``remat`` (the JAX package's ``nn.remat`` of MBConv and ResidualConvBlock)
+runs each block of ``in_block`` and ``out_block`` under
+``torch.utils.checkpoint`` in a differentiated forward: the block keeps only
+its input and runs its forward again in the backward, one extra forward of
+each block for its saved activations (:func:`remat_block`). The eval step,
+the fused eval body and the export run without gradients and are
+unchanged.
 
 Under a spatial split (parallel/mesh.py) x holds one band of rows of each
 scene: the pad mask is the scene's, and the layers exchange rows and sum
@@ -22,20 +29,22 @@ pixel.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from uncrtaints_tpu_torch.models.aggregator import TemporalAggregator
 from uncrtaints_tpu_torch.models.blocks import MBConv, ResidualConvBlock
 from uncrtaints_tpu_torch.models.layers import (
-    Conv2d, ConvBlock, smart_apply, softplus_t20)
+    Conv2d, ConvBlock, frame_pad_mask, recomputing, smart_apply, softplus_t20)
 from uncrtaints_tpu_torch.models.ltae import LTAE2d, LTAE2dtiny
 from uncrtaints_tpu_torch.ops.pooling import adaptive_max_pool2d
 from uncrtaints_tpu_torch.ops.resize import upsample_bilinear
-from uncrtaints_tpu_torch.parallel import mesh
 
 S2_BANDS = 13
 
@@ -52,6 +61,29 @@ def variance_nonlinearity(mode: str, eps: float):
     return lambda v: v
 
 
+def remat_block(blk: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``blk(x)`` that saves only its input and recomputes its forward in
+    the backward (``torch.utils.checkpoint``, non-reentrant, so that
+    ``torch.autograd.grad`` and the kernels' operators work under it).
+
+    The block's parameters go in as inputs: the step runs the model under
+    ``functional_call`` with casts of its parameters, which are no longer
+    bound to the module when the backward recomputes. The recompute runs
+    under :func:`recomputing`, so the batch norms update their running
+    statistics once. No RNG state is saved (``preserve_rng_state=False``):
+    MBConv and ResidualConvBlock draw no random numbers. A block that holds
+    a collective (a batch norm's all-reduce under data parallel, a halo
+    exchange under a spatial split) runs it again in the recompute, on every
+    rank in the same order, as the backward runs the blocks in reverse."""
+    names, params = zip(*blk.named_parameters())
+
+    def run(a, *ps):
+        return functional_call(blk, dict(zip(names, ps)), (a,))
+
+    return checkpoint(run, x, *params, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+
+
 class UNCRTAINTS(nn.Module):
     def __init__(self, input_dim: int, encoder_widths: Sequence[int] = (128,),
                  decoder_widths: Sequence[int] = (128, 128, 128, 128, 128),
@@ -64,8 +96,9 @@ class UNCRTAINTS(nn.Module):
                  covmode: str = "diag", scale_by: float = 1.0,
                  separate_out: bool = False, use_v: bool = False,
                  block_type: str = "mbconv", is_mono: bool = False,
-                 low_res_size: int = 32, fused_eval: bool = False):
+                 low_res_size: int = 32, fused_eval: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         if block_type not in ("mbconv", "residual"):
             raise NotImplementedError(block_type)
         if encoder_widths[-1] != decoder_widths[-1]:
@@ -121,12 +154,12 @@ class UNCRTAINTS(nn.Module):
         aggregator's attention dropout when the attention is upsampled, the
         full L-TAE's MLP dropout)."""
         H, W = x.shape[2:4]
-        pad_mask = (x == self.pad_value).all(dim=(2, 3, 4))  # [B, T]
-        if mesh.spatial() is not None:  # x is a band: all pixels of the scene
-            pad_mask = mesh.spatial_all(pad_mask)
+        pad_mask = frame_pad_mask(x, self.pad_value)  # [B, T]
+        remat = self.remat and torch.is_grad_enabled()
+        block = remat_block if remat else (lambda blk, a: blk(a))
         out = self.in_conv(x)
         for blk in self.in_block:
-            out = blk(out)
+            out = block(blk, out)
         if not self.is_mono:
             ar = self.low_res_size
             down = smart_apply(lambda a: adaptive_max_pool2d(a, (ar, ar)), out)
@@ -145,7 +178,7 @@ class UNCRTAINTS(nn.Module):
         else:
             out = out[:, 0]
         for blk in self.out_block:
-            out = blk(out)
+            out = block(blk, out)
         if not self.separate_out:
             out = self.out_conv(out)
         elif self.has_var_head:

@@ -11,6 +11,11 @@ The JAX package's upsampling is flax's ``ConvTranspose(k=4, s=2, "SAME")``
 on an HWIO kernel; here it is the reference's ``ConvTranspose2d(k=4, s=2,
 p=1)`` on an [in, out, kh, kw] weight, the JAX kernel flipped in space
 (``models/jax_bridge.py``; the tests hold the two equal numerically).
+
+Under a spatial split (parallel/mesh.py) the strided ``down`` conv and the
+transposed ``up`` conv of a band read one row from each neighbour
+(models/layers.py: ``conv_rows``, ``conv_transpose_rows``); every band's
+rows must then stay even at each level.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uncrtaints_tpu_torch.models.layers import (
-    Conv2d, ConvBlock, ConvLayer, Norm2d, smart_apply, softplus_t20)
+    Conv2d, ConvBlock, ConvLayer, Norm2d, conv_transpose_band, smart_apply, softplus_t20)
+from uncrtaints_tpu_torch.parallel import mesh
 
 S2_BANDS = 13
 
@@ -44,8 +50,18 @@ class ConvTranspose2d(nn.Module):
         nn.init.normal_(self.bias, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-                               stride=self.stride, padding=self.pad).permute(0, 2, 3, 1)
+        """x [N,H,W,C]; under a spatial split a band of the scene, which
+        takes the neighbours' rows its outputs read (k 4, s 2, p 1: one on
+        each side) and gives its own output rows."""
+        w = self.weight.to(x.dtype)
+        conv = lambda a: F.conv_transpose2d(a.permute(0, 3, 1, 2), w, stride=self.stride,
+                                            padding=self.pad).permute(0, 2, 3, 1)
+        sp = mesh.spatial()
+        if sp is None:
+            y = conv(x)
+        else:
+            y = conv_transpose_band(x, conv, self.weight.shape[-2], self.stride, self.pad, 0,
+                                    sp, 1)
         return y + self.bias.to(y.dtype)
 
 

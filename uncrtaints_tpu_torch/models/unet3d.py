@@ -15,6 +15,11 @@ one frame and its output has none. Flax's pool returns that empty axis and
 the JAX model still gives an output, made of padding alone; the reference's
 ``nn.MaxPool3d`` and torch's raise. This module raises a ValueError naming
 the cause for T < 4 and matches the JAX package for T >= 4.
+
+Under a spatial split (parallel/mesh.py) x holds a band of rows of each
+scene, its rows a multiple of 4: the 3-D convolutions take their
+neighbours' rows, the max pools stay within the band, the batch norms'
+statistics sum over every rank and the pad mask is the scene's.
 """
 
 from __future__ import annotations
@@ -25,8 +30,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from uncrtaints_tpu_torch.models.layers import (
+    conv_rows, conv_transpose_band, frame_pad_mask, halo_rows)
 from uncrtaints_tpu_torch.models.ltae import BatchNorm1d
 from uncrtaints_tpu_torch.models.unet import S2_BANDS, mean_var_heads
+from uncrtaints_tpu_torch.parallel import mesh
 
 
 class Conv3d(nn.Module):
@@ -49,12 +57,21 @@ class Conv3d(nn.Module):
         nn.init.normal_(self.bias, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xc, w = x.permute(0, 4, 1, 2, 3), self.weight.to(x.dtype)
+        """x [B,T,H,W,C]. Under a spatial split x is a band of the scene's
+        rows: the convolution takes one row from each neighbour (zeros at
+        the scene's edge, as its pad), the transposed one the next band's
+        first row (its output row 2m+1 reads input rows m and m+1)."""
+        w = self.weight.to(x.dtype)
+        sp = mesh.spatial()
         if self.transposed:
-            y = F.conv_transpose3d(xc, w, stride=2, padding=1, output_padding=1)
-        else:
-            y = F.conv3d(xc, w, padding=1)
-        y = y.permute(0, 2, 3, 4, 1)
+            conv = lambda a: F.conv_transpose3d(a.permute(0, 4, 1, 2, 3), w, stride=2,
+                                                padding=1, output_padding=1).permute(0, 2, 3, 4, 1)
+            y = conv(x) if sp is None else conv_transpose_band(x, conv, 3, 2, 1, 1, sp, 2)
+        elif sp is None:
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=1).permute(0, 2, 3, 4, 1)
+        else:  # the halo rows stand for H's pad; T and W are padded as before
+            xe = halo_rows(x, *conv_rows(x.shape[2], sp.n_spatial, 3, 1, 1), "zeros", sp, 2)
+            y = F.conv3d(xe.permute(0, 4, 1, 2, 3), w, padding=(1, 0, 1)).permute(0, 2, 3, 4, 1)
         return y + self.bias.to(y.dtype)
 
 
@@ -109,7 +126,12 @@ class UNet3D(nn.Module):
                 f"UNet3D needs T >= 4 frames, got T={x.shape[1]}: its second temporal max "
                 "pool would have no output frame (the JAX model pads that empty axis up "
                 "again; torch's and the reference's max pool refuse it)")
-        pad_mask = (x == self.pad_value).all(dim=(2, 3, 4))  # [B, T]
+        sp = mesh.spatial()
+        if sp is not None and x.shape[2] % 4:
+            raise NotImplementedError(
+                f"UNet3D under a spatial split: a band of {x.shape[2]} rows; its two max "
+                "pools halve the rows twice, so each band's rows must be a multiple of 4")
+        pad_mask = frame_pad_mask(x, self.pad_value)  # [B, T]
         en3 = self.en3(x)
         en4 = self.en4(_max_pool(en3))
         c_out = self.center_out(self.center_in(_max_pool(en4)))

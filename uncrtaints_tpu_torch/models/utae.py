@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from uncrtaints_tpu_torch.models.aggregator import TemporalAggregator
+from uncrtaints_tpu_torch.models.layers import frame_pad_mask
 from uncrtaints_tpu_torch.models.ltae import LTAE2d
 from uncrtaints_tpu_torch.models.unet import S2_BANDS, _unet_stages, mean_var_heads
 
@@ -53,7 +54,7 @@ class UTAE(nn.Module):
     def forward(self, x: torch.Tensor, batch_positions: Optional[torch.Tensor] = None,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``dropout_generator`` draws the L-TAE's two dropouts in training."""
-        pad_mask = (x == self.pad_value).all(dim=(2, 3, 4))  # [B, T]
+        pad_mask = frame_pad_mask(x, self.pad_value)  # [B, T]
         feats = [self.in_conv(x)]
         for blk in self.down_blocks:
             feats.append(blk(feats[-1]))

@@ -364,8 +364,9 @@ class _HaloExchange(torch.autograd.Function):
         ctx.k, ctx.h, ctx.m, ctx.shape = k, h, m, x.shape
         H, s, n = x.shape[h], m.spatial_rank, m.n_spatial
         got = _gather(torch.cat([x.narrow(h, 0, k), x.narrow(h, H - k, k)], h), m)
-        top = got[s - 1].narrow(h, k, k).contiguous() if s > 0 else x.new_empty(0)
-        bot = got[s + 1].narrow(h, 0, k).contiguous() if s < n - 1 else x.new_empty(0)
+        edge = x.new_empty([0 if i == h else d for i, d in enumerate(x.shape)])  # no rows
+        top = got[s - 1].narrow(h, k, k).contiguous() if s > 0 else edge
+        bot = got[s + 1].narrow(h, 0, k).contiguous() if s < n - 1 else edge.clone()
         return top, bot
 
     @staticmethod
@@ -387,12 +388,18 @@ class _HaloExchange(torch.autograd.Function):
 
 
 def halo_exchange(x: torch.Tensor, k: int, h_axis: int = 1,
-                  m: Optional[Mesh2D] = None):
+                  m: Optional[Mesh2D] = None, keep_edges: bool = False):
     """(top, bot): the ``k`` rows (along ``h_axis``) that the band above
     ends with and that the band below starts with, or None at the scene's
     edge; differentiable (the backward adds the halos' gradients to the
     rows they came from, on their rank). A band needs at least ``k`` rows;
-    a smaller one raises, as does a call without a spatial mesh."""
+    a smaller one raises, as does a call without a spatial mesh.
+
+    The backward is a collective, so every rank's loss must reach the
+    exchange. A caller that may use neither halo on some rank (rows from
+    one side only) passes ``keep_edges=True`` and builds its result from
+    both returned tensors, which are then never None: a tensor of no rows
+    stands at the scene's edge."""
     m = m or spatial()
     if m is None:
         raise RuntimeError("halo_exchange: no 2-D mesh with a spatial split (make_mesh_2d)")
@@ -401,6 +408,8 @@ def halo_exchange(x: torch.Tensor, k: int, h_axis: int = 1,
         raise ValueError(f"halo_exchange: a band of {x.shape[h]} rows is too small for a halo "
                          f"of {k} rows")
     top, bot = _HaloExchange.apply(x, k, h, m)
+    if keep_edges:
+        return top, bot
     return (top if m.spatial_rank > 0 else None,
             bot if m.spatial_rank < m.n_spatial - 1 else None)
 
@@ -410,6 +419,43 @@ def spatial_sum(t: torch.Tensor, m: Optional[Mesh2D] = None) -> torch.Tensor:
     that hold the bands of the same samples)."""
     m = m or spatial()
     return all_reduce_sum_grad(t, m.spatial_group)
+
+
+class _SpatialMax(torch.autograd.Function):
+    """The max of a band over ``dims`` taken over the spatial group (the
+    scene's max). The backward gives the gradient, summed over the group
+    (every rank's loss reads the max), to each element equal to the max,
+    divided by the number of such elements in the whole scene: torch's
+    ``amax`` gradient, which splits evenly over equal maxima, ties in other
+    bands included."""
+
+    @staticmethod
+    def forward(ctx, x, dims, m):
+        top = torch.stack(_gather(x.amax(dim=dims, keepdim=True), m)).amax(dim=0)
+        hit = x == top
+        ctx.dims, ctx.m = dims, m
+        ctx.save_for_backward(hit)
+        return top.squeeze(dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        (hit,) = ctx.saved_tensors
+        count = hit.sum(dim=ctx.dims, keepdim=True, dtype=torch.float32)
+        # fp32 sums: gloo takes no bf16 on the card
+        tot = all_reduce_sum(torch.cat([g.float().reshape(-1), count.reshape(-1)]),
+                             ctx.m.spatial_group)
+        gsum, count = tot.split(g.numel())
+        share = (gsum / count).view([1 if i in ctx.dims else d for i, d in enumerate(hit.shape)])
+        return torch.where(hit, share, 0.0).to(g.dtype), None, None
+
+
+def spatial_max(x: torch.Tensor, dims, m: Optional[Mesh2D] = None) -> torch.Tensor:
+    """Differentiable max of a band ``x`` over ``dims`` and over the spatial
+    group: ``x.amax(dims)`` of the scene on every rank, with ``amax``'s
+    gradient (split evenly over all elements equal to the max, in every
+    band)."""
+    m = m or spatial()
+    return _SpatialMax.apply(x, tuple(d % x.dim() for d in dims), m)
 
 
 def spatial_all(mask: torch.Tensor, m: Optional[Mesh2D] = None) -> torch.Tensor:

@@ -103,6 +103,27 @@ def eval_forward(cfg: Config, model: torch.nn.Module, x_scaled: torch.Tensor,
     return _split_out(out.float(), cfg)
 
 
+def check_nans(model: torch.nn.Module) -> List:
+    """``--debug_nans``' check of the forward: a hook on every module of
+    ``model`` that raises ``FloatingPointError`` naming the first module
+    (the innermost, as modules finish in that order) whose output holds a
+    NaN, so the step that made it stops there, as under the JAX package's
+    ``jax_debug_nans``. Each check waits for the device: a debugging mode.
+    Returns the hooks' handles (``handle.remove()`` takes one off)."""
+    def hook(name):
+        def check(module, args, out):
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            for t in outs:
+                if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                        and bool(torch.isnan(t).any())):
+                    raise FloatingPointError(
+                        f"debug_nans: the output of {name or 'the model'} "
+                        f"({type(module).__name__}) holds a NaN")
+        return check
+
+    return [m.register_forward_hook(hook(n)) for n, m in model.named_modules()]
+
+
 def profile_flops(cfg: Config, model: torch.nn.Module, batch: Dict) -> float:
     """MFLOP per input sample of the eval forward (the JAX package's
     ``profile_flops``, engine.py:326, reads XLA's cost analysis; the
