@@ -166,6 +166,17 @@ Meanwhile this process runs ``cli.train --ckpt_backend orbax`` (asynchronous
 ``.dcp`` checkpoints) for one epoch, resumed to two, and ``cli.test``, whose
 metrics must equal to the bit a ``cli.test`` of the same weights written
 as ``.pth.tar``; its train losses are held against phase 6's within 5e-3.
+Phase 11 writes the JAX package's single-file checkpoint (flax msgpack
+``.ckpt`` + ``.meta.json``) with ``save_jax_checkpoint`` after two train
+steps of the paper recipe, and the same state as ``.pth.tar``: a fresh model
+loads the ``.ckpt`` bit-equal (model, Adam's state, lr, step, epoch; the
+eval step's pred and var; 1 K1 + 10 K3 + 5 K4), trains one step (1 K1 + 1
+K1-bwd + 12 K5 + 6 K2, every gradient finite and non-zero but those zero in
+exact arithmetic), and ``cli.test`` (bit-equal metrics), ``cli.train
+--resume_from`` (first loss within 5e-4 relative) and
+``load_pretrained_partial`` (equal values and mask) give what the
+``.pth.tar`` gives; the file's bytes and the host ms of both routes' save
+and load are printed beside the card.
 Any failed check raises. The last line of stdout is the JSON result; the
 line before it lists the kernels. Without a CUDA device the script exits
 with an error and prints no result.
@@ -174,6 +185,7 @@ with an error and prints no result.
 import collections
 import contextlib
 import importlib.util
+import io
 import json
 import math
 import os
@@ -2798,6 +2810,155 @@ def _phase10_orbax(tmp):
     return counts
 
 
+# phase 11: the JAX package's single-file checkpoint (flax msgpack .ckpt +
+# .meta.json), written by the port's save_jax_checkpoint (this machine has no
+# JAX to write one) and read back through every path that reads a checkpoint
+
+def _host_ms(fn, runs=3):
+    """The median host-clock ms of ``fn()`` over ``runs`` calls, with the
+    device idle before each, and the last call's result."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def phase11_jax_checkpoint(dev, tmp, card):
+    """The paper recipe at full width (bf16, B=4, T=3, 256x256, seeded):
+    two train steps, then ``save_jax_checkpoint`` into a run directory with
+    its conf.json, and the same state as ``.pth.tar`` in a twin directory; a
+    fresh model of another seed loads the ``.ckpt`` (model, Adam's moments
+    and count, lr, step and epoch bit-equal to the source; its eval step
+    bit-equal to the source model's), one train step after the load (every
+    gradient finite and non-zero but those zero in exact arithmetic),
+    ``cli.test`` on both directories (bit-equal metrics), ``cli.train
+    --resume_from`` from each for one short epoch (the first losses within
+    5e-4 relative) and ``load_pretrained_partial`` from each (equal values
+    and masks). Returns the launches of the phase."""
+    from uncrtaints_tpu_torch.cli import test as cli_test, train as cli_train
+    from uncrtaints_tpu_torch.config import Config, apply_resume, derive
+    from uncrtaints_tpu_torch.models import get_generator
+    from uncrtaints_tpu_torch.train import (create_train_state, epoch_lr, make_eval_step,
+                                            make_train_step, set_learning_rate)
+    from uncrtaints_tpu_torch.train.checkpoint import (load_checkpoint, load_pretrained_partial,
+                                                       save_checkpoint, save_jax_checkpoint)
+    kernels = kernel_wrappers()
+    res = os.path.join(tmp, "phase11")
+
+    def recipe(name, **kw):  # the paper recipe, one batch a split
+        return derive(Config(
+            use_sar=True, scale_by=10.0, gamma=0.8, synthetic_data=True, synthetic_patch=PATCH,
+            batch_size=B, input_t=T, max_samples_count=B, num_workers=4, plot_every=-1,
+            export_every=-1, res_dir=res, experiment_name=name, **kw))
+
+    cfg = recipe("jax", epochs=1)
+    check(cfg.device == "cuda" and cfg.compute_dtype == "bfloat16"
+          and cfg.encoder_widths == [128] and cfg.decoder_widths == [128] * 5
+          and cfg.n_head == 16 and cfg.d_model == 256,
+          "phase 11 runs the paper recipe at full width on the card")
+    batches = _synthetic_batches(cfg, 3, PATCH, SEED + 11, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    step = make_train_step(cfg)
+    eval_step = make_eval_step(cfg, with_metrics=True)
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    src = create_train_state(cfg, seeded_model(cfg, dev))
+    for b in batches[:2]:
+        src, _ = step(src, b, gen)
+    src = set_learning_rate(src, epoch_lr(cfg, 1))
+    lr = src.tx.lr
+    twin = cfg.replace(experiment_name="pth")
+    for c in (cfg, twin):
+        os.makedirs(os.path.join(res, c.experiment_name), exist_ok=True)
+        c.save_json(os.path.join(res, c.experiment_name, "conf.json"))
+    save_jax_ms, jpath = _host_ms(lambda: save_jax_checkpoint(cfg, 1, src, "model_epoch_1", lr))
+    save_pth_ms, ppath = _host_ms(lambda: save_checkpoint(twin, 1, src, "model_epoch_1", lr))
+    fresh = lambda seed: create_train_state(cfg, get_generator(cfg.replace(rdm_seed=seed)))
+    quiet = lambda: contextlib.redirect_stdout(io.StringIO())
+    dst, dst_pth = fresh(7), fresh(8)
+    with quiet():  # each load into the same fresh state: the last one is kept
+        load_jax_ms, (got, meta) = _host_ms(
+            lambda: load_checkpoint(cfg, res, dst, "model_epoch_1"))
+        load_pth_ms, _ = _host_ms(lambda: load_checkpoint(twin, res, dst_pth, "model_epoch_1"))
+    a, b = src.model.state_dict(), got.model.state_dict()
+    same_model = list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+    same_adam = got.opt_state.count == src.opt_state.count == 2 and all(
+        torch.equal(getattr(got.opt_state, m)[k], v)
+        for m in ("mu", "nu") for k, v in getattr(src.opt_state, m).items())
+    check(same_model and same_adam and got.tx.lr == lr and got.step == src.step == 2
+          and meta == {"epoch": 1, "lr": lr, "step": 2},
+          f"the .ckpt round trip: model {same_model}, Adam {same_adam}, lr {got.tx.lr} vs "
+          f"{lr}, step {got.step}, meta {meta}")
+    ref = eval_step(src.model, batches[2])
+    before = {k: f.launches for k, f in kernels.items()}
+    out = eval_step(got.model, batches[2])
+    one_eval = {k: f.launches - before[k] for k, f in kernels.items()}
+    check(torch.equal(out["pred"], ref["pred"]) and torch.equal(out["var"], ref["var"]),
+          "the eval step of the model loaded from the .ckpt differs from the source's")
+    check(one_eval == chain_launches(0, 1), f"the eval step after the load launched {one_eval}")
+    before = {k: f.launches for k, f in kernels.items()}
+    got, aux = step(got, batches[2], gen)
+    one_train = {k: f.launches - before[k] for k, f in kernels.items()}
+    check(one_train == chain_launches(1, 0), f"the train step after the load launched "
+                                             f"{one_train}")
+    zero_ok = exact_zero_gradients(got.model)
+    bad = [n for n, g in aux["grads"].items()
+           if not finite(g) or (n not in zero_ok and float(g.abs().max()) == 0.0)]
+    check(not bad, f"gradients after the .ckpt load zero or not finite: {bad[:8]}")
+
+    argv = lambda name: ["--experiment_name", name, "--weight_folder", res, "--res_dir",
+                         os.path.join(tmp, f"phase11_{name}_test"), "--resume_at", "1",
+                         "--max_samples_count", str(B), "--batch_size", str(B), "--input_t",
+                         str(T), "--num_workers", "4", "--export_every", "-1"]
+    first = {}
+    with quiet():
+        tests = {n: cli_test.main(cli_test.load_test_config(argv(n))) for n in ("jax", "pth")}
+        for name, ckpt in (("jax", jpath), ("pth", ppath)):
+            run = cli_train.main(apply_resume(recipe(
+                name, epochs=2, resume_from=True, trained_checkp=ckpt, resume_at=1)))
+            first[name] = run["trainlog"][2]["train_loss"]
+    chain_s = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in kernels.items()}
+    # 2 + 1 train steps here and 1 in each resumed run; 1 + 1 eval forwards
+    # here, 1 in each cli.test, a val and a test forward in each resumed run
+    want = chain_launches(2 + 1 + 2, 2 + 2 + 2 * 2)
+    check(counts == want, f"phase 11 launched {counts}, expected {want}")
+    check(tests["jax"] == tests["pth"], f"cli.test of the .ckpt {tests['jax']} and of the "
+                                        f".pth.tar {tests['pth']} differ")
+    rel = _relgap(first["jax"], first["pth"])
+    check(rel <= 5e-4, f"the first loss resumed from the .ckpt {first['jax']} and from the "
+                       f".pth.tar {first['pth']}: {rel:.3g} relative (> 5e-4)")
+
+    part = {}
+    for name, path in (("jax", jpath), ("pth", ppath)):
+        st, mask = load_pretrained_partial(cfg, fresh(9), path)
+        part[name] = (st.model.state_dict(), mask)
+    (pa, ma), (pb, mb) = part["jax"], part["pth"]
+    check(ma == mb and 0.0 in ma.values() and all(torch.equal(pa[k], pb[k]) for k in pa),
+          "load_pretrained_partial from the .ckpt and from the .pth.tar differ")
+    with open(jpath.replace(".ckpt", ".meta.json")) as f:
+        side = json.load(f)
+    print(f"phase 11: the JAX package's checkpoint, paper recipe (bf16, {len(a)} tensors): "
+          f"save_jax_checkpoint -> fresh model -> load_checkpoint: model, Adam's moments and "
+          f"count, lr, step and epoch equal to the bit (sidecar {side}); eval step bit-equal, "
+          f"launches {one_eval}; a train step after the load launches {one_train}, every "
+          f"gradient finite and non-zero but {len(zero_ok & set(aux['grads']))} zero in exact "
+          f"arithmetic; cli.test .ckpt vs .pth.tar bit-equal; cli.train --resume_from first "
+          f"loss .ckpt {first['jax']} vs .pth.tar {first['pth']} ({rel:.3g} relative, <= 5e-4); "
+          f"load_pretrained_partial equal in values and mask ({sum(m == 0.0 for m in ma.values())} "
+          f"of {len(ma)} frozen); {chain_s:.1f} s, launches {counts}")
+    print(f"  files: model_epoch_1.ckpt {os.path.getsize(jpath)} bytes, model_epoch_1.pth.tar "
+          f"{os.path.getsize(ppath)} bytes; host ms (median of 3): save_jax_checkpoint "
+          f"{save_jax_ms:.1f}, save_checkpoint (.pth.tar) {save_pth_ms:.1f}, load_checkpoint "
+          f".ckpt {load_jax_ms:.1f}, .pth.tar {load_pth_ms:.1f}; card {card}")
+    return counts
+
+
 def start_spatial_ranks(out, n_data, n_spatial):
     """``torchrun`` of this script's :func:`spatial_rank` as the ranks of an
     n_data x n_spatial mesh, writing into ``out``; returns the process."""
@@ -3000,17 +3161,21 @@ def main():
         took("phase 9")
         spatial = phase10_spatial(dev, work)
         took("phase 10")
+        jaxck = phase11_jax_checkpoint(dev, work, card)
+        took("phase 11")
     print(f"launches by path: eval {evalc}; scene {scene}; train {train}; remat {remat}; "
           f"CLIs {cli}; "
           f"real data {real}; U-TAE {utae}; other families {families}; ensemble members "
-          f"{members}; export and the traced run {modules}; spatial mesh and orbax {spatial}")
+          f"{members}; export and the traced run {modules}; spatial mesh and orbax {spatial}; "
+          f"the JAX checkpoint {jaxck}")
 
     # launches: the sum over the paths' runs (eval, scene, train, remat, the
     # CLI chain, the real-data CLIs, U-TAE's CLIs and bare steps, the other
     # families, the ensemble's members, one exported call and the traced
-    # run, the spatial ranks and the orbax chain), each counted from 0 just
-    # before the path to just after it
-    paths = (evalc, scene, train, remat, cli, real, utae, families, members, modules, spatial)
+    # run, the spatial ranks and the orbax chain, the JAX checkpoint's), each
+    # counted from 0 just before the path to just after it
+    paths = (evalc, scene, train, remat, cli, real, utae, families, members, modules, spatial,
+             jaxck)
     meta = {  # name: (source, the TPU kernel it replaces, its counter)
         "att_group_aggregate": ("aggregate.cu", "pallas_aggregate.py:268", "K1"),
         "att_group_aggregate_bwd": ("aggregate.cu", "pallas_aggregate.py:164", "K1-bwd"),

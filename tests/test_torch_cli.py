@@ -256,9 +256,12 @@ def test_the_clis_refuse_what_is_not_ported(tmp_path, field, value, error, match
 
 
 def test_a_foreign_checkpoint_suffix_is_refused():
+    """The JAX package's .ckpt files are read; its .orbax directories are
+    refused, and the message names the formats that are read."""
     assert cli_train.checkpoint_name("results/run/model_epoch_3.pth.tar") == "model_epoch_3"
     assert cli_train.checkpoint_name("results/run/model_epoch_3.dcp/") == "model_epoch_3"
-    for path in ("results/run/model.ckpt", "results/run/model.orbax/"):
+    assert cli_train.checkpoint_name("results/run/model_epoch_3.ckpt") == "model_epoch_3"
+    for path in ("results/run/model.orbax/", "results/run/model.npz"):
         with pytest.raises(ValueError, match=".pth.tar"):
             cli_train.checkpoint_name(path)
 

@@ -1,8 +1,10 @@
 """The port stands alone: ``uncrtaints_tpu_torch`` and ``chip_smoke.py``
-import nothing of JAX and nothing of the JAX package (nor tensorflow or
-orbax, which that package logs and checkpoints with), and the port's own
+import nothing of JAX and nothing of the JAX package (nor flax, optax,
+msgpack, tensorflow or orbax, which that package builds, optimizes, logs
+and checkpoints with), and the port's own
 copies of the config, the synthetic data source, the collates, the host
-radiometry, the calibration metrics, the checkpoint key rule, the TIFF
+radiometry, the calibration metrics, the checkpoint key rule, the JAX
+checkpoints' legacy conv-path lift, the TIFF
 codec, the samplers, the ROI tables, the s2cloudless reader,
 ``natsorted`` and the ensemble's fusion equal the JAX package's.
 """
@@ -17,7 +19,8 @@ import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow", "uncrtaints_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "tensorflow",
+             "uncrtaints_tpu")
 # the entry points and what they stand on, which the walk must have found
 ENTRY_MODULES = ("cli.train", "cli.test", "cli.precompute", "cli.convert", "cli.download",
                  "train.loop", "train.checkpoint", "train.observe", "metrics.calibration",
@@ -28,7 +31,7 @@ ENTRY_MODULES = ("cli.train", "cli.test", "cli.precompute", "cli.convert", "cli.
                  "models.recurrent", "models.jax_bridge", "export", "parallel",
                  "parallel.mesh", "native", "infer", "models.layers", "models.blocks",
                  "models.uncrtaints", "ops.pooling", "ops.resize", "ops.ssim", "ops.dwconv",
-                 "ops.dwgrad", "ops.mbconv")
+                 "ops.dwgrad", "ops.mbconv", "train.flax_format")
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
@@ -44,7 +47,7 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 49, names\n"
+        "assert len(names) >= 50, names\n"
         f"missing = [m for m in {ENTRY_MODULES!r} if 'uncrtaints_tpu_torch.' + m not in names]\n"
         "assert not missing, missing\n"
         "print('ok', len(names))\n")
@@ -66,7 +69,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     (comments and docstrings naming the counterpart file are fine)."""
     pat = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(FORBIDDEN) + r")(?:[\s.,]|$)", re.M)
     files = _port_sources()
-    assert len(files) >= 51
+    assert len(files) >= 52
     hits = {os.path.relpath(f, REPO): pat.findall(open(f).read()) for f in files}
     assert not {f: h for f, h in hits.items() if h}
 
@@ -370,8 +373,29 @@ def _copy_legacy_keys(rng):
         _same_tree(got(sd), ref(sd))
 
 
+def _copy_legacy_conv_paths(rng):
+    """The lift of a JAX ``.ckpt``'s older ``Conv2d_i/Conv_0/{kernel,bias}``
+    paths, on a tree with what it lifts and what it must leave."""
+    from uncrtaints_tpu.train.checkpoint import _migrate_legacy_conv_paths as ref
+    from uncrtaints_tpu_torch.models.jax_bridge import _migrate_legacy_conv_paths as got
+    leaf = lambda: rng.random(3)
+    params = {
+        "in_conv": {"ConvLayer_0": {"Conv2d_0": {"Conv_0": {"kernel": leaf(), "bias": leaf()}},
+                                    "Norm2d_0": {"scale": leaf(), "bias": leaf()}}},
+        "in_block0": {"Conv2d_1": {"Conv_0": {"kernel": leaf()}},   # lifted
+                      "Conv2d_2": {"Conv_0": {"kernel": leaf(), "scale": leaf()}},  # kept
+                      "Block_0": {"Conv_0": {"kernel": leaf()}}},   # kept: not a Conv2d
+        "Conv2d_3": {"Conv_0": {"kernel": leaf()}, "extra": leaf()},  # kept: two children
+    }
+    tree = {"params": params, "opt_state": {"inner_state": {"0": {"mu": params, "count": 3}}},
+            "step": 7}
+    _same_tree(got(tree), ref(tree))
+    assert "kernel" in got(tree)["opt_state"]["inner_state"]["0"]["mu"]["in_block0"]["Conv2d_1"]
+
+
 @pytest.mark.parametrize("copy", [_copy_calibration, _copy_collates, _copy_process_ms,
-                                  _copy_process_sar, _copy_legacy_keys, _copy_tiff,
+                                  _copy_process_sar, _copy_legacy_keys, _copy_legacy_conv_paths,
+                                  _copy_tiff,
                                   _copy_samplers, _copy_rois, _copy_s2cloudless,
                                   _copy_natsorted, _copy_ensemble], ids=lambda f: f.__name__[6:])
 @pytest.mark.parametrize("seed", [1, 7])

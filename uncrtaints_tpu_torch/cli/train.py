@@ -117,17 +117,21 @@ def need_outputs(cfg: Config) -> bool:
             or cfg.loss in ("GNLL", "MGNLL"))
 
 
-CHECKPOINT_SUFFIXES = (".pth.tar", ".dcp")  # --ckpt_backend msgpack, orbax
+# --ckpt_backend msgpack, orbax; and the JAX package's single-file checkpoint
+CHECKPOINT_SUFFIXES = (".pth.tar", ".dcp", ".ckpt")
 
 
 def checkpoint_name(path: str) -> str:
-    """``.../model_epoch_k.pth.tar`` (or ``.dcp``) -> ``model_epoch_k``."""
+    """``.../model_epoch_k.pth.tar`` (or ``.dcp``, or the JAX package's
+    ``.ckpt``) -> ``model_epoch_k``."""
     name = os.path.basename(path.rstrip("/"))
     for suffix in CHECKPOINT_SUFFIXES:
         if name.endswith(suffix):
             return name.removesuffix(suffix)
-    raise ValueError(f"{path}: this package reads .pth.tar checkpoints and .dcp directories "
-                     "only (not the JAX package's .ckpt or .orbax)")
+    raise ValueError(f"{path}: this package reads .pth.tar checkpoints, .dcp directories and "
+                     "the JAX package's .ckpt files (not its .orbax directories: restore "
+                     "those in the JAX package and save them there with "
+                     "ckpt_backend='msgpack')")
 
 
 def data_parallel(cfg: Config):

@@ -15,6 +15,8 @@ whose algorithm CUDA offers no choice of.
 ``ckpt_backend`` "msgpack" (the default) means the package's single-file
 format, the reference's ``.pth.tar``, and "orbax" its asynchronous
 counterpart, a ``torch.distributed.checkpoint`` directory (train/checkpoint.py).
+Either way the loads also read the JAX package's single-file ``.ckpt``
+(flax msgpack), not its ``.orbax`` directories.
 ``mesh_shape`` is the number of data-parallel ranks, one process per GPU
 (parallel/mesh.py).
 
@@ -406,7 +408,9 @@ def apply_resume(cfg: Config) -> Config:
         load_conf = os.path.join(cfg.res_dir, cfg.experiment_name, "conf.json")
         if cfg.experiment_name != cfg.trained_checkp.split("/")[-2]:
             raise ValueError("Mismatch of loaded config file and checkpoints")
-        cfg = cfg.merge_json(load_conf, NO_OVERWRITE_RESUME)
+        # the device is where this process runs, not a property of the run:
+        # a JAX run's conf.json says "tpu"
+        cfg = cfg.merge_json(load_conf, NO_OVERWRITE_RESUME + ["device"])
     if cfg.resume_at >= 0:
         cfg = cfg.replace(lr=cfg.lr * cfg.gamma ** cfg.resume_at)
     return cfg

@@ -1,4 +1,4 @@
-"""JAX variables -> the port's state_dict (reference PyTorch names).
+"""JAX variables <-> the port's state_dict (reference PyTorch names).
 
 The inverse of the tables of uncrtaints_tpu/models/torch_import.py for every
 model the port builds: ``uncrtaints_mapping`` (MBConv or residual blocks,
@@ -13,7 +13,15 @@ does); the tests hold each table against its forward table.
 Inverse layout transforms: conv HWIO -> OIHW, Dense [I,O] -> Linear [O,I],
 Dense [I,O] -> Conv1d [O,I,1], a transposed conv's spatially flipped HWIO ->
 [I,O,kh,kw] (flipped back), 3-D kernels likewise; batch stats mean/var ->
-running_mean/var.
+running_mean/var. :func:`to_jax_variables` undoes each of them, so a state
+dict goes back to the JAX package's variables (train/checkpoint.py writes
+the JAX package's ``.ckpt`` with it); Adam's moments are elementwise and
+take the parameters' table both ways (:func:`params_table`). Every leaf
+keeps its dtype, so the two directions are bit-equal.
+
+:func:`_migrate_legacy_conv_paths` is a copy of the JAX package's
+(train/checkpoint.py there): it reads trees of the JAX package's older
+``.ckpt`` files.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from uncrtaints_tpu_torch.train.flax_format import from_tensor, to_tensor
 
 Table = Dict[str, Tuple[str, Callable]]
 
@@ -52,6 +62,18 @@ def _conv_t3d_w(w):  # flipped [kt,kh,kw,I,O] -> ConvTranspose3d [I,O,kt,kh,kw]
 
 def _ident(w):
     return w
+
+
+# the inverse of each transform above: the port's layout -> the JAX one
+_INVERSE = {
+    _conv_w: lambda w: np.transpose(w, (2, 3, 1, 0)),
+    _lin_w: np.transpose,
+    _conv1d_w: lambda w: np.transpose(w[..., 0]),
+    _conv_t_w: lambda w: np.transpose(w[:, :, ::-1, ::-1], (2, 3, 0, 1)),
+    _conv3d_w: lambda w: np.transpose(w, (2, 3, 4, 1, 0)),
+    _conv_t3d_w: lambda w: np.transpose(w[:, :, ::-1, ::-1, ::-1], (2, 3, 4, 0, 1)),
+    _ident: _ident,
+}
 
 
 class _TableMaker:
@@ -255,6 +277,12 @@ def mbconv_names(kind: str, expansion: int, downsample: bool) -> Table:
             for k, v in t.m.items()}
 
 
+def params_table(table: Table) -> Table:
+    """The parameters' part of a table (no batch statistics): the table of
+    a tree shaped like ``params``, as Adam's moments are."""
+    return {k: v for k, v in table.items() if not k.startswith("B:")}
+
+
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     flat = {}
     for k, v in tree.items():
@@ -262,28 +290,90 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
         if isinstance(v, Mapping):
             flat.update(_flatten(v, path + "/"))
         else:
-            flat[path] = np.asarray(v)
+            flat[path] = np.asanyarray(v)
     return flat
 
 
-def from_table(variables_np: Mapping, table: Table) -> Dict[str, torch.Tensor]:
+def from_table(variables_np: Mapping, table: Table,
+               strict: bool = True) -> Dict[str, torch.Tensor]:
     """{'params': ..., 'batch_stats': ...} nested mappings of arrays (JAX
-    arrays or numpy) -> a state_dict by ``table``. Raises if a path of the
-    table is missing from the variables or a variable has no entry in it."""
+    arrays or numpy) -> a state_dict by ``table``, each tensor in its
+    leaf's dtype. Raises if a path of the table is missing from the
+    variables or a variable has no entry in it; with ``strict=False`` maps
+    the paths the two share and leaves out the rest."""
     flat = _flatten(variables_np.get("params", {}))
     flat.update({f"B:{p}": a for p, a in
                  _flatten(variables_np.get("batch_stats", {})).items()})
     missing = sorted(set(table) - set(flat))
     unknown = sorted(set(flat) - set(table))
-    if missing or unknown:
+    if strict and (missing or unknown):
         raise KeyError(f"JAX variables do not match the port's table: missing "
                        f"{missing[:5]}, unknown {unknown[:5]}")
-    return {tname: torch.from_numpy(
-                np.ascontiguousarray(tf(flat[fp]).astype(np.float32)))
-            for fp, (tname, tf) in table.items()}
+    return {tname: to_tensor(tf(flat[fp])) for fp, (tname, tf) in table.items()
+            if fp in flat}
+
+
+def _sorted_tree(tree: Dict) -> Dict:
+    """Keys in sorted order at every level, as JAX's trees hold them."""
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
+
+
+def to_table(state_dict: Mapping[str, torch.Tensor], table: Table) -> Dict[str, Dict]:
+    """The inverse of :func:`from_table`: a state_dict -> {'params': ...,
+    'batch_stats': ...} nested dicts of numpy arrays in the tensors' dtypes
+    (bf16 as ``flax_format.BFloat16``), keys sorted at every level. Raises
+    if a name of the table is missing from the state_dict or a tensor has
+    no entry in it."""
+    names = {tname for tname, _ in table.values()}
+    missing = sorted(names - set(state_dict))
+    unknown = sorted(set(state_dict) - names)
+    if missing or unknown:
+        raise KeyError(f"the state_dict does not match the port's table: missing "
+                       f"{missing[:5]}, unknown {unknown[:5]}")
+    out = {"params": {}, "batch_stats": {}}
+    for fp, (tname, tf) in table.items():
+        leaf = np.array(_INVERSE[tf](from_tensor(state_dict[tname])), order="C", subok=True)
+        node = out["batch_stats"] if fp.startswith("B:") else out["params"]
+        *parents, last = fp.removeprefix("B:").split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return {k: _sorted_tree(v) for k, v in out.items()}
 
 
 def from_jax_variables(variables_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """JAX variables of ``cfg``'s model -> a state_dict for
     ``get_generator(cfg)`` that loads with ``strict=True``."""
     return from_table(variables_np, jax_to_torch_names(cfg))
+
+
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor], cfg) -> Dict[str, Dict]:
+    """The inverse of :func:`from_jax_variables`: the state_dict of
+    ``get_generator(cfg)`` -> its JAX variables {'params', 'batch_stats'}
+    (an empty ``batch_stats`` for a model without batch norm)."""
+    return to_table(state_dict, jax_to_torch_names(cfg))
+
+
+def _migrate_legacy_conv_paths(tree):
+    """Lift legacy ``.../Conv2d_i/Conv_0/{kernel,bias}`` nodes one level up.
+
+    Early checkpoints were written when Conv2d wrapped ``nn.Conv`` (param
+    path ``Conv2d_i/Conv_0/kernel``); Conv2d now owns its kernel/bias
+    directly. Applied recursively, so optimizer-state copies of the param
+    tree migrate too."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        v = _migrate_legacy_conv_paths(v)
+        # Restrict the lift to the known legacy wrapper shape: parent key
+        # from the Conv2d wrapper family AND the Conv_0 node holding exactly
+        # conv leaves {kernel[, bias]}. A module that legitimately contains
+        # a single nn.Conv child named Conv_0 must NOT be restructured.
+        if (isinstance(v, dict) and set(v) == {"Conv_0"}
+                and isinstance(v["Conv_0"], dict)
+                and k.split("_")[0] == "Conv2d"
+                and set(v["Conv_0"]) in ({"kernel"}, {"kernel", "bias"})):
+            v = v["Conv_0"]
+        out[k] = v
+    return out

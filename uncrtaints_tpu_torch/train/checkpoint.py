@@ -16,9 +16,25 @@ to ``{res_dir}/{experiment}/{name}.pth.tar``::
 with every tensor on the CPU, so ``torch.load(path, weights_only=True)``
 reads it. The JAX package's ``load_checkpoint`` falls through to a file of
 this name and layout, so a run trained here can be tested there with no
-conversion. The JAX package's own ``.ckpt`` (flax msgpack) and ``.orbax``
-checkpoints are not read here: that needs flax. ``cfg.ckpt_backend``
-"msgpack" (the default) means this single-file format in this package.
+conversion. ``cfg.ckpt_backend`` "msgpack" (the default) means this
+single-file format in this package.
+
+The JAX package's own single-file checkpoint is read too, on every path
+that reads one (:func:`load_checkpoint`, :func:`load_pretrained_partial`,
+so ``--resume_from``, ``--trained_checkp`` and ``cli.test``): a flax
+msgpack blob ``{name}.ckpt`` = {"params", "batch_stats", "opt_state",
+"step"} (train/checkpoint.py:54-102 there), beside a ``{name}.meta.json``
+of {"epoch", "lr", "step"}. ``train/flax_format.py`` decodes it without
+flax; ``models/jax_bridge.py`` maps the variables and Adam's moments
+(``opt_state`` is optax's ``inject_hyperparams(adam)`` state) to this
+package's names, older trees' ``Conv2d_i/Conv_0`` paths lifted first as
+the JAX package lifts them. :func:`save_jax_checkpoint` writes that format
+from a state of this package, Adam's state included, for the JAX package
+to read; no CLI flag reaches it. The JAX package's ``.orbax`` directories
+are not read: orbax writes tensorstore's OCDBT layout (a B-tree of
+compressed chunks), which needs tensorstore, and the card's machine has
+none. Restore such a run in the JAX package and save it there with
+``ckpt_backend="msgpack"``: that ``.ckpt`` reads here.
 
 ``cfg.ckpt_backend="orbax"`` is the counterpart of the JAX package's async
 orbax checkpoint (train/checkpoint.py:32-90 there): the same blob goes to a
@@ -44,18 +60,27 @@ from __future__ import annotations
 
 import concurrent.futures
 import inspect
+import json
 import os
 import re
 import shutil
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
+from uncrtaints_tpu_torch.models.jax_bridge import (
+    _migrate_legacy_conv_paths, from_table, jax_to_torch_names, params_table, to_table)
+from uncrtaints_tpu_torch.train import flax_format
 from uncrtaints_tpu_torch.train.engine import TrainState, set_learning_rate
 
 
 def _ckpt_path(res_dir: str, experiment: str, name: str) -> str:
     return os.path.join(res_dir, experiment, f"{name}.pth.tar")
+
+
+def _jax_ckpt_path(res_dir: str, experiment: str, name: str) -> str:
+    return os.path.join(res_dir, experiment, f"{name}.ckpt")
 
 
 def _dcp_path(res_dir: str, experiment: str, name: str) -> str:
@@ -141,23 +166,32 @@ def _read_dcp(path: str) -> Dict:
     return blob
 
 
+def _orbax_refusal(path: str) -> ValueError:
+    return ValueError(
+        f"{path} is the JAX package's checkpoint as an orbax directory (tensorstore's OCDBT "
+        "layout), which this package does not read: restore it in the JAX package and save "
+        "it there with ckpt_backend='msgpack', a .ckpt file that this package reads")
+
+
 def _blob_path(checkp_dir: str, experiment: str, name: str) -> str:
     """The checkpoint ``name`` on disk, by what is there (after the pending
-    asynchronous saves have landed): ``{name}.dcp``, else its ``.prev`` (a
-    re-save interrupted between its two renames), else ``{name}.pth.tar``.
-    A JAX ``.orbax`` or ``.ckpt`` of that name is foreign and refused."""
+    asynchronous saves have landed), this package's own first, so that its
+    newer files win in a JAX run directory it resumed: ``{name}.dcp``, else
+    its ``.prev`` (a re-save interrupted between its two renames), else
+    ``{name}.pth.tar``, else the JAX package's ``{name}.ckpt``. A JAX
+    ``.orbax`` alone under that name is refused."""
     wait_for_checkpoints()
     dcp_dir = _dcp_path(checkp_dir, experiment, name)
     for p in (dcp_dir, dcp_dir + ".prev"):
         if os.path.isdir(p):
             return p
     path = _ckpt_path(checkp_dir, experiment, name)
-    if not os.path.exists(path):
-        for suffix in (".orbax", ".ckpt"):
-            foreign = os.path.join(checkp_dir, experiment, name + suffix)
-            if os.path.exists(foreign):
-                raise ValueError(f"{foreign} is the JAX package's checkpoint: this package "
-                                 "reads .pth.tar files and .dcp directories")
+    for p in (path, _jax_ckpt_path(checkp_dir, experiment, name)):
+        if os.path.exists(p):
+            return p
+    orbax = os.path.join(checkp_dir, experiment, name + ".orbax")
+    if os.path.exists(orbax):
+        raise _orbax_refusal(orbax)
     return path
 
 
@@ -179,10 +213,52 @@ def normalize_legacy_keys(sd: Dict) -> Dict:
     return out
 
 
-def _read(path: str) -> Tuple[Dict, Dict]:
-    """(the blob of a ``.pth.tar`` file or a ``.dcp`` directory, its
-    normalized model state dict)."""
-    if os.path.isdir(path):
+def _read_jax(path: str, cfg, strict: bool = True) -> Dict:
+    """A JAX ``.ckpt`` and its ``.meta.json`` -> the blob a ``.pth.tar``
+    gives: ``state_dict_G`` (params and batch_stats by this package's
+    names), ``optimizer_G`` (Adam's count and moments by parameter name,
+    and the hyperparameters to check), ``lr`` (the sidecar's, else the
+    saved learning rate, as the JAX load falls back to the restored
+    hyperparameters), ``step`` and ``epoch`` (1 without a sidecar). With
+    ``strict=False`` (partial transfer) only the variables of the file that
+    ``cfg``'s model also has are mapped."""
+    with open(path, "rb") as f:
+        tree = _migrate_legacy_conv_paths(flax_format.restore(f.read()))
+    meta_path = path.removesuffix(".ckpt") + ".meta.json"
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    table = jax_to_torch_names(cfg)
+    variables = {"params": tree.get("params", {}), "batch_stats": tree.get("batch_stats", {})}
+    blob = {"state_dict_G": from_table(variables, table, strict=strict),
+            "step": int(tree.get("step", meta.get("step", 0))),
+            "epoch": int(meta.get("epoch", 1))}
+    opt = tree.get("opt_state")
+    if strict and opt:
+        adam = opt["inner_state"]["0"]
+        moments = params_table(table)
+        blob["optimizer_G"] = {
+            "count": int(adam["count"]),
+            "mu": from_table({"params": adam["mu"]}, moments),
+            "nu": from_table({"params": adam["nu"]}, moments),
+            "hyperparams": {k: float(v) for k, v in opt["hyperparams"].items()}}
+    if "lr" in meta:
+        blob["lr"] = float(meta["lr"])
+    elif opt:
+        blob["lr"] = float(opt["hyperparams"]["learning_rate"])
+    return blob
+
+
+def _read(path: str, cfg=None, strict: bool = True) -> Tuple[Dict, Dict]:
+    """(the blob of a ``.pth.tar`` file, a ``.dcp`` directory or a JAX
+    ``.ckpt`` (whose names ``cfg``'s model decides), its normalized model
+    state dict)."""
+    if path.endswith(".orbax"):
+        raise _orbax_refusal(path)
+    if path.endswith(".ckpt"):
+        blob = _read_jax(path, cfg, strict)
+    elif os.path.isdir(path):
         blob = _read_dcp(path)
     else:
         blob = torch.load(path, map_location="cpu", weights_only=True)
@@ -219,6 +295,56 @@ def save_checkpoint(cfg, epoch: int, state: TrainState, name: str,
     return path
 
 
+def save_jax_checkpoint(cfg, epoch: int, state: TrainState, name: str, lr: float) -> str:
+    """Write the {name} checkpoint in the JAX package's single-file format,
+    the counterpart of its msgpack ``save_checkpoint``: ``{name}.ckpt``, the
+    tree {"params", "batch_stats", "opt_state", "step"} in flax's msgpack,
+    with ``opt_state`` in optax's ``inject_hyperparams(adam)`` layout (the
+    count, the hyperparameters, ``inner_state`` 0 = Adam's count and
+    moments, 1 = the empty state), beside ``{name}.meta.json`` = {"epoch",
+    "lr", "step"}; each through a temporary name and a rename. The JAX
+    package resumes from it with Adam's state. Returns the ``.ckpt`` path."""
+    path = _jax_ckpt_path(cfg.res_dir, cfg.experiment_name, name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    table = jax_to_torch_names(cfg)
+    variables = to_table(state.model.state_dict(), table)
+    opt, tx = state.opt_state, state.tx
+    moments = params_table(table)
+    count = np.asarray(opt.count, np.int32)
+    f32 = lambda v: np.asarray(v, np.float32)
+    tree = {  # the JAX package's payload, keys sorted as its device_get leaves them
+        "batch_stats": variables["batch_stats"],
+        "opt_state": {
+            "count": count,
+            "hyperparams": {"b1": f32(tx.b1), "b2": f32(tx.b2), "eps": f32(tx.eps),
+                            "eps_root": f32(0.0), "learning_rate": f32(tx.lr)},
+            "hyperparams_states": {},
+            "inner_state": {"0": {"count": count,
+                                  "mu": to_table(opt.mu, moments)["params"],
+                                  "nu": to_table(opt.nu, moments)["params"]},
+                            "1": {}}},
+        "params": variables["params"],
+        "step": int(state.step),
+    }
+    for target, data in ((path, flax_format.serialize(tree)),
+                         (path.removesuffix(".ckpt") + ".meta.json",
+                          json.dumps({"epoch": int(epoch), "lr": float(lr),
+                                      "step": int(state.step)}).encode())):
+        with open(target + ".tmp", "wb") as f:
+            f.write(data)
+        os.replace(target + ".tmp", target)
+    return path
+
+
+def _check_adam(hyper: Dict, tx, path: str):
+    """A JAX file's Adam hyperparameters must be this package's Adam's."""
+    want = {"b1": tx.b1, "b2": tx.b2, "eps": tx.eps, "eps_root": 0.0}
+    got = {k: hyper.get(k) for k in want}
+    if any(got[k] is None or np.float32(got[k]) != np.float32(v) for k, v in want.items()):
+        raise ValueError(f"{path}: Adam's hyperparameters {got} are not this package's "
+                         f"{want}: its moments do not carry over")
+
+
 def _same_keys(got, want, what: str, path: str):
     missing, unexpected = sorted(set(want) - set(got)), sorted(set(got) - set(want))
     if missing or unexpected:
@@ -230,15 +356,18 @@ def _same_keys(got, want, what: str, path: str):
 def load_checkpoint(cfg, checkp_dir: str, state: TrainState, name: str,
                     restore_opt: bool = True) -> Tuple[TrainState, Dict]:
     """Strict restore of ``{checkp_dir}/{experiment}/{name}.pth.tar`` (or
-    of ``{name}.dcp``, found first; pending asynchronous saves are waited
-    for) into an existing state: a key of the model that the file lacks, or
+    of ``{name}.dcp``, found first, or of the JAX package's ``{name}.ckpt``,
+    found last; pending asynchronous saves are waited for) into an existing
+    state: a key of the model that the file lacks, or
     one it has beyond the model, raises and names it. The step count is always
-    restored; with ``restore_opt`` also Adam's moments and count and the lr.
+    restored; with ``restore_opt`` also Adam's moments and count and the lr
+    (a JAX file's Adam hyperparameters must equal this package's).
     A file without ``optimizer_G`` (a reference checkpoint) restarts the
     optimizer from zero moments and says so. Returns (state, meta) with
     ``meta["epoch"]``."""
     path = _blob_path(checkp_dir, cfg.experiment_name, name)
-    blob, sd = _read(path)
+    print(f"[checkpoint] reading {path}")
+    blob, sd = _read(path, cfg)
     _same_keys(sd, state.model.state_dict(), "state_dict_G", path)
     state.model.load_state_dict(sd, strict=True)
     state.step = int(blob.get("step", 0))
@@ -249,6 +378,8 @@ def load_checkpoint(cfg, checkp_dir: str, state: TrainState, name: str,
     opt = state.opt_state
     if "optimizer_G" in blob and "mu" in blob["optimizer_G"]:
         saved = blob["optimizer_G"]
+        if "hyperparams" in saved:
+            _check_adam(saved["hyperparams"], state.tx, path)
         for moments, src in ((opt.mu, saved["mu"]), (opt.nu, saved["nu"])):
             _same_keys(src, moments, "optimizer_G", path)
             for n, t in moments.items():
@@ -268,14 +399,16 @@ def load_checkpoint(cfg, checkp_dir: str, state: TrainState, name: str,
 @torch.no_grad()
 def load_pretrained_partial(cfg, state: TrainState,
                             ckpt_path: str) -> Tuple[TrainState, Dict[str, float]]:
-    """Transfer from a pretrained ``.pth.tar`` (or ``.dcp`` directory): copy
-    every tensor whose name
+    """Transfer from a pretrained ``.pth.tar`` (or ``.dcp`` directory, or
+    the JAX package's ``.ckpt``, its variables by this package's names):
+    copy every tensor whose name
     and shape match (batch-norm statistics too), and freeze the copied
-    parameters except the output head (names containing ``out_conv``).
+    parameters except the output head (names containing ``out_conv``, as
+    the JAX package's paths do).
     Returns (state, freeze_mask) with the mask {parameter name: 0.0 | 1.0}
     also set on the state."""
     wait_for_checkpoints()
-    _, src = _read(ckpt_path.rstrip("/"))
+    _, src = _read(ckpt_path.rstrip("/"), cfg, strict=False)
     copied = set()
     for name, t in state.model.state_dict().items():
         if name in src and src[name].shape == t.shape:
