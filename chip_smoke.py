@@ -10,7 +10,12 @@ Phase 1 builds the six hand-written CUDA kernels of ``uncrtaints_tpu_torch``
 from ``csrc/`` (one nvcc per source, in parallel) and holds each against its
 plain PyTorch version on the card, at the shapes the paths give it (K1 and
 K1-bwd also at U-TAE's three skip levels, [4,3,s,s,64] with 16 heads of 4
-channels for s = 64, 128, 256) and at a ragged shape, and times both (CUDA events: a kernel or library call as the
+channels for s = 64, 128, 256, and at the band [4,3,128,256,128] of a 1 x 2
+mesh, all timed; and, checked only, at T of 1, 2, 5 and 8, at 16 and 32
+channels a head, at an H*W that is not a multiple of the forward's tile and
+with x a contiguous view off 16 bytes; U-TAE's 64^2 and 128^2 levels, which
+fit in L2, are timed once more with their inputs rotated over copies of more
+than 100 MB) and at a ragged shape, and times both (CUDA events: a kernel or library call as the
 median of 7 samples of 8 calls queued behind a 3 ms spin on the device, so
 that the host's launch path is not in the number; a plain version as the
 median of 15 single calls, 7 for the slow ones of K5, K2 and K4). K3 is
@@ -25,8 +30,9 @@ the kernel as a yardstick the port never calls: ``torch.einsum`` (K1, and two
 of them for K1-bwd), cuDNN's depthwise convolution, input gradient and weight
 gradient (K5 and K2; in reflect mode behind a reflect ``F.pad`` or before its
 backward, the composition the port ran before the border was folded into the
-kernels), the bare bf16 ``torch.matmul`` (K3), and gelu -> reflect pad ->
-cuDNN depthwise conv (K4). Each kernel's
+kernels), the bare bf16 ``torch.matmul`` and the whole function composed of
+PyTorch calls in bf16 (K3), and gelu -> reflect pad -> cuDNN depthwise conv
+(K4). Each kernel's
 bound is the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type; an exact GELU counts as the 20 fp32 operations
 of its arithmetic and one special-function instruction. For K3 and K4 the
@@ -147,7 +153,8 @@ each band against its plain version, the bands stitched against the
 whole-tensor kernel (K5's forward and K4 bit-equal, the adjoint with the
 halo gradients added back, K2's and K4's summed partials), and times each
 halo mode at 2 bands beside the whole-mode kernel on the same rows, its
-bound and the library composition (the halo rows, F.pad, cuDNN).
+bound and the library composition (the halo rows, F.pad, cuDNN; for the
+adjoint, autograd of that composition).
 Phase 10 runs the 2-D data x spatial mesh: ``torchrun --nproc_per_node 2``
 starts this script as two ranks of a 1 x 2 mesh (``--spatial-rank``; gloo,
 since the two ranks share the card and NCCL refuses that), each holding one
@@ -209,6 +216,20 @@ K1_SHAPES = [(B, T, PATCH, PATCH, 128, 16), (2, 3, 7, 9, 20, 4)]  # + ragged
 # U-TAE's three skip levels at its published widths: 64 channels, 16 heads of
 # 4 channels (the bf16 backward's scalar path), at 64^2, 128^2 and 256^2
 UTAE_K1_SHAPES = [(B, T, s, s, 64, 16) for s in (64, 128, 256)]
+# the paper shape's band of a 1 x 2 spatial mesh (timed too), then K1's
+# other variants, checked only: T of 1, 2, 5 and 8; 16 and 32 channels a
+# head; an H*W (33*35) that is not a multiple of the forward's tile; and, as
+# a seventh field, x as a contiguous view one element off 16 bytes
+K1_BAND = (B, T, PATCH // 2, PATCH, 128, 16)
+K1_CHECK_SHAPES = [(2, t, 64, 64, 128, 16) for t in (1, 2, 5, 8)] + [
+    (2, 3, 32, 32, 128, 8), (2, 3, 32, 32, 128, 4), (2, 3, 33, 35, 128, 16), K1_BAND,
+    (2, 3, 32, 32, 128, 16, 1)]
+# the design of K1's forward in csrc/aggregate.cu (tools/tune_aggregate_h100.py
+# times it beside design b, every frame's loads in flight in registers)
+K1_DESIGN = "design a: bulk copies of each frame's run of a pixel tile into shared memory"
+# U-TAE's 64^2 and 128^2 levels fit in the 50 MB L2: timed also with their
+# inputs rotated over copies of more than this many bytes in all
+ROTATE_BYTES = 100e6
 HIDDEN = 256  # the MBConv depthwise width (expansion 2 of 128)
 # K5 and K2 on the train path: the encoder's depthwise conv over B*T frames
 # and the decoder's over B maps, in reflect mode on the unpadded 256x256 input
@@ -312,6 +333,20 @@ def time_kernel(fn):
     return time_ms(fn, runs=7, queue=8)
 
 
+def time_rotated(make, n_bytes):
+    """:func:`time_kernel` of ``make()``'s call on fresh input sets in turn,
+    as many as exceed ``ROTATE_BYTES`` together (``n_bytes`` each), so that
+    no call finds its inputs in L2. ``make`` returns one set's call."""
+    calls = [make() for _ in range(math.ceil(ROTATE_BYTES / n_bytes) + 1)]
+    turn = [0]
+
+    def call():
+        calls[turn[0] % len(calls)]()
+        turn[0] += 1
+
+    return time_kernel(call)
+
+
 def bound(n_bytes, *ops):
     """(bound_ms, bound_by): the least time the card could take to move
     ``n_bytes`` (each input read once, each output written once) or to do
@@ -320,6 +355,14 @@ def bound(n_bytes, *ops):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = max(n / peak for n, peak in ops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rel_to(diff, scale):
+    """The largest |diff| relative to its scale. Where a scale is 0 (a sum of
+    |terms| that are all 0, e.g. a channel whose every GELU underflows to 0)
+    the difference must be 0 too: it is divided by the smallest normal float
+    instead of 0, so that 0 stays 0 and anything else fails."""
+    return float((diff.abs() / scale.clamp_min(torch.finfo(torch.float32).tiny)).max())
 
 
 def nbytes(*tensors):
@@ -343,14 +386,25 @@ def phase1_kernels(dev):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms)
 
-    # ---- K1: main path [4,3,256,256,128] heads 16, a ragged shape, and
-    # U-TAE's three skip levels (timed too)
+    def k1_inputs(shape, dtype):
+        """x (a contiguous view one element into its buffer where the shape
+        has a seventh field), softmax attention and an output gradient"""
+        B, T, H, W, C, heads, *offset = shape
+        x = randn(B, T, H, W, C).to(dtype)
+        if offset:
+            x = torch.empty(x.numel() + 1, device=dev, dtype=dtype)[1:].view(x.shape).copy_(x)
+            check(x.is_contiguous() and x.data_ptr() % 16, "K1: x is not off 16 bytes")
+        a = torch.softmax(randn(B, T, H, W, heads), dim=1).to(dtype)
+        return x, a, randn(B, H, W, C).to(dtype)
+
+    # ---- K1: main path [4,3,256,256,128] heads 16, a ragged shape, U-TAE's
+    # three skip levels and the 1 x 2 band (timed too), and the variants
+    print(f"K1 forward: {K1_DESIGN}")
     k1_err, k1_ms = 0.0, {}
-    for shape in K1_SHAPES + UTAE_K1_SHAPES:
-        B, T, H, W, C, heads = shape
+    for shape in K1_SHAPES + UTAE_K1_SHAPES + K1_CHECK_SHAPES:
+        B, T, H, W, C, heads = shape[:6]
         for dtype in (torch.bfloat16, torch.float32):
-            x = randn(B, T, H, W, C).to(dtype)
-            a = torch.softmax(randn(B, T, H, W, heads), dim=1).to(dtype)
+            x, a, _ = k1_inputs(shape, dtype)
             got = aggregate.att_group_aggregate(x, a)
             torch.cuda.synchronize()
             ref = aggregate.att_group_aggregate_plain(x, a)
@@ -360,8 +414,9 @@ def phase1_kernels(dev):
             # the final rounding may differ by one ulp at the top of range
             tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * top
             line = (f"K1 att_group_aggregate {str(dtype)[6:]} {list(shape[:5])} "
-                    f"heads={heads}: max_abs_err={err:.3g} (tol {tol:.3g})")
-            if shape == K1_SHAPES[0] or (shape in UTAE_K1_SHAPES and dtype == BF16):
+                    f"heads={heads}{' x off 16 bytes' if len(shape) > 6 else ''}: "
+                    f"max_abs_err={err:.3g} (tol {tol:.3g})")
+            if shape == K1_SHAPES[0] or (shape in UTAE_K1_SHAPES + [K1_BAND] and dtype == BF16):
                 kms = time_kernel(lambda: aggregate.att_group_aggregate(x, a))
                 pms = time_ms(lambda: aggregate.att_group_aggregate_plain(x, a))
                 # the one library call of the same function: an einsum over
@@ -376,9 +431,18 @@ def phase1_kernels(dev):
                                        *bound(nbytes(x, a, got), (2 * x.numel(), PEAK_FP32)),
                                        lms)
                 bms = k1_ms[shape, dtype][2]
-                line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
-                         f"({nbytes(x, a, got) / 1e6:.1f} MB; kernel at {bms / kms:.0%} of it), "
-                         f"torch.einsum {lms:.4f} ms (max_abs_err {lerr:.3g})")
+                line += (f", kernel ({K1_DESIGN[:8]}) {kms:.4f} ms, plain {pms:.4f} ms, bound "
+                         f"{bms:.4f} ms ({nbytes(x, a, got) / 1e6:.1f} MB; kernel at "
+                         f"{bms / kms:.0%} of it), torch.einsum {lms:.4f} ms "
+                         f"(max_abs_err {lerr:.3g})")
+                if shape in UTAE_K1_SHAPES[:2]:
+                    def fresh():
+                        x_, a_, _ = k1_inputs(shape, dtype)
+                        return lambda: aggregate.att_group_aggregate(x_, a_)
+
+                    rms = time_rotated(fresh, nbytes(x, a, got))
+                    line += (f"; inputs rotated past L2 {rms:.4f} ms ({bms / rms:.0%} of the "
+                             f"bound; the first reading is partly L2's)")
             print(line)
             check(err <= tol, f"K1 {dtype} {shape} disagrees with its plain version")
             k1_err = max(k1_err, err)
@@ -437,6 +501,33 @@ def phase1_kernels(dev):
             # reaches without the prologue and the epilogue
             x2, w2 = args[0].view(-1, args[0].shape[-1]), args[5]
             lms = time_kernel(lambda: torch.matmul(x2, w2))
+            # the same function composed from PyTorch calls in bf16: the norm
+            # applied as one affine (folded outside the timing), GELU, the SE
+            # scale, torch.matmul, the output affine (the path's forms have
+            # no output GELU and no statistics)
+            check(not kw["out_gelu"] and not kw["do_stats"], f"K3 {name}: not a path form")
+            xn, mean, coef, sc, bi = args[:5]
+            rep = xn.shape[2] // mean.shape[1]  # channels a group
+            fa = coef.repeat_interleave(rep, -1)[:, None, :] * sc
+            fb = bi - mean.repeat_interleave(rep, -1)[:, None, :] * fa
+            fa, fb = fa.to(xn.dtype), fb.to(xn.dtype)
+            se_b = kw["se"].to(xn.dtype)[:, None, :] if kw["se"] is not None else None
+            oa = [t.to(xn.dtype) for t in kw["out_affine"]] if kw["out_affine"] else None
+
+            def composition():
+                h = xn * fa + fb
+                if kw["do_gelu"]:
+                    h = torch.nn.functional.gelu(h)
+                if se_b is not None:
+                    h = h * se_b
+                o = torch.matmul(h, w2)
+                return o * oa[0] + oa[1] if oa is not None else o
+
+            cerr = float((composition().float() - ref[0].float()).abs().max())
+            # bf16 rounds between the calls: within 5% of the largest output
+            check(cerr <= 0.05 * float(ref[0].float().abs().max()),
+                  f"K3 {name}: the composition computes another function ({cerr:.3g})")
+            cms = time_kernel(composition)
             # tensor-core operations of the GEMM; fp32 operations per input
             # element: the prologue's 4, the GELU and the SE product where
             # they run, and per output element the affine's 2 where it runs
@@ -456,7 +547,8 @@ def phase1_kernels(dev):
             line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}: "
                      f"{n_byte / 1e6:.0f} MB are {n_byte / PEAK_BYTES * 1e3:.4f} ms, "
                      f"{fp32_ops / 1e9:.2f} G fp32 operations {fp32_ops / PEAK_FP32 * 1e3:.4f} ms), "
-                     f"torch.matmul alone {lms:.4f} ms")
+                     f"torch.matmul alone {lms:.4f} ms, the function composed of PyTorch calls "
+                     f"in bf16 {cms:.4f} ms (max_abs_err {cerr:.3g})")
             if n_gelu:
                 line += (f"; dispatching the compiled GELU's {GELU_SLOTS} instructions "
                          f"{n_gelu / 1e6:.0f} M times takes the SMs "
@@ -520,9 +612,9 @@ def phase1_kernels(dev):
             # 1e-5 of the sum of |gelu(.)| (fp32 sums in another order)
             psc, pbi = kw["pool_affine"]
             act = torch.nn.functional.gelu(got[0].float() * psc + pbi)
-            ep = float(((got[3] - act.sum(dim=(1, 2))).abs() / act.abs().sum(dim=(1, 2))).max())
+            ep = rel_to(got[3] - act.sum(dim=(1, 2)), act.abs().sum(dim=(1, 2)))
             # and against the plain version's, whose outputs may differ by an ulp
-            ep_plain = float(((got[3] - ref[3]).abs() / act.abs().sum(dim=(1, 2))).max())
+            ep_plain = rel_to(got[3] - ref[3], act.abs().sum(dim=(1, 2)))
             line += (f", pooled sum rel_err {ep:.3g} (tol 1e-5; against the plain version's "
                      f"{ep_plain:.3g}, tol 1e-3)")
             check(ep_plain <= 1e-3, f"K4 {name}: pooled sum far from the plain version's")
@@ -572,14 +664,12 @@ def phase1_kernels(dev):
         k4_err = max(k4_err, err)
     out["norm_gelu_dwconv3x3"]["max_abs_err"] = k4_err
 
-    # ---- K1-bwd: the aggregator's backward at the main path shape, ragged
+    # ---- K1-bwd: the aggregator's backward at K1's shapes
     kb_err, kb_ms = 0.0, {}
-    for shape in K1_SHAPES + UTAE_K1_SHAPES:
-        B_, T_, H, W, C, heads = shape
+    for shape in K1_SHAPES + UTAE_K1_SHAPES + K1_CHECK_SHAPES:
+        B_, T_, H, W, C, heads = shape[:6]
         for dtype in (torch.bfloat16, torch.float32):
-            x = randn(B_, T_, H, W, C).to(dtype)
-            a = torch.softmax(randn(B_, T_, H, W, heads), dim=1).to(dtype)
-            gy = randn(B_, H, W, C).to(dtype)
+            x, a, gy = k1_inputs(shape, dtype)
             dx, da = aggregate.att_group_aggregate_bwd(x, a, gy)
             torch.cuda.synchronize()
             rdx, rda = aggregate.att_group_aggregate_bwd_plain(x, a, gy)
@@ -590,8 +680,10 @@ def phase1_kernels(dev):
             # another order before its one rounding); fp32: 1e-6 of it
             tol = (1e-6 if dtype == torch.float32 else 2 ** -7) * top
             line = (f"K1-bwd att_group_aggregate_bwd {str(dtype)[6:]} {list(shape[:5])} "
-                    f"heads={heads}: max_abs_err={err:.3g} (tol {tol:.3g})")
-            if (shape == K1_SHAPES[0] or shape in UTAE_K1_SHAPES) and dtype == BF16:
+                    f"heads={heads}{' x off 16 bytes' if len(shape) > 6 else ''}: "
+                    f"max_abs_err={err:.3g} (tol {tol:.3g}), dx equal "
+                    f"{bool(torch.equal(dx, rdx))}")
+            if (shape in K1_SHAPES[:1] + UTAE_K1_SHAPES + [K1_BAND]) and dtype == BF16:
                 kms = time_kernel(lambda: aggregate.att_group_aggregate_bwd(x, a, gy))
                 pms = time_ms(lambda: aggregate.att_group_aggregate_bwd_plain(x, a, gy))
                 # the library's way to the same two results: one einsum each
@@ -615,8 +707,17 @@ def phase1_kernels(dev):
                 line += (f", kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
                          f"({nbytes(x, a, gy, dx, da) / 1e6:.1f} MB; kernel at {bms / kms:.0%} of "
                          f"it), two torch.einsum {lms:.4f} ms (max_abs_err {lerr:.3g})")
+                if shape in UTAE_K1_SHAPES[:2]:
+                    def fresh():
+                        x_, a_, g_ = k1_inputs(shape, dtype)
+                        return lambda: aggregate.att_group_aggregate_bwd(x_, a_, g_)
+
+                    rms = time_rotated(fresh, nbytes(x, a, gy, dx, da))
+                    line += (f"; inputs rotated past L2 {rms:.4f} ms ({bms / rms:.0%} of the "
+                             f"bound; the first reading is partly L2's)")
             print(line)
             check(err <= tol, f"K1-bwd {dtype} {shape} disagrees with its plain version")
+            check(torch.equal(dx, rdx), f"K1-bwd {dtype} {shape}: dx is not the plain product")
             kb_err = max(kb_err, err)
     out["att_group_aggregate_bwd"] = result(kb_err, *kb_ms[K1_SHAPES[0]])
 
@@ -842,6 +943,25 @@ def phase1_halo_modes(dev, randn):
             t_adj_plain = time_ms(lambda: dwconv.dw_stencil_halo_adjoint_plain(g, w, False, True),
                                   runs=7)
             abms, _ = bound(nbytes(g, w, g, adj[0][2]), (2 * 9 * g.numel(), PEAK_FP32))
+            # the library's adjoint: autograd of the halo rows, the reflect
+            # pad and cuDNN's conv (its input gradient, then the pad's and the
+            # concatenation's backward), as K5's whole-map adjoint row
+            leaf = torch.zeros_like(b).requires_grad_()
+            hleaf = torch.zeros_like(h[1]).requires_grad_()
+            xe = torch.cat([leaf[:, 1:2], leaf, hleaf], 1)
+            y = Fn.conv2d(Fn.pad(xe.unsqueeze(1), (0, 0, 1, 1, 0, 0), mode="reflect").squeeze(1)
+                          .permute(0, 3, 1, 2), wc, groups=C)
+            gcb = g.permute(0, 3, 1, 2)
+
+            def lib_adj():
+                return torch.autograd.grad(y, (leaf, hleaf), gcb, retain_graph=True)
+
+            t_adj_lib = time_kernel(lib_adj)
+            for got, want in zip(lib_adj(), (adj[0][0], adj[0][2])):
+                check(float((got.float() - want.float()).abs().max())
+                      <= 4 * ulp * float(want.float().abs().max()),
+                      f"K5 halo adjoint {case}: the library composition computes another function")
+            del y
             t_gw = time_kernel(lambda: dwgrad.dw_kernel_grad(b, g, ONE, 3, 3, "reflect", halo=h))
             t_gw_whole = time_kernel(lambda: dwgrad.dw_kernel_grad(b, g, ONE, 3, 3, "reflect"))
             t_gw_plain = time_ms(lambda: dwgrad.dw_kernel_grad_halo_plain(b, g, *h), runs=7)
@@ -859,7 +979,8 @@ def phase1_halo_modes(dev, randn):
                   f"(whole-mode kernel on the band {t_whole:.4f}, plain {t_plain:.4f}, bound "
                   f"{bms:.4f} ({by}), halo concat + reflect F.pad + cuDNN {t_lib:.4f}); K5 "
                   f"adjoint {t_adj:.4f} (whole-mode {t_adj_whole:.4f}, plain {t_adj_plain:.4f}, "
-                  f"bound {abms:.4f}); K2 {t_gw:.4f} (whole-mode {t_gw_whole:.4f}, plain "
+                  f"bound {abms:.4f}, autograd of halo concat + reflect F.pad + cuDNN "
+                  f"{t_adj_lib:.4f}); K2 {t_gw:.4f} (whole-mode {t_gw_whole:.4f}, plain "
                   f"{t_gw_plain:.4f}, bound {gbms:.4f}, halo concat + F.pad + cuDNN weight "
                   f"gradient {t_gw_lib:.4f})")
 
@@ -889,7 +1010,7 @@ def phase1_halo_modes(dev, randn):
         check(torch.equal(stitched, whole[0]), f"K4 halo {n}: the bands differ from the whole "
               f"kernel by {float((stitched.float() - whole[0].float()).abs().max())}")
         act = torch.nn.functional.gelu(whole[0].float() * pa[0] + pa[1]).abs().sum(dim=(1, 2))
-        ep = float(((sum(p[3] for p in parts) - whole[3]).abs() / act).max())
+        ep = rel_to(sum(p[3] for p in parts) - whole[3], act)
         check(ep <= 1e-5, f"K4 halo {n}: summed pooled partials rel {ep}")
         print(f"K4 halo mode [{N},{H},{W},{C}] in {n} bands: against the plain version "
               f"max_abs_err {e4:.3g}; stitched bit-equal to the whole kernel; pooled partial "
@@ -1300,6 +1421,18 @@ def phase4_train(dev, batches):
           f"max {max(times):.3f}), {B / ms * 1e3:.2f} sequences/s, peak device memory "
           f"{peak / 2**30:.2f} GiB ({peak} bytes)")
     profile_train_step(step, state, batches[0], gen)
+    # two runs of one step from the same weights, batch and dropout seed give
+    # the same gradients bit for bit (the attention upsample's backward sums
+    # in a fixed order, ops/resize.py), so two chains of the CLIs agree
+    runs = []
+    for _ in range(2):
+        _, aux = step(create_train_state(cfg, seeded_model(cfg, dev)), batches[0],
+                      torch.Generator(device=dev).manual_seed(SEED + 5))
+        runs.append({n: g.clone() for n, g in aux["grads"].items()})
+    differ = [n for n in runs[0] if not torch.equal(runs[0][n], runs[1][n])]
+    print(f"  two runs of one step from the same state: {len(differ)} of {len(runs[0])} "
+          f"parameter gradients differ")
+    check(not differ, f"two runs of one train step gave other gradients for {differ[:8]}")
     return counts, ms
 
 

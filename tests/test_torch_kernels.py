@@ -30,14 +30,35 @@ def _t(a, dev, dtype=torch.float32):
     return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
 
 
+# K1's cases: the paper's width, a ragged one with 5 channels a head (the
+# generic kernels), U-TAE's 4 channels a head; then T of 1, 5 and 8; 16 and
+# 32 channels a head; an H*W (667) that is not a multiple of the forward's
+# tile of 512 vectors; U-TAE's 64^2 level; and, as a seventh field, x as a
+# contiguous view one element off the 16 bytes of a fresh allocation
+K1_SHAPES = [(2, 3, 16, 16, 128, 16), (1, 2, 7, 9, 20, 4), (2, 3, 32, 32, 64, 16),
+             (1, 1, 16, 16, 128, 16), (1, 5, 8, 8, 128, 16), (1, 8, 8, 8, 64, 16),
+             (2, 3, 8, 8, 128, 8), (2, 3, 8, 8, 128, 4), (1, 3, 23, 29, 128, 16),
+             (4, 3, 64, 64, 64, 16), (2, 3, 16, 16, 128, 16, 1)]
+
+
+def _k1_inputs(rng, dev, dtype, shape):
+    """x [B,T,H,W,C] (at an element offset where the shape names one), attn
+    [B,T,H,W,heads] and an output gradient [B,H,W,C]."""
+    B, T, H, W, C, heads, *offset = shape
+    x = _t(rng.standard_normal((B, T, H, W, C)), dev, dtype)
+    if offset:
+        buf = torch.empty(x.numel() + offset[0], dtype=dtype, device=dev)
+        x = buf[offset[0]:].view(x.shape).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    a = _t(rng.random((B, T, H, W, heads)), dev, dtype)
+    return x, a, _t(rng.standard_normal((B, H, W, C)), dev, dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 128, 16), (1, 2, 7, 9, 20, 4),
-                                   (2, 3, 32, 32, 64, 16)])  # + U-TAE's 4 channels a head
+@pytest.mark.parametrize("shape", K1_SHAPES)
 def test_att_group_kernel_matches_plain(cuda, rng, dtype, shape):
-    B, T, H, W, C, heads = shape
-    x = _t(rng.standard_normal((B, T, H, W, C)), cuda, dtype)
-    a = _t(rng.random((B, T, H, W, heads)), cuda, dtype)
+    x, a, _ = _k1_inputs(rng, cuda, dtype, shape)
     n = tops.att_group_aggregate.launches
     got = tops.att_group_aggregate(x, a)
     torch.cuda.synchronize()
@@ -150,17 +171,14 @@ def _ulp_bf16(ref: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 128, 16), (1, 2, 7, 9, 20, 4),
-                                   (2, 3, 32, 32, 64, 16)])  # + U-TAE's 4 channels a head
+@pytest.mark.parametrize("shape", K1_SHAPES)
 def test_att_group_autograd_on_card(cuda, rng, dtype, shape):
     """att_group_aggregate on the card is differentiable: x.grad and a.grad
     exist and match the plain version's autograd gradients, taken in fp32
     from the same values (bf16: the kernels sum in fp32 and round once, the
     plain version's bf16 autograd would round every product)."""
-    B, T, H, W, C, heads = shape
-    x = _t(rng.standard_normal((B, T, H, W, C)), cuda, dtype).requires_grad_()
-    a = _t(rng.random((B, T, H, W, heads)), cuda, dtype).requires_grad_()
-    cot = _t(rng.standard_normal((B, H, W, C)), cuda, dtype)
+    x, a, cot = _k1_inputs(rng, cuda, dtype, shape)
+    x, a = x.requires_grad_(), a.requires_grad_()
     n_f, n_b = tops.att_group_aggregate.launches, tops.att_group_aggregate_bwd.launches
     (tops.att_group_aggregate(x, a) * cot).float().sum().backward()
     torch.cuda.synchronize()
@@ -181,13 +199,9 @@ def test_att_group_autograd_on_card(cuda, rng, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 128, 16), (1, 2, 7, 9, 20, 4),
-                                   (2, 3, 32, 32, 64, 16)])  # + U-TAE's 4 channels a head
+@pytest.mark.parametrize("shape", K1_SHAPES)
 def test_att_group_bwd_kernel_matches_plain(cuda, rng, dtype, shape):
-    B, T, H, W, C, heads = shape
-    x = _t(rng.standard_normal((B, T, H, W, C)), cuda, dtype)
-    a = _t(rng.random((B, T, H, W, heads)), cuda, dtype)
-    g = _t(rng.standard_normal((B, H, W, C)), cuda, dtype)
+    x, a, g = _k1_inputs(rng, cuda, dtype, shape)
     n = tops.att_group_aggregate_bwd.launches
     dx, da = tops.att_group_aggregate_bwd(x, a, g)
     torch.cuda.synchronize()

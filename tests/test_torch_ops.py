@@ -26,6 +26,15 @@ def _np(t):
 
 # ------------------------------------------------------------------ K1 --
 
+# (B, T, H, W, C, heads): the shapes of the card's kernel variants at small
+# sizes. T of 1, 2, 3 and 5; 8 channels a head (the paper's), 4 (U-TAE's:
+# two heads a 16-byte bf16 vector), 16 (a head over two vectors) and 5 (the
+# generic kernels); ragged H x W of 35 and 15 pixels
+K1_CPU_SHAPES = [(2, 3, 8, 8, 128, 16), (1, 1, 4, 4, 64, 16), (1, 2, 5, 7, 20, 4),
+                 (1, 5, 4, 4, 128, 8), (2, 3, 3, 5, 64, 16)]
+
+
+@pytest.mark.parametrize("shape", K1_CPU_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [
     # fp32: both accumulate the same fp32 products over T; only the order
     # of the three adds may differ
@@ -34,9 +43,9 @@ def _np(t):
     # rounding of fp32 inputs; 2e-2 as the JAX package's bf16 test
     ("bfloat16", 2e-2),
 ])
-def test_att_group_plain_matches_jax_kernel(rng, dtype, tol):
+def test_att_group_plain_matches_jax_kernel(rng, dtype, tol, shape):
     from uncrtaints_tpu.ops.pallas_aggregate import att_group_aggregate
-    B, T, H, W, C, heads = 2, 3, 8, 8, 128, 16
+    B, T, H, W, C, heads = shape
     x = rng.standard_normal((B, T, H, W, C)).astype(np.float32)
     a = rng.random((B, T, H, W, heads)).astype(np.float32)
     jx, ja = jnp.asarray(x).astype(dtype), jnp.asarray(a).astype(dtype)
@@ -79,6 +88,7 @@ def _ulp_bf16(ref):
 @pytest.mark.parametrize("shape,tile", [
     ((2, 3, 8, 8, 128, 16), 16),   # several row tiles
     ((1, 2, 5, 7, 20, 4), None),   # ragged: rows 35, C 20, 5 channels a head
+    *((shape, None) for shape in K1_CPU_SHAPES[1:2] + K1_CPU_SHAPES[3:]),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_att_group_bwd_plain_matches_jax_kernel(rng, shape, tile, dtype):
@@ -97,9 +107,11 @@ def test_att_group_bwd_plain_matches_jax_kernel(rng, shape, tile, dtype):
     assert dx.dtype == td and da.dtype == td
     rdx, rda = np.asarray(rdx, np.float32), np.asarray(rda, np.float32)
     if dtype == "float32":
-        # dx: the same fp32 product; dattn: a head's sum in another order
+        # dx: the same fp32 product; dattn: a head's sum in another order,
+        # 1e-6 for up to 8 channels a head (the rounding of a sum in
+        # another order grows with its terms: 1e-6 for each 8 of them)
         np.testing.assert_array_equal(_np(dx), rdx)
-        np.testing.assert_allclose(_np(da), rda, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(_np(da), rda, rtol=0, atol=1e-6 * max(1, C // heads // 8))
     else:
         # one rounding to bf16 each: at most one bf16 ulp apart
         np.testing.assert_array_equal(_np(dx), rdx)
@@ -645,6 +657,21 @@ def test_upsample_bilinear(rng, hw, out):
     ref = upsample_bilinear(jnp.asarray(x), out, hw_axes=(2, 3))
     got = tops.upsample_bilinear(_t(x), out)
     np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("hw,out", [((32, 32), (256, 256)), ((5, 7), (12, 20)), ((8, 8), (8, 8))])
+def test_upsample_bilinear_grad(rng, hw, out):
+    """The port's own backward of the upsample (the interpolation matmuls'
+    adjoint) against jax.vjp of the JAX package's upsample."""
+    import jax
+    from uncrtaints_tpu.ops.resize import upsample_bilinear
+    x = rng.standard_normal((2, 3, *hw, 4)).astype(np.float32)
+    g = rng.standard_normal((2, 3, *out, 4)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: upsample_bilinear(a, out, hw_axes=(2, 3)), jnp.asarray(x))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = _t(x).requires_grad_()
+    got, = torch.autograd.grad(tops.upsample_bilinear(xt, out), xt, _t(g))
+    np.testing.assert_allclose(_np(got), ref, rtol=1e-5, atol=1e-6 * np.abs(ref).max())
 
 
 def test_avg_pool2d(rng):

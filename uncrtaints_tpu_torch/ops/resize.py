@@ -5,9 +5,12 @@ Port of uncrtaints_tpu/ops/resize.py. The JAX package writes the bilinear
 resize as two matmuls with [out, in] interpolation matrices (half-pixel
 centres, edges clamped), a TPU lowering choice; that is exactly
 ``F.interpolate(mode="bilinear", align_corners=False)``, which is used here.
+Its backward is written here as those matmuls' adjoint (:class:`_Bilinear`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -49,9 +52,55 @@ def upsample_bilinear(x: torch.Tensor, out_hw: tuple) -> torch.Tensor:
 def _bilinear(x: torch.Tensor, out_hw: tuple) -> torch.Tensor:
     """:func:`upsample_bilinear` of a whole map (no spatial split)."""
     lead, xc = _nchw(x)
-    y = F.interpolate(xc, size=tuple(out_hw), mode="bilinear",
-                      align_corners=False, antialias=False)
+    if torch.is_grad_enabled() and xc.requires_grad:
+        y = _Bilinear.apply(xc, tuple(out_hw))
+    else:
+        y = _interpolate(xc, tuple(out_hw))
     return _nhwc(y, lead)
+
+
+def _interpolate(xc: torch.Tensor, out_hw: tuple) -> torch.Tensor:
+    return F.interpolate(xc, size=out_hw, mode="bilinear", align_corners=False,
+                         antialias=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """[out, in] fp32 linear-interpolation matrix, half-pixel centres, edges
+    clamped: the JAX package's ``_interp_matrix``, made on ``device`` (no
+    copy from the host, so no synchronization)."""
+    pos = ((torch.arange(out_size, dtype=torch.float64, device=device) + 0.5)
+           * (in_size / out_size) - 0.5)
+    lo = pos.floor()
+    w_hi = (pos - lo).float()[:, None]
+    lo = lo.long()[:, None]
+    cols = torch.arange(in_size, device=device)
+    return ((1.0 - w_hi) * (cols == lo.clamp(0, in_size - 1))
+            + w_hi * (cols == (lo + 1).clamp(0, in_size - 1)))
+
+
+class _Bilinear(torch.autograd.Function):
+    """``F.interpolate``'s bilinear forward, with the adjoint of the two
+    interpolation matmuls as its backward: ``dx = Mh^T g Mw``, summed in
+    fp32 and rounded once to the input's dtype. On CUDA ``F.interpolate``'s
+    own backward adds into dx with atomics in no fixed order (in bf16 for a
+    bf16 input), so two runs of one train step gave different gradients;
+    this one gives the same bits every run."""
+
+    @staticmethod
+    def forward(ctx, xc, out_hw):
+        ctx.in_hw = tuple(xc.shape[-2:])
+        return _interpolate(xc, out_hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        (H, W), (N, C, OH, OW) = ctx.in_hw, g.shape
+        mh = _interp_matrix(H, OH, g.device)
+        mw = _interp_matrix(W, OW, g.device)
+        gn = g.permute(0, 2, 3, 1).float().reshape(N, OH, OW * C)
+        gn = (mh.t() @ gn).reshape(N * H, OW, C)            # over the output rows
+        gn = (mw.t() @ gn).reshape(N, H, W, C)              # over the output columns
+        return gn.to(g.dtype).permute(0, 3, 1, 2), None
 
 
 def avg_pool2d(x: torch.Tensor, kernel: int) -> torch.Tensor:
