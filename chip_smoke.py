@@ -184,6 +184,13 @@ exact arithmetic), and ``cli.test`` (bit-equal metrics), ``cli.train
 ``load_pretrained_partial`` (equal values and mask) give what the
 ``.pth.tar`` gives; the file's bytes and the host ms of both routes' save
 and load are printed beside the card.
+The bench phase runs the port's benchmark (``uncrtaints_tpu_torch/bench.py``)
+in this process, each of its four modes once at short length (2 windows;
+the e2e tree 16 patches of 5 time points, 2 epochs): the eval step, the
+train step, the 1024x1024 scene and the GeoTIFF tree through the loader,
+and prints each mode's JSON line; it fails if a line is not ``correct``
+(the bench's own gates: fused vs standard eval, finite losses, gradients
+and outputs, the launches of each step) or has no ``mfu`` in (0, 1).
 Any failed check raises. The last line of stdout is the JSON result; the
 line before it lists the kernels. Without a CUDA device the script exits
 with an error and prints no result.
@@ -205,6 +212,10 @@ import warnings
 
 import numpy as np
 import torch
+
+from uncrtaints_tpu_torch import bench
+from uncrtaints_tpu_torch.bench import (EVAL_KINDS, KERNEL_KINDS, device_time_by_kind,
+                                        exact_zero_gradients, kernel_wrappers)
 
 SEED = 0
 TIMING_RUNS = 15
@@ -1125,42 +1136,6 @@ def phase2_slice(dev):
     return cfg, model, batches, {"K1": k1, "K3": k3, "K4": k4}, ms
 
 
-# device kernels of an eval step by kind, as KERNEL_KINDS below
-EVAL_KINDS = (
-    ("K1", ("att_group_",)),
-    ("K3", ("ngm_",)),
-    ("K4 (with its pooled-sum and statistics passes)", ("ngd_", "channel_sum_kernel",
-                                                        "group_stats_kernel")),
-    ("GEMMs outside the kernels", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "splitK")),
-    ("convolutions (cuDNN)", ("cudnn", "conv", "Conv")),
-    ("reductions", ("reduce_kernel",)),
-    ("GELU", ("gelu", "Gelu")),
-    ("dtype and layout copies", ("copy", "Copy", "CatArray", "Memcpy")),
-    ("elementwise", ("elementwise",)),
-)
-
-
-def device_time_by_kind(prof, kind_table):
-    """({kind: (ms, launches)}, {kernel name: (launches, ms)}, the largest
-    'other' kernels) of the device kernels a profile recorded."""
-    from torch.autograd import DeviceType
-    kinds, names, others = {}, {}, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kind = next((k for k, frags in kind_table if any(f in e.key for f in frags)), "other")
-        t, n = kinds.get(kind, (0.0, 0))
-        kinds[kind] = (t + us / 1e3, n + e.count)
-        n0, t0 = names.get(e.key, (0, 0.0))
-        names[e.key] = (n0 + e.count, t0 + us / 1e3)
-        if kind == "other":
-            others.append((round(us / 1e3, 3), e.count, e.key[:60]))
-    return kinds, names, sorted(others, reverse=True)[:4]
-
-
 def profile_eval_step(step, model, batch, step_ms):
     """One more eval step under ``torch.profiler``, reported by
     :func:`eval_step_report`: the step must run 1 K1, 10 K3 through the
@@ -1249,12 +1224,11 @@ def phase3_references(dev, cfg, model, batch):
     check((mbconv.norm_gelu_matmul.launches, mbconv.norm_gelu_dwconv3x3.launches) == n,
           "fused_eval=off launched K3 or K4")
     for k in ("pred", "var"):
-        y, d = std[k], (fused[k] - std[k]).abs()
-        top = float(y.abs().max())
-        mx, rmse = float(d.max()), float(d.square().mean().sqrt())
-        print(f"phase 3: fused vs standard eval on the card, {k}: max {mx:.4g} "
-              f"(<= {0.02 * top:.4g}), RMSE {rmse:.4g} (<= {5e-3 * top:.4g})")
-        check(mx <= 0.02 * top and rmse <= 5e-3 * top, f"fused/standard gap in {k}")
+        gap = bench.gap_ok(fused[k], std[k])
+        print(f"phase 3: fused vs standard eval on the card, {k}: max {gap['max']:.4g} (<= "
+              f"{0.02 * gap['max_ref']:.4g}), RMSE {gap['rmse']:.4g} (<= "
+              f"{5e-3 * gap['max_ref']:.4g})")
+        check(gap["ok"], f"fused/standard gap in {k}")
 
     # the card (kernels) against the CPU (their plain versions), fp32
     # compute, fused eval on both, widths 128 so the fused body runs; both
@@ -1309,16 +1283,14 @@ def phase_scene(dev, cfg, model, off):
     against the standard path on the whole scene."""
     from uncrtaints_tpu_torch.data import SyntheticSEN12MSCRTS, collate_multi
     from uncrtaints_tpu_torch.infer import predict_scene
-    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv
+    from uncrtaints_tpu_torch.ops import mbconv
     from uncrtaints_tpu_torch.train import batch_to_device, make_eval_step
 
     S, tile, overlap, bs = 1024, PATCH, 64, B
     nb = collate_multi([SyntheticSEN12MSCRTS(n_samples=1, n_input_t=T, patch_size=S,
                                              seed=SEED + 6)[0]], use_sar=True)
     scene, dates = nb["x"][0], nb["dates"][0]
-    kernels = {"K1": aggregate.att_group_aggregate, "K3": mbconv.norm_gelu_matmul,
-               "K4": mbconv.norm_gelu_dwconv3x3, "K1-bwd": aggregate.att_group_aggregate_bwd,
-               "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad}
+    kernels = kernel_wrappers()
     kw = dict(tile=tile, overlap=overlap, batch_size=bs)
     predict_scene(model, cfg, scene[:, :tile, :tile], dates, **kw)  # warm-up
     for f in kernels.values():
@@ -1357,17 +1329,16 @@ def phase_scene(dev, cfg, model, off):
 
     std = predict_scene(off, cfg, scene, dates, **kw)
     for k in ("pred", "var"):
-        d, top = np.abs(out[k] - std[k]), float(np.abs(std[k]).max())
-        mx, rmse = float(d.max()), float(np.sqrt((d ** 2).mean()))
-        print(f"  fused vs standard scene, {k}: max {mx:.4g} (<= {0.02 * top:.4g}), "
-              f"RMSE {rmse:.4g} (<= {5e-3 * top:.4g})")
-        check(mx <= 0.02 * top and rmse <= 5e-3 * top, f"fused/standard scene gap in {k}")
+        gap = bench.gap_ok(torch.from_numpy(out[k]), torch.from_numpy(std[k]))
+        print(f"  fused vs standard scene, {k}: max {gap['max']:.4g} (<= "
+              f"{0.02 * gap['max_ref']:.4g}), RMSE {gap['rmse']:.4g} (<= "
+              f"{5e-3 * gap['max_ref']:.4g})")
+        check(gap["ok"], f"fused/standard scene gap in {k}")
     return counts
 
 
 def phase4_train(dev, batches):
     from uncrtaints_tpu_torch.config import Config, derive
-    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv
     from uncrtaints_tpu_torch.train import create_train_state, make_train_step
 
     cfg = derive(Config(use_sar=True, scale_by=10.0))  # the paper recipe, bf16
@@ -1378,9 +1349,7 @@ def phase4_train(dev, batches):
     step(state, batches[0], gen)  # warm-up (cuDNN plans, allocator)
     torch.cuda.synchronize()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    kernels = {"K1": aggregate.att_group_aggregate, "K1-bwd": aggregate.att_group_aggregate_bwd,
-               "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad,
-               "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3}
+    kernels = kernel_wrappers()
     torch.cuda.reset_peak_memory_stats(dev)
     for f in kernels.values():
         f.launches = 0
@@ -1537,23 +1506,6 @@ def phase_remat(dev):
     return total
 
 
-# device kernels of a train step by kind: the first fragment found in a
-# kernel's name decides (the hand-written kernels first; a GELU or a copy is
-# an elementwise kernel by name, so they come before it)
-KERNEL_KINDS = (
-    ("reflect pad", ("reflection_pad",)),
-    ("K5 depthwise stencil", ("dw_tile_kernel", "dw_direct_kernel", "dw_adjoint_frame_kernel")),
-    ("K2 depthwise weight gradient", ("dw_grad_",)),
-    ("K1 and K1-bwd", ("att_group_",)),
-    ("GEMMs", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "splitK")),
-    ("reductions", ("reduce_kernel",)),
-    ("GELU", ("gelu", "Gelu")),
-    ("dtype and layout copies", ("copy", "Copy", "CatArray", "Memcpy")),
-    ("Adam (_foreach)", ("multi_tensor_apply",)),
-    ("elementwise", ("elementwise",)),
-)
-
-
 def profile_train_step(step, state, batch, gen, paper_recipe=True, step_ms=None):
     """One more train step under ``torch.profiler``; prints the device time
     by kind (and, given the unprofiled ``step_ms``, the device's idle share
@@ -1649,14 +1601,6 @@ class count_syncs:
     @property
     def n(self):
         return sum(self.by_line.values())
-
-
-def kernel_wrappers():
-    """The six kernels' wrappers by counter name (each counts its launches)."""
-    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv
-    return {"K1": aggregate.att_group_aggregate, "K1-bwd": aggregate.att_group_aggregate_bwd,
-            "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad,
-            "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3}
 
 
 def native_vs_numpy(label, ds, cfg, native):
@@ -2140,34 +2084,6 @@ FAMILIES = {"unet (pretrain)": dict(model="unet", encoder_widths=[64, 64, 64, 12
             "unet3d": dict(model="unet3d", input_t=4), "uconvlstm": dict(model="uconvlstm"),
             "buconvlstm": dict(model="buconvlstm"), "convlstm": dict(model="convlstm"),
             "convgru": dict(model="convgru"), "fpn": dict(model="fpn")}
-
-
-def exact_zero_gradients(model):
-    """The parameters whose gradient is zero in exact arithmetic in a train
-    step: a bias that feeds a batch norm in training (the norm takes out its
-    mean), also through a bias-free convolution (a batch-norm MBConv's
-    PreNorm bias ahead of pw1), and the L-TAE's key bias and, in the tiny
-    L-TAE whose input feeds only the keys, its input norm's and input conv's
-    biases (a shift of every logit of a pixel, under the softmax over T).
-    Rounding leaves noise there, or an exact zero."""
-    from uncrtaints_tpu_torch.models.blocks import MBConv
-    from uncrtaints_tpu_torch.models.layers import Norm2d
-    from uncrtaints_tpu_torch.models.ltae import BatchNorm1d, LTAE2dtiny
-    names = set()
-    for prefix, mod in model.named_modules():
-        if isinstance(mod, MBConv) and mod.norm == "batch" and mod.expansion != 1:
-            names.add(f"{prefix}.conv.norm.bias")
-        if isinstance(mod, LTAE2dtiny):
-            names |= {f"{prefix}.in_norm.bias", f"{prefix}.inconv.bias"}
-        if isinstance(mod, torch.nn.Sequential):
-            kids = list(mod.children())
-            for i, (a, b) in enumerate(zip(kids, kids[1:])):
-                batch_norm = isinstance(b, BatchNorm1d) or (isinstance(b, Norm2d)
-                                                            and b.norm == "batch")
-                if batch_norm and getattr(a, "bias", None) is not None:
-                    names.add(f"{prefix}.{i}.bias")
-    return names | {n for n, _ in model.named_parameters()
-                    if n.endswith("attention_heads.fc1_k.bias")}
 
 
 def _synthetic_batches(cfg, n, patch, seed, dev):
@@ -3092,6 +3008,36 @@ def phase11_jax_checkpoint(dev, tmp, card):
     return counts
 
 
+# the bench phase: the port's benchmark, each mode at short length
+BENCH_WINDOWS, BENCH_E2E_PATCHES = 2, 16
+
+
+def phase_bench():
+    """The four modes of ``uncrtaints_tpu_torch.bench`` on the card, with
+    their defaults but the length; prints each line. Returns the launches
+    of the phase (every kernel must have run)."""
+    kernels = kernel_wrappers()
+    for f in kernels.values():
+        f.launches = 0
+    runs = {"eval": lambda: bench.run_eval(windows=BENCH_WINDOWS),
+            "train": lambda: bench.run_train(windows=BENCH_WINDOWS),
+            "scene": lambda: bench.run_scene(windows=BENCH_WINDOWS),
+            "e2e": lambda: bench.run_e2e(windows=BENCH_WINDOWS, n_patches=BENCH_E2E_PATCHES)}
+    for mode, run in runs.items():
+        t0 = time.perf_counter()
+        out = run()
+        print(json.dumps(out))
+        print(f"bench phase, {mode}: {out['metric']} {out['value']:.3f} {out['unit']} "
+              f"(windows {out['window_values']}), step {out['step_ms_p50']:.3f} ms, mfu "
+              f"{out.get('mfu')}, correct {out['correct']} ({time.perf_counter() - t0:.1f} s)")
+        check(out["correct"], f"the bench's {mode} line is not correct: {out['checks']}")
+        check(0 < out.get("mfu", 0) < 1, f"the bench's {mode} line has no mfu in (0, 1)")
+        torch.cuda.empty_cache()
+    counts = {k: f.launches for k, f in kernels.items()}
+    check(all(counts.values()), f"the bench phase launched {counts}: a kernel never ran")
+    return counts
+
+
 def start_spatial_ranks(out, n_data, n_spatial):
     """``torchrun`` of this script's :func:`spatial_rank` as the ranks of an
     n_data x n_spatial mesh, writing into ``out``; returns the process."""
@@ -3244,7 +3190,6 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
-    import uncrtaints_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3296,19 +3241,22 @@ def main():
         took("phase 10")
         jaxck = phase11_jax_checkpoint(dev, work, card)
         took("phase 11")
+    benched = phase_bench()
+    took("the bench phase")
     print(f"launches by path: eval {evalc}; scene {scene}; train {train}; remat {remat}; "
           f"CLIs {cli}; "
           f"real data {real}; U-TAE {utae}; other families {families}; ensemble members "
           f"{members}; export and the traced run {modules}; spatial mesh and orbax {spatial}; "
-          f"the JAX checkpoint {jaxck}")
+          f"the JAX checkpoint {jaxck}; the bench {benched}")
 
     # launches: the sum over the paths' runs (eval, scene, train, remat, the
     # CLI chain, the real-data CLIs, U-TAE's CLIs and bare steps, the other
     # families, the ensemble's members, one exported call and the traced
-    # run, the spatial ranks and the orbax chain, the JAX checkpoint's), each
-    # counted from 0 just before the path to just after it
+    # run, the spatial ranks and the orbax chain, the JAX checkpoint's, the
+    # bench's four modes), each counted from 0 just before the path to just
+    # after it
     paths = (evalc, scene, train, remat, cli, real, utae, families, members, modules, spatial,
-             jaxck)
+             jaxck, benched)
     meta = {  # name: (source, the TPU kernel it replaces, its counter)
         "att_group_aggregate": ("aggregate.cu", "pallas_aggregate.py:268", "K1"),
         "att_group_aggregate_bwd": ("aggregate.cu", "pallas_aggregate.py:164", "K1-bwd"),

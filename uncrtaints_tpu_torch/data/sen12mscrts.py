@@ -26,7 +26,7 @@ import os
 import re
 import warnings
 from datetime import datetime
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 
@@ -96,7 +96,13 @@ class SEN12MSCRTS:
                  n_input_samples: int = 3, rescale_method: str = "default",
                  min_cov: float = 0.0, max_cov: float = 1.0,
                  import_data_path: Optional[str] = None,
-                 custom_samples=None, seed: int = 1, device="cuda"):
+                 custom_samples=None, seed: int = 1, device="cuda",
+                 time_points: Iterable[int] = range(30), raw_s2: bool = False):
+        """``time_points``: the time-point folders of every patch (the
+        archives' 30; a smaller tree names its own). ``raw_s2``: the
+        cloudy_cloudfree samples carry S2 as the tree's uint16 DN, marked
+        with ``rescale_method``, for the raw or the single-pass collate
+        (data/pipeline.py), as ``HDF5SEN12MSCRTS(raw_s2=True)`` does."""
         assert split in ("all", "train", "val", "test"), \
             "split must be all|train|val|test"
         assert sample_type in ("generic", "cloudy_cloudfree"), \
@@ -111,11 +117,16 @@ class SEN12MSCRTS:
         self.split = split
         self.splits = splits_ts(region)
         self.modalities = ("S1", "S2")
-        self.time_points = range(30)
+        self.time_points = time_points
         self.cloud_masks = cloud_masks
         self.sample_type = sample_type if cloud_masks is not None else "generic"
         self.sampling = sampler
         self.n_input_t = n_input_samples
+        if raw_s2 and (self.sample_type != "cloudy_cloudfree"
+                       or isinstance(custom_samples, list)):
+            raise ValueError("raw_s2 serves the cloudy_cloudfree samples of a tree "
+                             "(masks on, no custom samples)")
+        self.raw_s2 = raw_s2
         self.vary_samples = (self.sampling == "random"
                              and self.sample_type == "cloudy_cloudfree")
         self.method = rescale_method
@@ -245,6 +256,11 @@ class SEN12MSCRTS:
             out.append(mosaic.astype(np.float32))
         return out
 
+    def _s2(self, img: np.ndarray) -> np.ndarray:
+        """An S2 frame as a cloudy_cloudfree sample carries it: processed,
+        or with ``raw_s2`` the tree's uint16 DN."""
+        return img.astype(np.uint16) if self.raw_s2 else process_MS(img, self.method)
+
     def getsample(self, pdx: int) -> Dict:
         return self[pdx]
 
@@ -343,8 +359,8 @@ class SEN12MSCRTS:
                 self.get_imgs(pdx, inputs_idx + [cloudless_idx])
             input_s1, target_s1 = s1[:n], s1[n]
             input_masks, target_mask = masks[:n], masks[n]
-            input_s2 = [process_MS(img, self.method) for img in s2_raw[:n]]
-            target_s2 = [process_MS(s2_raw[n], self.method)]
+            input_s2 = [self._s2(img) for img in s2_raw[:n]]
+            target_s2 = [self._s2(s2_raw[n])]
             in_s1_td, in_s2_td, in_coord = s1_td[:n], s2_td[:n], coord[:n]
             tg_s1_td, tg_s2_td, tg_coord = s1_td[n:], s2_td[n:], coord[n:]
         else:
@@ -355,8 +371,8 @@ class SEN12MSCRTS:
             input_s1 = [s1[i] for i in inputs_idx]
             input_masks = [masks[i] for i in inputs_idx]
             target_s1, target_mask = s1[cloudless_idx], masks[cloudless_idx]
-            input_s2 = [process_MS(s2_raw[i], self.method) for i in inputs_idx]
-            target_s2 = [process_MS(s2_raw[cloudless_idx], self.method)]
+            input_s2 = [self._s2(s2_raw[i]) for i in inputs_idx]
+            target_s2 = [self._s2(s2_raw[cloudless_idx])]
             in_s1_td = [s1_td[i] for i in inputs_idx]
             in_s2_td = [s2_td[i] for i in inputs_idx]
             tg_s1_td, tg_s2_td = [s1_td[cloudless_idx]], [s2_td[cloudless_idx]]
@@ -364,7 +380,9 @@ class SEN12MSCRTS:
             tg_coord = [coord[cloudless_idx]]
 
         root = self.root_dir
+        marker = {"rescale_method": self.method} if self.raw_s2 else {}
         return {
+            **marker,
             "input": {
                 "S1": list(input_s1), "S2": input_s2,
                 "masks": list(input_masks),
