@@ -6,7 +6,7 @@ one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          (from the root of a checkout, one card)
 
-Phase 1 builds the six hand-written CUDA kernels of ``uncrtaints_tpu_torch``
+Phase 1 builds the hand-written CUDA kernels of ``uncrtaints_tpu_torch``
 from ``csrc/`` (one nvcc per source, in parallel) and holds each against its
 plain PyTorch version on the card, at the shapes the paths give it (K1 and
 K1-bwd also at U-TAE's three skip levels, [4,3,s,s,64] with 16 heads of 4
@@ -32,7 +32,13 @@ gradient (K5 and K2; in reflect mode behind a reflect ``F.pad`` or before its
 backward, the composition the port ran before the border was folded into the
 kernels), the bare bf16 ``torch.matmul`` and the whole function composed of
 PyTorch calls in bf16 (K3), and gelu -> reflect pad -> cuDNN depthwise conv
-(K4). Each kernel's
+(K4). K6, the norms with their activation (``ops/norm.py``), is held
+forward and backward at the paper encoder's group norms, the decoder's batch
+norms and U-TAE's narrowest width (``K6_CASES``): the statistics against
+the twins', the apply bit-equal to the eager formula on the kernel's coef /
+off, the backward within a stated relative tolerance, two runs bit-equal,
+timed beside the eager formula it replaces (its autograd for the backward)
+and torch's batch / group norm with the activation. Each kernel's
 bound is the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type; an exact GELU counts as the 20 fp32 operations
 of its arithmetic and one special-function instruction. For K3 and K4 the
@@ -41,10 +47,11 @@ printed beside the bound and is no part of it.
 Phase 2 runs the port's eval step (forward, MGNLL, scale_by rescale, image
 metrics) of the paper recipe in bf16 on 3 synthetic batches of B=4, T=3,
 256x256 with seeded random weights, and checks that every forward went
-through the kernels (1 K1, 10 K3 and 5 K4 launches, no backward kernel) and
+through the kernels (1 K1, 10 K3, 5 K4 and 5 K6 launches, no backward kernel) and
 that the outputs are finite. One more step runs under ``torch.profiler``:
 device time by kind, the idle share, the kernels by name (10 wgmma K3, 5 K4
-and their 5 pooled-sum passes, no statistics pass), and the five fused
+and their 5 pooled-sum passes, the 5 encoder norms' K6 passes and no other
+statistics pass), and the five fused
 decoder blocks alone with recorded shapes, where no GELU, mean or sum over a
 whole [B,256,256,C] map may run outside the kernels.
 Phase 3 compares the fused eval path with the standard one on the card,
@@ -54,13 +61,14 @@ for the paper recipe's architecture and for the residual + ``use_v`` +
 The scene phase runs ``predict_scene`` of the paper recipe on a synthetic
 T=3, 1024x1024 scene (tile 256, overlap 64, batches of 4: 25 windows in 7
 forwards), checks shapes, finiteness, a positive variance and the launches
-(7 K1, 70 K3, 35 K4, no train kernel), holds a single-window scene against
+(7 K1, 70 K3, 35 K4, 35 K6, no train kernel), holds a single-window scene against
 the eval step and the tiled result against the standard (unfused) path,
 and prints windows/s.
 Phase 4 runs the port's train step (forward, MGNLL, backward, Adam, the
 rescale) of the paper recipe in bf16: 4 steps of B=4, T=3, 256x256 over the
 3 batches with an explicit dropout generator. It checks the launches per
-step (K1 1, K1-bwd 1, K5 12, K2 6, no K3 or K4), finite losses, a finite non-zero
+step (K1 1, K1-bwd 1, K5 12, K2 6, K6 25, K6-bwd 25, no K3 or K4), finite
+losses, a finite non-zero
 gradient for every parameter on the first step, and that the parameters
 moved; it prints the step time and the peak device memory. One more step
 runs under ``torch.profiler``: no ``reflection_pad`` kernel may appear (the
@@ -71,7 +79,8 @@ The remat phase runs the paper recipe's train step at B=4 and B=8 without
 and with ``remat`` (each block recomputed in the backward under
 ``torch.utils.checkpoint``), from the same weights on the same batch: peak
 memory, step time, device-busy time and launches a step (remat: 18 K5, 6
-K2, 1 K1, 1 K1-bwd); remat's peak must be below the plain one, its first
+K2, 1 K1, 1 K1-bwd, 49 K6, 25 K6-bwd); remat's peak must be below the plain
+one, its first
 loss bit-equal and its gradients within 1e-3 RMSE of each largest element
 or twice the plain step's own run-to-run gap.
 Phase 6 runs the entry points a user starts, in a temporary directory, at
@@ -84,13 +93,14 @@ finite test metrics, that the two test runs equal each other and the train
 run's final test to the bit, that the resumed epoch continued Adam's count
 and the step and ran at the lr the schedule sets there, and that the
 launches over the chain are exactly (train steps) x (1 K1 + 1 K1-bwd + 12 K5
-+ 6 K2) + (eval forwards) x (1 K1 + 10 K3 + 5 K4). After the counters are
++ 6 K2 + 25 K6 + 25 K6-bwd) + (eval forwards) x (1 K1 + 10 K3 + 5 K4 + 5
+K6). After the counters are
 read it holds what only a card runs: a checkpoint saved from the card and
 loaded into a fresh model gives the same eval step to the bit; the batches
 the side-stream prefetch hands out equal the host's; a val epoch with the
-prefetch equals one without it to the bit, and so does a one-step train
-epoch (longer train epochs within 5e-3: the bilinear upsample's backward
-sums with atomics, and the steps drift apart); and it prints the epochs'
+prefetch equals one without it to the bit, and so do a one-step and an
+8-step train epoch (a train step repeats to the bit: none of its sums
+uses atomics); and it prints the epochs'
 sequences/s beside the bare steps' of phases 2 and 4, the host
 synchronizations PyTorch reports in each epoch by the line that made them,
 and the time of one ``save_checkpoint``.
@@ -108,14 +118,15 @@ step and 3 eval forwards), the train and val epochs once more through the
 loop with the host synchronizations by line (the step loop's must be the
 one fetch of ``loop.py``; the masks' from the loader threads are printed
 apart) beside the loader alone and the bare steps, ``cli.test
---use_custom`` on the 768x768 mosaic (1 K1 + 10 K3 + 5 K4), and
+--use_custom`` on the 768x768 mosaic (1 K1 + 10 K3 + 5 K4 + 5 K6), and
 ``cli.train`` with the default s2cloudless detector and no weights, which
 must stop with its error.
 Phase 8 runs U-TAE at its published widths (encoder [64,64,64,128], decoder
 [32,32,64,128], 16 heads, d_model 256; the MSE loss ``derive`` sets) through
 ``cli.train`` (one epoch, 8 samples a split) and ``cli.test`` at B=4, T=3,
 256x256, bf16 (files, no variance export, bit-equal test metrics, launches
-exactly 3 K1 a forward and 3 K1 + 3 K1-bwd a train step and nothing else),
+exactly 3 K1 and 22 K6 a forward and 3 K1 + 3 K1-bwd + 22 K6 + 22 K6-bwd a
+train step and nothing else),
 then its bare steps (launches per step, step times, peak memory, a finite
 gradient for every parameter, non-zero but for those zero in exact
 arithmetic, one train step under ``torch.profiler`` by kind) and the card
@@ -123,7 +134,8 @@ against the CPU at 32x32 (fp32: eval RMSE and one train step's loss). Every
 other family (U-Net pretrain, UNet3D at T=4, the two recurrent U-Nets,
 ConvLSTM, ConvGRU, FPN + ConvLSTM, at the JAX package's default widths and
 the MSE loss) runs three eval forwards and train steps at 256x256 (finite
-outputs and gradients, no kernel launch) and is held card against CPU at
+outputs and gradients, no kernel launch but their norms' K6, ``K6_FAMILIES``)
+and is held card against CPU at
 32x32. Last, a second paper-recipe member is trained at another seed, both
 members' test splits are exported by ``cli.test --export_every 1``, and
 ``cli.ensemble`` fuses them in its three modes: the fused mean and variance
@@ -138,12 +150,12 @@ Phase 9 runs ``cli.train`` (one epoch, 8 samples a split) under
 card, where every all-reduce still runs) in the background; meanwhile it
 exports the paper recipe with a symbolic batch (``export.py``) and runs the
 same ``cli.train`` in this process with ``--trace_dir --profile``, where the
-trace must name the six ``uncrtaints::`` operators and the FLOP count must
+trace must name the kernels' ``uncrtaints::`` operators and the FLOP count must
 equal the one the forward gives, and the card's count the CPU's at 32x32.
 Then it holds one exported call at B=4 against the live eval forward
-(exactly 1 K1, 10 K3 and 5 K4 launches), times both, runs ``predict_scene``
+(exactly 1 K1, 10 K3, 5 K4 and 5 K6 launches), times both, runs ``predict_scene``
 through the artifact against the live model, holds the NCCL run's train
-loss against this process's within 5e-3 and its test metrics against this
+loss equal to this process's to the bit and its test metrics against this
 process's ``cli.test`` of its checkpoint within 1e-6, and prints the loader
 rates of phases 6 and 7 with and without the native writers.
 Phase 1 also holds the halo modes of K5 (forward and folded adjoint), K2
@@ -162,8 +174,9 @@ band of 128 rows of the paper recipe's B=4, 256x256 batch. Their eval step
 (loss, pred, var, metrics), one train step (loss, a finite non-zero
 gradient for every parameter but those zero in exact arithmetic) and
 ``predict_scene(mesh=)`` on a 512x512 scene are held against this process,
-and each rank's launches (1 K1 + 10 K3 + 5 K4 a forward, K4 in halo mode; 1
-K1 + 1 K1-bwd + 12 K5 + 6 K2 a train step, K5 and K2 in halo mode), its
+and each rank's launches (1 K1 + 10 K3 + 5 K4 + 5 K6 a forward, K4 in halo
+mode; 1 K1 + 1 K1-bwd + 12 K5 + 6 K2 + 25 K6 + 25 K6-bwd a train step, K5
+and K2 in halo mode, K6 summing its statistics over the ranks), its
 train-step peak memory and its collectives' host time are printed.
 The ranks and this process also run UNet3D (T=4), FPN + ConvLSTM and U-TAE
 at its published widths (MSE, attention dropout off) on the same layout:
@@ -172,7 +185,7 @@ process with the same gates, each rank's launches equal to one process's.
 Meanwhile this process runs ``cli.train --ckpt_backend orbax`` (asynchronous
 ``.dcp`` checkpoints) for one epoch, resumed to two, and ``cli.test``, whose
 metrics must equal to the bit a ``cli.test`` of the same weights written
-as ``.pth.tar``; its train losses are held against phase 6's within 5e-3.
+as ``.pth.tar``; its train losses must equal phase 6's to the bit.
 Phase 11 writes the JAX package's single-file checkpoint (flax msgpack
 ``.ckpt`` + ``.meta.json``) with ``save_jax_checkpoint`` after two train
 steps of the paper recipe, and the same state as ``.pth.tar``: a fresh model
@@ -306,6 +319,45 @@ K3_CASES = {  # name: (N, P, C, C2, groups, se, stats, do_gelu, epilogue)
     "ragged [3,384,96]->80 G=4": (3, 384, 96, 80, 4, True, True, True, True),
 }
 
+
+# K6 (ops/norm.py, csrc/norm.cu: the norms with their activation) at the
+# path's shapes, bf16: the paper encoder's group norms over B*T frames (fn[1]
+# and fn[4] at 256 channels + GELU, in_conv's 128 + ReLU), the decoder's
+# batch norms over B maps (256 + GELU, fn[8]'s 128 alone), and U-TAE's
+# narrowest width (its decoder's 32 channels at 256^2, batch norm + ReLU, in
+# train and, as the folded affine, in eval). name: (kind, [N,H,W,C], groups,
+# activation); kind "affine" is the eval batch norm (norm_affine_act)
+K6_CASES = {
+    "group enc [12,256,256,256] gelu": ("group", (B * T, PATCH, PATCH, HIDDEN), 4, "gelu"),
+    "group enc [12,256,256,128] relu": ("group", (B * T, PATCH, PATCH, 128), 4, "relu"),
+    "batch dec [4,256,256,256] gelu": ("batch", (B, PATCH, PATCH, HIDDEN), 4, "gelu"),
+    "batch dec [4,256,256,128] none": ("batch", (B, PATCH, PATCH, 128), 4, "none"),
+    "batch U-TAE [4,256,256,32] relu": ("batch", (B, PATCH, PATCH, 32), 4, "relu"),
+    "eval batch U-TAE [4,256,256,32] relu": ("affine", (B, PATCH, PATCH, 32), 4, "relu"),
+    # UNet3D's first batch norm (the affine in fp32) and LeakyReLU, T=4
+    "batch_f32 UNet3D [4,4,256,256,32] leaky": ("batch_f32", (B, 4, PATCH, PATCH, 32), 4,
+                                                "leaky_relu"),
+}
+K6_LINE_CASE = "group enc [12,256,256,256] gelu"  # the case of the JSON line
+# K6's launches (a forward each norm, a backward each norm in a train step):
+# the paper recipe's eval forward runs the encoder's 5 group norms (its
+# decoder's batch norms are K3 / K4's), a train step all 25 norms and their
+# backward, a remat step 24 more forwards (each block's norms again);
+# fused_eval off runs the decoder's 15 too
+K6_EVAL, K6_TRAIN, K6_REMAT, K6_STANDARD_EVAL = 5, 25, 49, 20
+# U-TAE at its published widths: 10 group and 12 eval batch norms a forward,
+# 22 norms a train step (the L-TAE's own norms are not K6's)
+K6_UTAE = 22
+# phase 8's other families: (K6 a forward, K6 a train step); UNet3D's 11
+# batch norms take K6's batch_f32 form, ConvLSTM and ConvGRU have no norm
+K6_FAMILIES = {"unet (pretrain)": (22, 22), "unet3d": (11, 11), "uconvlstm": (24, 24),
+               "buconvlstm": (24, 24), "convlstm": (0, 0), "convgru": (0, 0), "fpn": (3, 3)}
+# what an element of K6 computes, in fp32 operations (bound): forward the
+# statistics' add and multiply-add (3), the affine's multiply and add (2),
+# the activation (an exact GELU: GELU_OPS and an erf; ReLU one compare);
+# backward the recomputed affine (2), act' (GELU: GELU_OPS, the pdf's 5
+# operations and an exponential), g' (1), the sums (3) and dx (4)
+K6_FWD_OPS, K6_BWD_OPS = 5, 10
 
 def check(ok, msg):
     if not ok:
@@ -828,11 +880,143 @@ def phase1_kernels(dev):
         k2_err = max(k2_err, err)
     out["dw_stencil"]["max_abs_err"] = k5_err
     out["dw_kernel_grad"]["max_abs_err"] = k2_err
+    out.update(phase1_norms(dev, randn, result))
     halo = phase1_halo_modes(dev, randn)
     for name, err in halo.items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     return out
 
+
+def phase1_norms(dev, randn, result):
+    """K6 at ``K6_CASES``: the forward's statistics within 1e-5 of the
+    twins' (fp32 sums in another order, relative to max x^2), its apply
+    bit-equal to the twin's on the kernel's own coef / off (the same bf16
+    roundings, torch's GELU and ReLU), y within 2^-6 of the largest output
+    of the twins' whole forward (a coef or off one bf16 ulp apart where the
+    statistics round the other way); the backward on the same inputs within
+    1e-2 of the largest dx (fp32 inside, one bf16 rounding each side) and
+    1e-4 of the largest dweight / dbias; two runs of each bit-equal. Timed
+    at every case (CUDA events) beside the bound, the eager formula the port
+    ran before (its autograd for the backward) and one library call: torch's
+    batch or group norm on the channels_last view and the activation
+    (autograd of it for the backward). Returns {kernel name: result} for the
+    JSON line and the largest errors."""
+    from uncrtaints_tpu_torch.ops import norm as tn
+    U, Fn = torch.ops.uncrtaints, torch.nn.functional
+    act_fn = {"gelu": Fn.gelu, "relu": Fn.relu, "none": lambda t: t,
+              "leaky_relu": lambda t: Fn.leaky_relu(t, 0.01)}
+    errs, line_out = {"fwd": 0.0, "bwd": 0.0}, {}
+    for name, (kind, shape, G, act) in K6_CASES.items():
+        C, A = shape[-1], tn.ACTS[act]
+        x = (randn(*shape) * 2 + 1).bfloat16()
+        gy = randn(*shape).bfloat16()
+        w, b = randn(C) * 0.5 + 1, randn(C)
+        if kind != "affine":  # the train step hands the parameters in bf16
+            w, b = w.bfloat16(), b.bfloat16()
+        nd = x.dim()  # the channels_last NC... view, and back
+        to_nc, to_nhwc = (0, nd - 1, *range(1, nd - 1)), (0, *range(2, nd), 1)
+        xc = x.permute(*to_nc)
+        if kind == "affine":
+            rm, rv = randn(C), randn(C).abs() + 0.5
+            r = torch.rsqrt(rv + 1e-5)
+            coef, off = (r * w).bfloat16(), (b - rm * r * w).bfloat16()
+            fwd = lambda: U.norm_affine_act(x, coef, off, None, None, A)
+            bwd = lambda: U.norm_affine_act_bwd(gy, x, coef, off, None, None, A)
+            y, got_b = fwd(), bwd()
+            torch.cuda.synchronize()
+            ry = tn.affine_act_plain(x, coef, off, act)
+            check(torch.equal(y, ry), f"K6 {name}: the apply is not the eager formula's bits")
+            ref_b = tn.affine_act_bwd_twin(gy, x, coef, off, None, None, A)
+            plain_f = lambda: tn.affine_act_plain(x, coef, off, act)
+            leaves = [x.detach().requires_grad_(), coef.detach().requires_grad_(),
+                      off.detach().requires_grad_()]
+            yl = tn.affine_act_plain(*leaves, act)
+            lib_f = lambda: act_fn[act](Fn.batch_norm(xc, rm, rv, w, b, training=False))
+            stat = 0.0
+        else:
+            K = tn.KINDS[kind]
+            fwd = lambda: U.norm_act(x, w, b, K, G, A, 0)
+            y, mvn, coef, off = fwd()
+            bwd = lambda: U.norm_act_bwd(gy, x, w, b, mvn, coef, off, K, G, A, 0)
+            got_b = bwd()
+            torch.cuda.synchronize()
+            ry, rmvn, _, _ = tn.norm_act_twin(x, w, b, K, G, A)
+            stat = float(((mvn - rmvn).abs()[:-1]).max()) / float(x.float().square().max())
+            check(stat <= 1e-5 and float(mvn[-1]) == float(rmvn[-1]),
+                  f"K6 {name}: statistics off the twins' by {stat:.3g}")
+            Fr = coef.shape[0]
+            twin_y = tn.apply_twin(x.view(Fr, -1, C), coef, off, tn.FORMS[K], A, w, b)
+            check(torch.equal(y, twin_y.view(shape)),
+                  f"K6 {name}: the apply is not the twin's bits on the kernel's coef / off")
+            ref_b = tn.norm_act_bwd_twin(gy, x, w, b, mvn, coef, off, K, G, A)
+            plain_f = lambda: tn.norm_act_plain(x, kind, w, b, G, act)
+            leaves = [x.detach().requires_grad_(), w.detach().requires_grad_(),
+                      b.detach().requires_grad_()]
+            yl = tn.norm_act_plain(leaves[0], kind, leaves[1], leaves[2], G, act)[0]
+            if kind in ("batch", "batch_f32"):
+                lib_f = lambda: act_fn[act](Fn.batch_norm(xc, None, None, w.float(), b.float(),
+                                                          training=True))
+            else:
+                wb, bb = w.bfloat16(), b.bfloat16()
+                lib_f = lambda: act_fn[act](Fn.group_norm(xc, G, wb, bb, 1e-5))
+        ferr = float((y.float() - ry.float()).abs().max())
+        top = float(ry.float().abs().max())
+        check(ferr <= 2 ** -6 * top, f"K6 {name}: y off the twins' by {ferr:.3g}")
+        (dx, *dp), (rdx, *rdp) = got_b, ref_b
+        berr = float((dx.float() - rdx.float()).abs().max())
+        check(berr <= 1e-2 * float(rdx.float().abs().max()),
+              f"K6-bwd {name}: dx off the twins' by {berr:.3g}")
+        for d, r_ in zip(dp, rdp):
+            if not r_.numel():  # the affine form's dweight / dbias: none
+                continue
+            top_d = max(float(r_.float().abs().max()), 1.0)
+            tol = (1e-2 if d.dtype == torch.bfloat16 else 1e-4) * top_d
+            check(float((d.float() - r_.float()).abs().max()) <= tol,
+                  f"K6-bwd {name}: dweight / dbias off the twins'")
+        again_f, again_b = fwd(), bwd()
+        same = all(torch.equal(p, q) for p, q in zip(
+            (y, *got_b) if kind == "affine" else (y, mvn, coef, off, *got_b),
+            (again_f, *again_b) if kind == "affine" else (*again_f, *again_b)))
+        check(same, f"K6 {name}: two runs differ")
+        # the library call computes the same function (bf16 inside: 2^-5 of
+        # max), its NCHW view taken back to NHWC
+        lerr = float((lib_f().permute(*to_nhwc).float() - ry.float()).abs().max())
+        check(lerr <= 2 ** -5 * top, f"K6 {name}: the library call computes another function "
+                                     f"({lerr:.3g})")
+        lib_leaf = xc.detach().requires_grad_()
+        if kind == "affine":
+            lib_y = act_fn[act](Fn.batch_norm(lib_leaf, rm, rv, w, b, training=False))
+        elif kind in ("batch", "batch_f32"):
+            lib_y = act_fn[act](Fn.batch_norm(lib_leaf, None, None, w.float(), b.float(),
+                                              training=True))
+        else:
+            lib_y = act_fn[act](Fn.group_norm(lib_leaf, G, wb, bb, 1e-5))
+        gyc = gy.permute(*to_nc)
+        kf, kb = time_kernel(fwd), time_kernel(bwd)
+        pf = time_ms(plain_f, runs=7)
+        pb = time_ms(lambda: torch.autograd.grad(yl, leaves, gy, retain_graph=True), runs=7)
+        lf = time_kernel(lib_f)
+        lb = time_kernel(lambda: torch.autograd.grad(lib_y, lib_leaf, gyc, retain_graph=True))
+        n = x.numel()
+        gelu = act == "gelu"
+        f_ops = n * (K6_FWD_OPS + (GELU_OPS if gelu else 1) + (0 if kind != "affine" else -3))
+        b_ops = n * (K6_BWD_OPS + (GELU_OPS + 5 if gelu else 1))
+        bf, byf = bound(2 * nbytes(x), (f_ops, PEAK_FP32), (n * GELU_SFU * gelu, PEAK_SFU))
+        bb_ms, byb = bound(3 * nbytes(x), (b_ops, PEAK_FP32), (2 * n * gelu, PEAK_SFU))
+        print(f"K6 {name}: forward max_abs_err {ferr:.3g} (tol {2 ** -6 * top:.3g}; statistics "
+              f"{stat:.3g} of max x^2; apply bit-equal), kernel {kf:.4f} ms ({bf / kf:.0%} of "
+              f"bound {bf:.4f} ms, {byf}), plain {pf:.4f} ms, library {lf:.4f} ms; backward "
+              f"max_abs_err {berr:.3g}, kernel {kb:.4f} ms ({bb_ms / kb:.0%} of bound "
+              f"{bb_ms:.4f} ms, {byb}), plain (autograd of the eager formula) {pb:.4f} ms, "
+              f"library (autograd) {lb:.4f} ms; two runs bit-equal")
+        errs["fwd"], errs["bwd"] = max(errs["fwd"], ferr), max(errs["bwd"], berr)
+        if name == K6_LINE_CASE:
+            line_out["norm_act"] = result(0.0, kf, pf, bf, byf, lf)
+            line_out["norm_act_bwd"] = result(0.0, kb, pb, bb_ms, byb, lb)
+        del x, gy, y, yl, lib_y, leaves, lib_leaf, got_b, ref_b, again_f, again_b
+    line_out["norm_act"]["max_abs_err"] = errs["fwd"]
+    line_out["norm_act_bwd"]["max_abs_err"] = errs["bwd"]
+    return line_out
 
 # the halo modes at the paper shapes, split into bands of rows: K5 and K2 at
 # the encoder's and the decoder's depthwise conv, K4 at the decoder's
@@ -1076,7 +1260,7 @@ def finite(t):
 def phase2_slice(dev):
     from uncrtaints_tpu_torch.config import Config, derive
     from uncrtaints_tpu_torch.data import SyntheticSEN12MSCRTS, collate_multi
-    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv
+    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv, norm
     from uncrtaints_tpu_torch.train import batch_to_device, make_eval_step
 
     cfg = derive(Config(use_sar=True, scale_by=10.0))  # the paper recipe
@@ -1092,9 +1276,9 @@ def phase2_slice(dev):
     torch.cuda.synchronize()
 
     train_kernels = (aggregate.att_group_aggregate_bwd, dwconv.dw_stencil,
-                     dwgrad.dw_kernel_grad)
+                     dwgrad.dw_kernel_grad, norm.norm_act_bwd)
     for f in (aggregate.att_group_aggregate, mbconv.norm_gelu_matmul,
-              mbconv.norm_gelu_dwconv3x3, *train_kernels):
+              mbconv.norm_gelu_dwconv3x3, norm.norm_act, *train_kernels):
         f.launches = 0
     mbconv.norm_gelu_matmul.wgmma_launches = 0
     times, results = [], []
@@ -1106,19 +1290,21 @@ def phase2_slice(dev):
             times.append((time.perf_counter() - t0) * 1e3)
             results.append(aux)
     k1, k3 = aggregate.att_group_aggregate.launches, mbconv.norm_gelu_matmul.launches
-    k4 = mbconv.norm_gelu_dwconv3x3.launches
+    k4, k6 = mbconv.norm_gelu_dwconv3x3.launches, norm.norm_act.launches
     n_fwd = len(times)
     print(f"phase 2: paper recipe (bf16, {n_params} parameters), {n_fwd} eval "
           f"steps of B={B}, T={T}, {P}x{P}: K1 launches {k1}, K3 launches {k3}, "
-          f"K4 launches {k4}")
+          f"K4 launches {k4}, K6 launches {k6}")
     check(k1 == n_fwd, f"K1 launched {k1} times in {n_fwd} forwards (1 each expected)")
     check(k3 == 10 * n_fwd, f"K3 launched {k3} times in {n_fwd} forwards (10 each expected)")
     check(k4 == 5 * n_fwd, f"K4 launched {k4} times in {n_fwd} forwards (5 each expected)")
+    check(k6 == K6_EVAL * n_fwd,
+          f"K6 launched {k6} times in {n_fwd} forwards ({K6_EVAL} each expected)")
     check(mbconv.norm_gelu_matmul.wgmma_launches == k3,
           f"only {mbconv.norm_gelu_matmul.wgmma_launches} of the {k3} K3 launches ran the "
           "wgmma kernel")
     check(all(f.launches == 0 for f in train_kernels),
-          "the eval step launched a backward or train-only kernel (K1-bwd, K5, K2)")
+          "the eval step launched a backward or train-only kernel (K1-bwd, K5, K2, K6-bwd)")
     for i, aux in enumerate(results[:3]):
         check(finite(aux["loss"]), f"batch {i}: loss not finite")
         for k in ("pred", "var"):
@@ -1133,21 +1319,26 @@ def phase2_slice(dev):
     print(f"  eval step: {ms:.3f} ms median of {n_fwd} (min {min(times):.3f}, "
           f"max {max(times):.3f}), {B / ms * 1e3:.2f} sequences/s")
     profile_eval_step(step, model, batches[0], ms)
-    return cfg, model, batches, {"K1": k1, "K3": k3, "K4": k4}, ms
+    return cfg, model, batches, {"K1": k1, "K3": k3, "K4": k4, "K6": k6}, ms
 
 
 def profile_eval_step(step, model, batch, step_ms):
     """One more eval step under ``torch.profiler``, reported by
     :func:`eval_step_report`: the step must run 1 K1, 10 K3 through the
     wgmma kernel and 5 K4 each with its pooled-sum pass and none with
-    statistics, and the five fused decoder blocks no GELU, mean or sum over
-    a whole map outside the kernels."""
+    statistics, 5 K6 (the encoder's group norms: a statistics pass, its
+    second pass, the per-slot math and the apply each), and the five fused
+    decoder blocks no GELU, mean or sum over a whole map outside the
+    kernels."""
     found, eager = eval_step_report(step, model, batch, step_ms)
     want = {"att_group_": 1, "ngm_wg_kernel": 10, "ngm_kernel": 0, "ngd_tile_kernel": 5,
-            "channel_sum_kernel": 5, "group_stats_kernel": 0}
+            "channel_sum_kernel": 5, "group_stats_kernel": K6_EVAL,
+            "norm_part_kernel": K6_EVAL, "norm_finalize_kernel": K6_EVAL,
+            "norm_apply_kernel": K6_EVAL}
     check(found == want,
           f"the eval step's kernels {found}, expected {want} (1 K1, 10 K3 through "
-          "the wgmma kernel, 5 K4 each with its pooled-sum pass and none with statistics)")
+          "the wgmma kernel, 5 K4 each with its pooled-sum pass and none with statistics, "
+          "the second passes of the statistics all K6's)")
     check(not eager, "a fused decoder block ran an eager GELU or reduction over a whole map")
 
 
@@ -1177,11 +1368,12 @@ def eval_step_report(step, model, batch, step_ms):
     print(f"    the largest of 'other': {others}")
     count = lambda frag: sum(n for k, (n, _) in names.items() if frag in k)
     found = {f: count(f) for f in ("att_group_", "ngm_wg_kernel", "ngm_kernel", "ngd_tile_kernel",
-                                   "channel_sum_kernel", "group_stats_kernel")}
+                                   "channel_sum_kernel", "group_stats_kernel", "norm_part_kernel",
+                                   "norm_finalize_kernel", "norm_apply_kernel")}
     print(f"    kernels by name: {found}")
     # the hand-written kernels one by one (template arguments tell the two K3 shapes apart)
     for key, (n, ms) in sorted(names.items()):
-        if any(f in key for f in ("ngm_", "ngd_", "channel_sum_kernel", "att_group_")):
+        if any(f in key for f in ("ngm_", "ngd_", "channel_sum_kernel", "att_group_", "norm_")):
             short = key[key.find("ng"):] if "::ng" in key else key
             print(f"      {short[:70]}: {n} launches, {ms / n:.4f} ms each")
 
@@ -1306,7 +1498,8 @@ def phase_scene(dev, cfg, model, off):
           f"launches {counts}")
     print(f"  {sec * 1e3:.1f} ms for the scene (host tiling and blend included): "
           f"{n_win / sec:.2f} windows/s, {S * S / sec / 1e6:.3f} Mpixel/s")
-    want = {"K1": n_fwd, "K3": 10 * n_fwd, "K4": 5 * n_fwd, "K1-bwd": 0, "K5": 0, "K2": 0}
+    want = {"K1": n_fwd, "K3": 10 * n_fwd, "K4": 5 * n_fwd, "K1-bwd": 0, "K5": 0, "K2": 0,
+            "K6": K6_EVAL * n_fwd, "K6-bwd": 0}
     check(counts == want, f"scene launches {counts}, expected {want}")
     check(mbconv.norm_gelu_matmul.wgmma_launches == counts["K3"],
           "a K3 launch of the scene did not run the wgmma kernel")
@@ -1368,7 +1561,8 @@ def phase4_train(dev, batches):
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"phase 4: paper recipe train step (bf16, Adam lr {cfg.lr}), {TRAIN_STEPS} steps of "
           f"B={B}, T={T}, {PATCH}x{PATCH}: launches {counts}")
-    per_step = {"K1": 1, "K1-bwd": 1, "K5": 12, "K2": 6, "K3": 0, "K4": 0}
+    per_step = {"K1": 1, "K1-bwd": 1, "K5": 12, "K2": 6, "K3": 0, "K4": 0, "K6": K6_TRAIN,
+                "K6-bwd": K6_TRAIN}
     for k, n in per_step.items():
         check(counts[k] == n * TRAIN_STEPS,
               f"{k} launched {counts[k]} times in {TRAIN_STEPS} train steps ({n} each expected)")
@@ -1469,19 +1663,21 @@ def phase_remat(dev):
             torch.cuda.empty_cache()
         plain, rem = res[False], res[True]
         for remat, r in res.items():
-            per = {k: r["counts"][k] // REMAT_STEPS for k in ("K5", "K2", "K1", "K1-bwd")}
+            per = {k: r["counts"][k] // REMAT_STEPS
+                   for k in ("K5", "K2", "K1", "K1-bwd", "K6", "K6-bwd")}
             print(f"remat phase: paper recipe train step, bf16, B={nb}, T={T}, {PATCH}x{PATCH}, "
                   f"remat {remat}: peak device memory {r['peak'] / 2**30:.3f} GiB ({r['peak']} "
                   f"bytes), step {r['ms']:.2f} ms (median of {REMAT_STEPS}), device busy "
                   f"{r['busy']:.2f} ms (one step under the profiler), launches a step {per}")
-            want = {"K5": 18 if remat else 12, "K2": 6, "K1": 1, "K1-bwd": 1, "K3": 0, "K4": 0}
+            want = {"K5": 18 if remat else 12, "K2": 6, "K1": 1, "K1-bwd": 1, "K3": 0, "K4": 0,
+                    "K6": K6_REMAT if remat else K6_TRAIN, "K6-bwd": K6_TRAIN}
             check(r["counts"] == {k: n * REMAT_STEPS for k, n in want.items()},
                   f"B={nb} remat {remat}: launches {r['counts']} in {REMAT_STEPS} steps, "
                   f"expected {want} a step")
         (lp, gp), (lr, gr) = plain["first"], rem["first"]
         # held: every gradient but those zero in exact arithmetic (noise),
-        # against the plain step's own run-to-run noise (the attention
-        # upsample's backward sums bf16 with atomics, in no fixed order)
+        # against twice the plain step's own run-to-run gap (0: no sum of
+        # the step uses atomics) or 1e-3, whichever is larger
         held = [n for n in gp if n not in plain["zero"]]
         rel = lambda a, n: float((a[n] - gp[n]).float().square().mean().sqrt()) / float(
             gp[n].abs().max())
@@ -1538,6 +1734,9 @@ def profile_train_step(step, state, batch, gen, paper_recipe=True, step_ms=None)
     check(kinds.get("K5 depthwise stencil", (0, 0))[1] >= 12
           and kinds.get("K2 depthwise weight gradient", (0, 0))[1] >= 12,
           f"the profile misses K5 or K2 kernels: {kinds}")
+    # every norm through K6: four kernels a forward, four a backward
+    k6 = kinds.get("K6 and K6-bwd norm + activation", (0, 0))[1]
+    check(k6 == 8 * K6_TRAIN, f"the train step ran {k6} K6 kernels, {8 * K6_TRAIN} expected")
 
 
 def phase5_train_reference(dev):
@@ -1631,7 +1830,9 @@ def native_vs_numpy(label, ds, cfg, native):
 def chain_launches(train_steps, eval_forwards):
     """The launches a run of that many train steps and eval forwards makes."""
     return {"K1": train_steps + eval_forwards, "K1-bwd": train_steps, "K5": 12 * train_steps,
-            "K2": 6 * train_steps, "K3": 10 * eval_forwards, "K4": 5 * eval_forwards}
+            "K2": 6 * train_steps, "K3": 10 * eval_forwards, "K4": 5 * eval_forwards,
+            "K6": K6_TRAIN * train_steps + K6_EVAL * eval_forwards,
+            "K6-bwd": K6_TRAIN * train_steps}
 
 
 def phase6_cli(dev, eval_ms, train_ms, tmp, native):
@@ -1799,19 +2000,17 @@ def phase6_cli(dev, eval_ms, train_ms, tmp, native):
     for (m, img, _) in val[1:]:
         check(m["val_loss"] == val[0][0]["val_loss"] and img == val[0][1],
               f"val epoch with the prefetch {val[0][:2]} and without {m, img}")
-    # a train step's backward sums with atomics (the bilinear upsample's),
-    # so only the first step of an epoch repeats to the bit; later steps
-    # drift apart (1e-4 of the loss after 8 steps at this lr), while a
-    # wrong or stale batch would move the loss by percents
+    # a train step repeats to the bit (no sum of its forward or backward uses
+    # atomics), so one-step and 8-step train epochs agree to the bit with
+    # the prefetch and without it
     first = [epoch("train", p, train_step=train_step, samples=B)[0]["train_loss"]
              for p in (True, False)]
     check(first[0] == first[1], f"one-step train epoch with the prefetch and without {first}")
     losses = [m["train_loss"] for m, _, _ in train]
-    rel = max(abs(v / losses[0] - 1) for v in losses)
-    check(rel <= 5e-3, f"train epoch losses with and without the prefetch {losses}")
+    check(len(set(losses)) == 1, f"train epoch losses with and without the prefetch {losses}")
     print(f"  prefetch on, off, off, on, {len(ds)} samples: val epoch loss and every metric "
-          f"equal to the bit; a one-step train epoch equal to the bit; the 8-step train "
-          f"epochs' losses within {rel:.3g} (<= 5e-3; bit-equal {len(set(losses)) == 1})")
+          f"equal to the bit; a one-step and the 8-step train epochs' losses equal to the bit "
+          f"({losses[0]!r})")
     n = len(ds)
     for mode, runs, bare in (("train", train, train_ms), ("val", val, eval_ms)):
         ms = [m[f"{mode}_epoch_time"] * 1e3 for m, _, _ in runs]
@@ -2152,12 +2351,14 @@ def phase8_utae(dev, tmp):
     counts = {k: f.launches for k, f in kernels.items()}
     steps = n_samples // B
     evals = 3 * steps  # val and test in cli.train, cli.test
-    want = {"K1": 3 * (steps + evals), "K1-bwd": 3 * steps, "K5": 0, "K2": 0, "K3": 0, "K4": 0}
+    want = {"K1": 3 * (steps + evals), "K1-bwd": 3 * steps, "K5": 0, "K2": 0, "K3": 0, "K4": 0,
+            "K6": K6_UTAE * (steps + evals), "K6-bwd": K6_UTAE * steps}
     print(f"phase 8: U-TAE (encoder [64,64,64,128], decoder [32,32,64,128], 16 heads, d_model "
           f"256; bf16, B={B}, T={T}, {PATCH}x{PATCH}): cli.train 1 epoch and cli.test, "
           f"{chain_s:.1f} s, {steps} train steps and {evals} eval forwards, launches {counts}")
-    check(counts == want, f"the U-TAE chain launched {counts}, expected {want} (3 K1 a forward, "
-                          "3 K1-bwd a train step, nothing else)")
+    check(counts == want, f"the U-TAE chain launched {counts}, expected {want} (3 K1 and "
+                          f"{K6_UTAE} K6 a forward, 3 K1-bwd and {K6_UTAE} K6-bwd a train step, "
+                          "nothing else)")
     exp = os.path.join(res, "utae")
     files = ["conf.json", "trainlog.json", "model.pth.tar", "model_epoch_1.pth.tar",
              "test_metrics.json"] + [os.path.join("export", "epoch_1", "test", f"img-{i}_{m}.npy")
@@ -2204,10 +2405,12 @@ def phase8_utae(dev, tmp):
     peak = torch.cuda.max_memory_allocated(dev)
     all_counts = {k: f.launches for k, f in kernels.items()}
     tr_counts = {k: all_counts[k] - ev_counts[k] for k in all_counts}
-    check(ev_counts == {"K1": 18, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 0, "K4": 0}
-          and tr_counts == {"K1": 12, "K1-bwd": 12, "K5": 0, "K2": 0, "K3": 0, "K4": 0},
+    check(ev_counts == {"K1": 18, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 0, "K4": 0,
+                        "K6": 6 * K6_UTAE, "K6-bwd": 0}
+          and tr_counts == {"K1": 12, "K1-bwd": 12, "K5": 0, "K2": 0, "K3": 0, "K4": 0,
+                            "K6": 4 * K6_UTAE, "K6-bwd": 4 * K6_UTAE},
           f"U-TAE bare steps launched {ev_counts} in 6 eval forwards and {tr_counts} in 4 train "
-          "steps (3 K1 a forward, 3 K1-bwd a train step)")
+          f"steps (3 K1 and {K6_UTAE} K6 a forward, 3 K1-bwd and {K6_UTAE} K6-bwd a train step)")
     zero_ok = exact_zero_gradients(model)
     bad = [n for n, (fin, mx) in grads.items() if not fin or (mx == 0 and n not in zero_ok)]
     zeros = sorted(n for n, (_, mx) in grads.items() if n in zero_ok)
@@ -2233,7 +2436,8 @@ def phase8_utae(dev, tmp):
 
 def phase8_families(dev):
     """One train step and one eval forward of every other family at 256x256
-    (bf16), finite outputs and no kernel launch; card vs CPU at 32x32."""
+    (bf16), finite outputs and no kernel launch but K6's (their norms,
+    ``K6_FAMILIES``); card vs CPU at 32x32."""
     from uncrtaints_tpu_torch.config import Config, derive
     from uncrtaints_tpu_torch.train import create_train_state, make_eval_step, make_train_step
 
@@ -2270,7 +2474,12 @@ def phase8_families(dev):
         del model, state, b
         _card_vs_cpu(dev, cfg, name)
     counts = {k: f.launches for k, f in kernels.items()}
-    check(not any(counts.values()), f"the baseline families launched kernels: {counts}")
+    # each family: 3 eval forwards and 3 train steps here, 1 and 1 card vs CPU
+    want = dict.fromkeys(kernels, 0)
+    want["K6"] = sum(4 * (e + t) for e, t in K6_FAMILIES.values())
+    want["K6-bwd"] = sum(4 * t for _, t in K6_FAMILIES.values())
+    check(counts == want, f"the baseline families launched {counts}, expected {want} (their "
+                          "norms through K6, nothing else)")
     return counts
 
 
@@ -2352,7 +2561,7 @@ def phase9_modules(dev, tmp, native):
     (``--mesh_shape``, started first, in the background); meanwhile the
     serving export of the paper recipe (symbolic batch) and the same
     ``cli.train`` run in this process with ``--trace_dir --profile`` (the
-    trace must name the six operators, the FLOP count equal the forward's and,
+    trace must name the kernels' operators, the FLOP count equal the forward's and,
     at 32x32, the CPU's). Then, on an idle card: one exported call against
     the live eval forward (its launches, bit-equality, both times),
     ``predict_scene`` through the artifact, the NCCL run's train loss against
@@ -2427,7 +2636,8 @@ def phase9_modules(dev, tmp, native):
         with open(trace_path) as f:
             trace = f.read()
         ops = ("att_group_aggregate", "att_group_aggregate_bwd", "dw_stencil",
-               "dw_kernel_grad", "norm_gelu_matmul", "norm_gelu_dwconv3x3")
+               "dw_kernel_grad", "norm_gelu_matmul", "norm_gelu_dwconv3x3", "norm_act",
+               "norm_act_bwd")
         missing = [o for o in ops if f'"uncrtaints::{o}"' not in trace]
         print(f"phase 9: cli.train --trace_dir --profile (one epoch, {PHASE9_SAMPLES} samples a "
               f"split, B={B}): {run_s:.1f} s, launches {run_counts}; trace "
@@ -2469,7 +2679,8 @@ def phase9_modules(dev, tmp, native):
     serve(x, dates)
     sync()
     one = counts()
-    want = {"K1": 1, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 10, "K4": 5}
+    want = {"K1": 1, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 10, "K4": 5, "K6": K6_EVAL,
+            "K6-bwd": 0}
     check(one == want, f"one exported call launched {one}, expected {want}")
     gaps = {k: float((got[k] - ref[k]).abs().max()) for k in ("pred", "var")}
     same = all(torch.equal(got[k], ref[k]) for k in ("pred", "var"))
@@ -2505,10 +2716,9 @@ def phase9_modules(dev, tmp, native):
     check(all(v <= 1e-3 * float(np.abs(a[k]).max()) for k, v in sgap.items()),
           f"predict_scene through the artifact {sgap}")
 
-    # ---- (e) the NCCL run against this process: its train loss (the card
-    # does not repeat a train epoch to the bit: the bilinear backward sums
-    # with atomics; 5e-3 as phase 6), and its test split evaluated here on
-    # its own checkpoint (an eval epoch repeats to the bit)
+    # ---- (e) the NCCL run against this process: its train loss (a train
+    # epoch repeats to the bit, and one rank's all-reduces change no bit),
+    # and its test split evaluated here on its own checkpoint
     lines = [ln for ln in log.splitlines() if ln.startswith("Data parallel:")]
     check(lines, "the torchrun run did not report its data-parallel rank")
     with open(os.path.join(res, "dp", "trainlog.json")) as f:
@@ -2528,10 +2738,10 @@ def phase9_modules(dev, tmp, native):
     print(f"phase 9: cli.train under torchrun, {world} NCCL rank(s) (--mesh_shape {world}), "
           f"{dp_s:.1f} s beside the steps above: {lines[0]}; train loss "
           f"{dlog['train_loss']:.6f} against this process's "
-          f"{out['trainlog'][1]['train_loss']:.6f} (relative gap {train_gap:.3g}, <= 5e-3); "
+          f"{out['trainlog'][1]['train_loss']:.6f} (relative gap {train_gap:.3g}, must be 0); "
           f"its test metrics against one process's cli.test of its checkpoint: largest "
           f"relative gap {test_gap:.3g} (<= 1e-6)")
-    check(train_gap <= 5e-3, f"the NCCL train loss differs from one process's by {train_gap}")
+    check(train_gap == 0, f"the NCCL train loss differs from one process's by {train_gap}")
     check(test_gap <= 1e-6, f"the NCCL test metrics differ from one process's by {test_gap}")
     for label, r in native.items():
         print(f"phase 9: native slab writers, {label}: {r['native']:.2f} sequences/s against "
@@ -2848,10 +3058,10 @@ def _phase10_orbax(tmp):
     print(f"phase 10: cli.train --ckpt_backend orbax (1 epoch), resumed from "
           f"model_epoch_1.dcp to 2, cli.test on model.dcp, and cli.test of the same weights "
           f"as model.pth.tar: {chain_s:.1f} s, launches {counts}; files {have}; train losses "
-          f"against phase 6's .pth.tar run, relative gaps {gaps} (<= 5e-3); test metrics "
+          f"against phase 6's .pth.tar run, relative gaps {gaps} (must be 0); test metrics "
           f".dcp vs .pth.tar bit-equal {dcp_test == pth_test}")
     check(counts == want, f"the orbax chain launched {counts}, expected {want}")
-    check(all(g <= 5e-3 for g in gaps.values()), f"orbax run's train losses {gaps}")
+    check(all(g == 0 for g in gaps.values()), f"orbax run's train losses {gaps}")
     check(dcp_test == pth_test, f"cli.test of model.dcp {dcp_test} and of the same weights "
                                 f"as .pth.tar {pth_test} differ")
     check(dcp_test == {k: v for k, v in second["test"].items()},
@@ -3108,8 +3318,9 @@ def spatial_report(one, got, batch, n_data, n_spatial, label):
     check(mgap <= 1e-3, f"spatial eval metrics gap {mgap}")
 
     # launches: every rank runs the whole forward on its band, through the halo modes
-    fwd = {"K1": 1, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 10, "K4": 5}
-    trn = {"K1": 1, "K1-bwd": 1, "K5": 12, "K2": 6, "K3": 0, "K4": 0}
+    fwd = {"K1": 1, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 10, "K4": 5, "K6": K6_EVAL, "K6-bwd": 0}
+    trn = {"K1": 1, "K1-bwd": 1, "K5": 12, "K2": 6, "K3": 0, "K4": 0, "K6": K6_TRAIN,
+           "K6-bwd": K6_TRAIN}
     n_scene = -(-one["scene counts"]["K1"] // n_data)  # rounds of one batch a data rank
     for r, g in enumerate(got):
         print(f"  rank {r}: eval launches {g['eval counts']} (halo mode {g['eval halo']}), "
@@ -3258,16 +3469,19 @@ def main():
     paths = (evalc, scene, train, remat, cli, real, utae, families, members, modules, spatial,
              jaxck, benched)
     meta = {  # name: (source, the TPU kernel it replaces, its counter)
-        "att_group_aggregate": ("aggregate.cu", "pallas_aggregate.py:268", "K1"),
-        "att_group_aggregate_bwd": ("aggregate.cu", "pallas_aggregate.py:164", "K1-bwd"),
-        "norm_gelu_matmul": ("norm_gelu_matmul.cu", "pallas_mbconv.py:136", "K3"),
-        "norm_gelu_dwconv3x3": ("norm_gelu_dwconv.cu", "pallas_mbconv.py:254", "K4"),
-        "dw_stencil": ("dwconv.cu", "pallas_dwconv.py:92", "K5"),
-        "dw_kernel_grad": ("dwgrad.cu", "pallas_dwgrad.py:80", "K2"),
+        "att_group_aggregate": ("aggregate.cu", "ops/pallas_aggregate.py:268", "K1"),
+        "att_group_aggregate_bwd": ("aggregate.cu", "ops/pallas_aggregate.py:164", "K1-bwd"),
+        "norm_gelu_matmul": ("norm_gelu_matmul.cu", "ops/pallas_mbconv.py:136", "K3"),
+        "norm_gelu_dwconv3x3": ("norm_gelu_dwconv.cu", "ops/pallas_mbconv.py:254", "K4"),
+        "dw_stencil": ("dwconv.cu", "ops/pallas_dwconv.py:92", "K5"),
+        "dw_kernel_grad": ("dwgrad.cu", "ops/pallas_dwgrad.py:80", "K2"),
+        # no Pallas kernel: the XLA-fused norms of the JAX package's Norm2d
+        "norm_act": ("norm.cu", "models/layers.py:734", "K6"),
+        "norm_act_bwd": ("norm.cu", "models/layers.py:734", "K6-bwd"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"uncrtaints_tpu_torch/csrc/{src}",
-         "replaces": f"uncrtaints_tpu/ops/{rep}",
+         "replaces": f"uncrtaints_tpu/{rep}",
          "launches": sum(p.get(key, 0) for p in paths), **kern[name]}
         for name, (src, rep, key) in meta.items()]}))
     print(card)

@@ -7,6 +7,8 @@ a GPU machine without JAX it runs as
     python -m pytest tests/test_torch_kernels.py --noconftest -m cuda
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -608,3 +610,139 @@ def test_norm_gelu_dwconv_halo_kernel_matches_plain_and_stitches(cuda, rng, shap
     for j in (1, 2, 3):
         tot = sum(p[j] for p in parts)
         assert ((tot - whole[j]).abs() / whole[j].abs().clamp(min=1.0)).max() <= 1e-5
+
+
+# K6 (ops/norm.py, csrc/norm.cu): the norms with their activation. Cases:
+# (norm, shape [N,H,W,C], groups, activation, dtype): 16-byte vectors (bf16
+# C % 8, fp32 C % 4) and the scalar path (C = 20 in bf16, 10 in fp32), two
+# channel slabs (4096 bf16 channels), instance norm's (x - m) * r form, and
+# UNet3D's batch norm ([B,T,H,W,C], the affine in fp32) with its LeakyReLU
+K6_CASES = [("group", (2, 16, 16, 128), 4, "gelu", torch.bfloat16),
+            ("group", (3, 8, 8, 64), 4, "relu", torch.float32),
+            ("group", (2, 9, 7, 20), 4, "gelu", torch.bfloat16),
+            ("batch", (3, 16, 16, 256), 4, "gelu", torch.bfloat16),
+            ("batch", (2, 9, 7, 20), 4, "relu", torch.bfloat16),
+            ("batch", (2, 9, 7, 10), 2, "none", torch.float32),
+            ("batch", (1, 4, 4, 4096), 4, "none", torch.bfloat16),
+            ("instance", (2, 8, 8, 24), 4, "relu", torch.bfloat16),
+            ("instance", (2, 8, 8, 12), 4, "none", torch.float32),
+            ("batch_f32", (2, 4, 16, 16, 32), 4, "leaky_relu", torch.bfloat16),
+            ("batch_f32", (1, 4, 9, 7, 20), 4, "leaky_relu", torch.float32)]
+
+
+def _k6_inputs(rng, dev, kind, shape, dtype):
+    """x, g and the weight and bias: bf16 beside a bf16 x (as the train step
+    hands them), fp32 beside an fp32 x."""
+    C = shape[-1]
+    x = _t(rng.standard_normal(shape) * 2 + 1, dev, dtype)
+    g = _t(rng.standard_normal(shape), dev, dtype)
+    wb = (None, None) if kind == "instance" else (
+        _t(rng.standard_normal(C) + 1, dev, dtype), _t(rng.standard_normal(C), dev, dtype))
+    return x, g, wb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,groups,act,dtype", K6_CASES)
+def test_norm_act_kernels_match_twins(cuda, rng, kind, shape, groups, act, dtype):
+    """Forward: the statistics within 1e-5 of the twins' (another order of
+    fp32 sums), the apply bit-equal to the twin's on the kernel's coef / off;
+    backward on the same inputs: dx within 1e-2 (bf16) / 1e-5 (fp32) of the
+    largest element, dweight and dbias within 1e-2 (bf16: one rounding
+    each side) / 1e-4 (fp32); two runs bit-equal."""
+    from uncrtaints_tpu_torch.ops import norm as tn
+    x, g, (w, b) = _k6_inputs(rng, cuda, kind, shape, dtype)
+    K, A = tn.KINDS[kind], tn.ACTS[act]
+    U = torch.ops.uncrtaints
+    n0, b0 = tn.norm_act.launches, tn.norm_act_bwd.launches
+    y, mvn, coef, off = U.norm_act(x, w, b, K, groups, A, 0)
+    dx, dw, db = U.norm_act_bwd(g, x, w, b, mvn, coef, off, K, groups, A, 0)
+    torch.cuda.synchronize()
+    assert (tn.norm_act.launches, tn.norm_act_bwd.launches) == (n0 + 1, b0 + 1)
+    ry, rmvn, _, _ = tn.norm_act_twin(x, w, b, K, groups, A)
+    scale = float(x.float().abs().max())
+    stat = (mvn - rmvn).abs()[:-1] / (scale * scale)
+    assert float(stat.max()) <= 1e-5 and float(mvn[-1]) == float(rmvn[-1])
+    Fr, C = coef.shape
+    form = tn.FORMS[K]
+    assert torch.equal(y, tn.apply_twin(x.view(Fr, -1, C), coef, off, form, A, w, b).view(x.shape))
+    tol = 2 ** -6 if dtype == torch.bfloat16 else 1e-5
+    assert float((y.float() - ry.float()).abs().max()) <= tol * float(ry.float().abs().max())
+    rdx, rdw, rdb = tn.norm_act_bwd_twin(g, x, w, b, mvn, coef, off, K, groups, A)
+    dtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert float((dx.float() - rdx.float()).abs().max()) <= dtol * float(rdx.float().abs().max())
+    for got, ref in ((dw, rdw), (db, rdb)):  # empty for instance norm
+        assert got.shape == ref.shape
+        if ref.numel():
+            ptol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+            assert float((got.float() - ref.float()).abs().max()) <= ptol * max(
+                float(ref.float().abs().max()), 1.0)
+    again = U.norm_act(x, w, b, K, groups, A, 0)
+    back = U.norm_act_bwd(g, x, w, b, mvn, coef, off, K, groups, A, 0)
+    assert all(torch.equal(p, q) for p, q in zip((y, mvn, coef, off, dx, dw, db),
+                                                 (*again, *back)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "gelu", "relu"])
+def test_affine_act_kernel_matches_twin(cuda, rng, act, dtype):
+    """The eval batch norm's apply: bit-equal to the eager x * coef + off
+    and the activation; its backward's dcoef / doff sums within 1e-4."""
+    from uncrtaints_tpu_torch.ops import norm as tn
+    x, g, _ = _k6_inputs(rng, cuda, "batch", (2, 16, 16, 64), dtype)
+    coef, off = _t(rng.standard_normal(64), cuda, dtype), _t(rng.standard_normal(64), cuda, dtype)
+    y = tn.affine_act(x, coef, off, act)
+    assert torch.equal(y, tn.affine_act_plain(x, coef, off, act))
+    dx, dc, do, _, _ = torch.ops.uncrtaints.norm_affine_act_bwd(g, x, coef, off, None, None,
+                                                                tn.ACTS[act])
+    rdx, rdc, rdo, _, _ = tn.affine_act_bwd_twin(g, x, coef, off, None, None, tn.ACTS[act])
+    dtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert float((dx.float() - rdx.float()).abs().max()) <= dtol * float(rdx.float().abs().max())
+    for got, ref in ((dc, rdc), (do, rdo)):
+        assert float((got.float() - ref.float()).abs().max()) <= 1e-2 * float(
+            ref.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_affine_f32_kernel_matches_twin(cuda, rng, dtype):
+    """UNet3D's eval batch norm (((x - m) * r) * w + b in fp32, then the
+    LeakyReLU): bit-equal to the eager formula; its backward within 1e-2."""
+    from uncrtaints_tpu_torch.ops import norm as tn
+    x, g, (w, b) = _k6_inputs(rng, cuda, "batch_f32", (2, 4, 8, 8, 32), dtype)
+    r, m = _t(rng.random(32) + 0.5, cuda), _t(rng.standard_normal(32), cuda)
+    y = tn.affine_act(x, r, m, "leaky_relu", w, b)
+    assert torch.equal(y, tn.affine_act_plain(x, r, m, "leaky_relu", w, b))
+    act = tn.ACTS["leaky_relu"]
+    got = torch.ops.uncrtaints.norm_affine_act_bwd(g, x, r, m, w, b, act)
+    ref = tn.affine_act_bwd_twin(g, x, r, m, w, b, act)
+    for a, e in zip(got, ref):
+        assert float((a.float() - e.float()).abs().max()) <= 1e-2 * max(
+            float(e.float().abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["batch", "group", "instance", "batch3d"])
+def test_norm2d_on_card_matches_cpu(cuda, rng, norm):
+    """Norm2d with its ReLU (UNet3D's BatchNorm3d with its LeakyReLU), fp32,
+    train mode: the card (K6) against the CPU (the eager formula): output,
+    gradients and running statistics within 1e-4 of the largest."""
+    from uncrtaints_tpu_torch.models import layers as tl
+    from uncrtaints_tpu_torch.models.unet3d import BatchNorm3d
+    shape = (2, 4, 9, 10, 16) if norm == "batch3d" else (3, 9, 10, 16)
+    x = _t(rng.standard_normal(shape) * 2 + 1, "cpu")
+    g = _t(rng.standard_normal(shape), "cpu")
+    base = (BatchNorm3d(16) if norm == "batch3d" else tl.Norm2d(norm, 16)).train()
+    act = "leaky_relu" if norm == "batch3d" else "relu"
+    if norm != "instance":
+        base.weight.data = _t(rng.standard_normal(16) * 0.5 + 1, "cpu")
+        base.bias.data = _t(rng.standard_normal(16), "cpu")
+    outs = []
+    for dev in ("cpu", cuda):
+        m = copy.deepcopy(base).to(dev)
+        xd = x.to(dev).requires_grad_()
+        y = m(xd, act=act)
+        grads = torch.autograd.grad(y, [xd, *m.parameters()], g.to(dev))
+        outs.append([t.detach().cpu() for t in (y, *grads, *m.buffers())])
+    for a, r in zip(outs[1], outs[0]):
+        assert float((a - r).abs().max()) <= 1e-4 * max(float(r.abs().max()), 1.0)

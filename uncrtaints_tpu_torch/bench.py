@@ -101,9 +101,12 @@ FLOPS_BASIS = ("torch.utils.flop_counter: matmuls, convolutions and the kernels'
                "registered formulas, no elementwise work")
 
 # the kernels' launches in one step of the paper recipe on a card
+# (K6: the encoder's 5 group norms in eval, the decoder's batch norms being
+# K3 / K4's; all 25 norms in train, each with its backward)
 EXPECTED_LAUNCHES = {
-    "eval": {"K1": 1, "K1-bwd": 0, "K3": 10, "K4": 5, "K5": 0, "K2": 0},
-    "train": {"K1": 1, "K1-bwd": 1, "K3": 0, "K4": 0, "K5": 12, "K2": 6},
+    "eval": {"K1": 1, "K1-bwd": 0, "K3": 10, "K4": 5, "K5": 0, "K2": 0, "K6": 5, "K6-bwd": 0},
+    "train": {"K1": 1, "K1-bwd": 1, "K3": 0, "K4": 0, "K5": 12, "K2": 6, "K6": 25,
+              "K6-bwd": 25},
 }
 METRICS = {"eval": "uncrtaints_256px_t3_eval_throughput",
            "train": "uncrtaints_256px_t3_train_throughput",
@@ -118,8 +121,9 @@ WARMUP = 3
 EVAL_KINDS = (
     ("K1", ("att_group_",)),
     ("K3", ("ngm_",)),
-    ("K4 (with its pooled-sum and statistics passes)", ("ngd_", "channel_sum_kernel",
-                                                        "group_stats_kernel")),
+    ("K4 (with its pooled-sum pass)", ("ngd_", "channel_sum_kernel")),
+    ("K6 norm + activation (with its statistics passes)", ("norm_part_", "norm_finalize_",
+                                                          "norm_apply_", "group_stats_kernel")),
     ("GEMMs outside the kernels", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "splitK")),
     ("convolutions (cuDNN)", ("cudnn", "conv", "Conv")),
     ("reductions", ("reduce_kernel",)),
@@ -134,6 +138,8 @@ KERNEL_KINDS = (
     ("K5 depthwise stencil", ("dw_tile_kernel", "dw_direct_kernel", "dw_adjoint_frame_kernel")),
     ("K2 depthwise weight gradient", ("dw_grad_",)),
     ("K1 and K1-bwd", ("att_group_",)),
+    ("K6 and K6-bwd norm + activation", ("norm_part_", "norm_finalize_", "norm_apply_",
+                                         "norm_bwd_", "norm_dx_", "group_stats_kernel")),
     ("GEMMs", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "splitK")),
     ("reductions", ("reduce_kernel",)),
     ("GELU", ("gelu", "Gelu")),
@@ -165,11 +171,13 @@ def device_time_by_kind(prof, kind_table):
 
 
 def kernel_wrappers() -> Dict[str, Callable]:
-    """The six kernels' wrappers by counter name (each counts its launches)."""
-    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv
+    """The kernels' wrappers by counter name (each counts its launches; K6
+    the norms with their activation, forward and backward)."""
+    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv, norm
     return {"K1": aggregate.att_group_aggregate, "K1-bwd": aggregate.att_group_aggregate_bwd,
             "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad,
-            "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3}
+            "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3,
+            "K6": norm.norm_act, "K6-bwd": norm.norm_act_bwd}
 
 
 def launch_counts() -> Dict[str, int]:

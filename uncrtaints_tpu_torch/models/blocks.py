@@ -151,11 +151,11 @@ class MBConv(nn.Module):
             h = fn[0](a, input_affine=self.conv.norm.fold())
         else:
             h = fn[0](self.conv.norm(a))
-        h = gelu(fn[1](h))
+        h = fn[1](h, act="gelu")  # norm + GELU: one K6 call on the card
         if self.expansion == 1:
             h = fn[4](fn[3](h))
         else:
-            h = gelu(fn[4](fn[3](h)))
+            h = fn[4](fn[3](h), act="gelu")
             h = fn[8](fn[7](fn[6](h)))
         if self.downsample:
             return self.proj(_max_pool_3x3_s2(a)) + h

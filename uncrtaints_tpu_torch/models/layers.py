@@ -35,6 +35,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uncrtaints_tpu_torch.ops.dwconv import dw_stencil
+from uncrtaints_tpu_torch.ops.norm import (  # noqa: F401  (batch_moments_f32: ltae.py's)
+    activation, affine_act, batch_moments_f32, norm_act, unbiased_factor)
 from uncrtaints_tpu_torch.parallel import mesh
 
 _PAD_MODES = ("reflect", "replicate", "circular")  # F.pad modes
@@ -64,58 +66,6 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def softplus_t20(x: torch.Tensor) -> torch.Tensor:
     """nn.Softplus(beta=1, threshold=20): identity above the threshold."""
     return F.softplus(x, beta=1.0, threshold=20.0)
-
-
-def _moments_f32(x: torch.Tensor, dims, keepdim: bool = True):
-    """fp32 mean and variance as E[x^2] - E[x]^2 (clamped at 0), the JAX
-    package's formula."""
-    m = x.mean(dim=dims, keepdim=keepdim, dtype=torch.float32)
-    m2 = x.float().square().mean(dim=dims, keepdim=keepdim)
-    return m, torch.clamp(m2 - m.square(), min=0.0)
-
-
-def _moments_band_f32(x: torch.Tensor, dims, keepdim: bool, sp):
-    """:func:`_moments_f32` of the scene when x is one band of it: the fp32
-    sums and sums of squares over ``dims`` summed over the spatial group by
-    a differentiable all-reduce (the gradient reaches every band's rows),
-    divided by the scene's count."""
-    xf = x.float()
-    tot = mesh.spatial_sum(torch.stack([xf.sum(dim=dims, keepdim=keepdim),
-                                        xf.square().sum(dim=dims, keepdim=keepdim)]), sp)
-    n = sp.n_spatial
-    for d in dims:
-        n *= x.shape[d]
-    m = tot[0] / n
-    return m, torch.clamp(tot[1] / n - m.square(), min=0.0)
-
-
-def batch_moments_f32(x: torch.Tensor, dims):
-    """Train-mode batch-norm statistics: per-channel fp32 mean and biased
-    variance (E[x^2] - E[x]^2, clamped at 0) over ``dims``, and the number
-    of rows behind them. When a process group is initialised they are the
-    global batch's, as under the JAX package's pjit: the per-rank sums, sums
-    of squares and counts are summed over the ranks by a differentiable
-    all-reduce (parallel/mesh.py), so every rank normalises alike, its
-    running statistics stay equal to the others', and the gradient reaches
-    every rank's rows."""
-    if not mesh.active():
-        m, v = _moments_f32(x, dims, keepdim=False)
-        return m, v, x.numel() // x.shape[-1]
-    xf, C = x.float(), x.shape[-1]
-    local = torch.cat([xf.sum(dim=dims), xf.square().sum(dim=dims),
-                       xf.new_full((1,), x.numel() // C)])
-    tot = mesh.all_reduce_sum_grad(local)
-    n = tot[-1]
-    m = tot[:C] / n
-    return m, torch.clamp(tot[C:2 * C] / n - m.square(), min=0.0), n
-
-
-def unbiased_factor(n):
-    """n / (n - 1) for the running variance (1 for a single row); n is the
-    row count :func:`batch_moments_f32` returns, an int or a tensor."""
-    if isinstance(n, torch.Tensor):
-        return n / torch.clamp(n - 1, min=1)
-    return n / max(n - 1, 1)
 
 
 class Linear(nn.Linear):
@@ -339,11 +289,16 @@ def band_pad(x: torch.Tensor, top: int, bot: int, cols: int, mode: str, sp) -> t
 
 
 class Norm2d(nn.Module):
-    """batch | group | instance | none over NHWC maps.
+    """batch | group | instance | none over NHWC maps, with the activation
+    that follows it (``act``: none, gelu, relu) in the same call.
 
     Statistics accumulate in fp32; the affine is applied in the activation
     dtype. Batch norm uses eps 1e-5 and momentum 0.1 (torch convention,
-    unbiased running variance); instance norm has no affine parameters."""
+    unbiased running variance); instance norm has no affine parameters. On
+    the card every norm and its activation is one call of kernel family K6
+    (ops/norm.py) each way; on the CPU the same formula runs as eager ops."""
+
+    fuses_act = True  # takes the activation after it (run_fused)
 
     def __init__(self, norm: str, channels: int, n_groups: int = 4):
         super().__init__()
@@ -370,44 +325,56 @@ class Norm2d(nn.Module):
         rs = torch.rsqrt(self.running_var + 1e-5) * self.weight
         return rs, self.bias - self.running_mean * rs
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.norm == "batch":
-            return self._batch_norm(x)
-        sp = mesh.spatial()
-        moments = (_moments_f32 if sp is None else
-                   lambda t, dims, keepdim=True: _moments_band_f32(t, dims, keepdim, sp))
-        if self.norm == "instance":
-            m, v = moments(x, (-3, -2))
-            return (x - m.to(x.dtype)) * torch.rsqrt(v + 1e-5).to(x.dtype)
-        if self.norm == "group":
-            N, C, g = x.shape[0], x.shape[-1], self.n_groups
-            m, v = moments(x.reshape(N, -1, g, C // g), (1, 3), keepdim=False)
-            mc = m.repeat_interleave(C // g, -1)
-            cc = torch.rsqrt(v + 1e-5).repeat_interleave(C // g, -1) * self.weight.float()
-            off = self.bias.float() - mc * cc
-            shape = (N,) + (1,) * (x.dim() - 2) + (C,)
-            return x * cc.to(x.dtype).view(shape) + off.to(x.dtype).view(shape)
-        return x
-
-    def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            m, v, n = batch_moments_f32(x, tuple(range(x.dim() - 1)))
-            if not getattr(_RECOMPUTE, "on", False):
-                with torch.no_grad():
-                    self.running_mean.copy_(0.9 * self.running_mean + 0.1 * m)
-                    self.running_var.copy_(0.9 * self.running_var
-                                           + 0.1 * (v * unbiased_factor(n)))
-        else:
+    def forward(self, x: torch.Tensor, act: str = "none") -> torch.Tensor:
+        if self.norm == "none":
+            return activation(x, act)
+        if self.norm == "batch" and not self.training:
             m, v = self.running_mean, self.running_var
-        r = torch.rsqrt(v + 1e-5)
-        coef = (r * self.weight).to(x.dtype)
-        offs = (self.bias - m * r * self.weight).to(x.dtype)
-        return x * coef + offs
+            r = torch.rsqrt(v + 1e-5)
+            coef = (r * self.weight).to(x.dtype)
+            offs = (self.bias - m * r * self.weight).to(x.dtype)
+            return affine_act(x, coef, offs, act)
+        affine = (self.weight, self.bias) if self.norm != "instance" else (None, None)
+        y, m, v, n = norm_act(x, self.norm, *affine, groups=self.n_groups, act=act)
+        if self.norm == "batch" and not getattr(_RECOMPUTE, "on", False):
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * m)
+                self.running_var.copy_(0.9 * self.running_var
+                                       + 0.1 * (v * unbiased_factor(n)))
+        return y
+
+
+def fusable_act(m: Optional[nn.Module]) -> Optional[str]:
+    """The K6 activation a module computes (ReLU, exact GELU, LeakyReLU of
+    slope 0.01), or None."""
+    if isinstance(m, nn.ReLU):
+        return "relu"
+    if isinstance(m, nn.GELU) and m.approximate == "none":
+        return "gelu"
+    if isinstance(m, nn.LeakyReLU) and m.negative_slope == 0.01:
+        return "leaky_relu"
+    return None
+
+
+def run_fused(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """Run a Sequential, handing an activation that follows a norm
+    (``fuses_act``: Norm2d, UNet3D's batch norm) to the norm: one call on
+    the card, the same function."""
+    mods = list(seq)
+    i = 0
+    while i < len(mods):
+        m = mods[i]
+        act = fusable_act(mods[i + 1]) if i + 1 < len(mods) else None
+        if getattr(m, "fuses_act", False) and act:
+            x, i = m(x, act=act), i + 2
+        else:
+            x, i = m(x), i + 1
+    return x
 
 
 class ConvLayer(nn.Module):
     """Conv2d (+ norm) (+ ReLU) stack; the reference's utae ConvLayer, with
-    its ``conv`` Sequential indices."""
+    its ``conv`` Sequential indices (each norm takes its ReLU along)."""
 
     def __init__(self, nkernels: Sequence[int], norm: str = "batch", k: int = 3,
                  s: int = 1, p: int = 1, n_groups: int = 4,
@@ -424,7 +391,7 @@ class ConvLayer(nn.Module):
         self.conv = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        return run_fused(self.conv, x)
 
 
 def frame_pad_mask(x: torch.Tensor, pad_value: float) -> torch.Tensor:

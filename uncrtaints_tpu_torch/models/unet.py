@@ -27,7 +27,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uncrtaints_tpu_torch.models.layers import (
-    Conv2d, ConvBlock, ConvLayer, Norm2d, conv_transpose_band, smart_apply, softplus_t20)
+    Conv2d, ConvBlock, ConvLayer, Norm2d, conv_transpose_band, run_fused, smart_apply,
+    softplus_t20)
 from uncrtaints_tpu_torch.parallel import mesh
 
 S2_BANDS = 13
@@ -110,7 +111,8 @@ class UpConvBlock(nn.Module):
                                last_relu=False)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        o = self.conv1(torch.cat([self.up(x), self.skip_conv(skip)], dim=-1))
+        o = self.conv1(torch.cat([run_fused(self.up, x), run_fused(self.skip_conv, skip)],
+                                 dim=-1))
         return o + self.conv2(o)
 
 

@@ -31,8 +31,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uncrtaints_tpu_torch.models.layers import (
-    conv_rows, conv_transpose_band, frame_pad_mask, halo_rows)
+    conv_rows, conv_transpose_band, frame_pad_mask, halo_rows, run_fused)
 from uncrtaints_tpu_torch.models.ltae import BatchNorm1d
+from uncrtaints_tpu_torch.ops.norm import affine_act, norm_act
 from uncrtaints_tpu_torch.models.unet import S2_BANDS, mean_var_heads
 from uncrtaints_tpu_torch.parallel import mesh
 
@@ -78,10 +79,22 @@ class Conv3d(nn.Module):
 class BatchNorm3d(BatchNorm1d):
     """Batch norm over (B, T, H, W) per channel of [B,T,H,W,C], as the JAX
     package runs it (flax BatchNorm: fp32 statistics, the biased variance in
-    the running statistics; see ``ltae.BatchNorm1d``)."""
+    the running statistics, the affine in fp32; see ``ltae.BatchNorm1d``),
+    with the activation after it (``act``, :func:`layers.run_fused`). On the
+    card one K6 call each way (``ops/norm.py``, kind ``batch_f32``); on the
+    CPU the eager formula of ``BatchNorm1d``."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+    fuses_act = True
+
+    def forward(self, x: torch.Tensor, act: str = "none") -> torch.Tensor:
+        if not self.training:
+            return affine_act(x, torch.rsqrt(self.running_var + 1e-5), self.running_mean, act,
+                              self.weight, self.bias)
+        y, m, v, _ = norm_act(x, "batch_f32", self.weight, self.bias, act=act)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean + 0.1 * m)
+            self.running_var.copy_(0.9 * self.running_var + 0.1 * v)
+        return y
 
 
 def _conv_bn_act(c_in: int, c_out: int):
@@ -132,12 +145,12 @@ class UNet3D(nn.Module):
                 f"UNet3D under a spatial split: a band of {x.shape[2]} rows; its two max "
                 "pools halve the rows twice, so each band's rows must be a multiple of 4")
         pad_mask = frame_pad_mask(x, self.pad_value)  # [B, T]
-        en3 = self.en3(x)
-        en4 = self.en4(_max_pool(en3))
-        c_out = self.center_out(self.center_in(_max_pool(en4)))
-        dc4 = self.dc4(torch.cat([c_out, en4[:, :c_out.shape[1]]], dim=-1))
-        tr3 = self.trans3(dc4)
-        final = self.final(self.dc3(torch.cat([tr3, en3[:, :tr3.shape[1]]], dim=-1)))
+        en3 = run_fused(self.en3, x)
+        en4 = run_fused(self.en4, _max_pool(en3))
+        c_out = run_fused(self.center_out, run_fused(self.center_in, _max_pool(en4)))
+        dc4 = run_fused(self.dc4, torch.cat([c_out, en4[:, :c_out.shape[1]]], dim=-1))
+        tr3 = run_fused(self.trans3, dc4)
+        final = self.final(run_fused(self.dc3, torch.cat([tr3, en3[:, :tr3.shape[1]]], dim=-1)))
 
         # the mean over the unpadded frames
         keep = (~pad_mask[:, :final.shape[1]]).to(final.dtype)
