@@ -1,5 +1,5 @@
-"""Attribute the port's train and eval step of the paper recipe to modules on
-a GPU, for any tree.
+"""Attribute the port's train and eval step of the paper recipe to model
+sections and modules on a GPU, for any tree.
 
     python3 tools/profile_train_h100.py [--root DIR]      (one card)
 
@@ -8,27 +8,28 @@ Builds the paper recipe with seeded weights from the package
 older tree unpacked with ``git archive`` works too), warms up, and runs one
 train step and one eval step of B=4, T=3, 256x256 under ``torch.profiler``.
 Every device kernel is attributed to the part of the model that launched
-it, through ranges this tool opens around the parts (module hooks and
-wrappers installed here, nothing in the package):
+it, named "<section> / <module>":
 
-- ``Norm2d batch`` / ``Norm2d group`` / ``Norm2d instance``: a Norm2d call
-  (with the activation it takes along where the tree fuses it);
-- ``GELU``: a GELU over a map called apart from its norm (the MBConv body
-  of a tree without K6; the SE's GELU over [N, C] stays with the SE);
-- ``ReLU``: an ``nn.ReLU`` module (a ConvLayer's, where not fused);
-- ``SE``: the squeeze-and-excitation module;
-- ``MGNLL loss``: ``engine.calc_loss``;
-- ``parameter casts``: ``engine._cast_for_forward`` (the bf16 copies of the
-  parameters and the input);
-- ``rest``: everything else (convolutions, K1, K5, K2, the aggregator, the
-  L-TAE, the optimizer, the residual adds).
+- the section is the program's own innermost span (``uncrtaints_tpu_torch/
+  tracing.py``): ``cast``, ``encoder``, ``ltae``, ``aggregate``,
+  ``decoder``, ``loss``, ``optimizer``; a tree without the spans has none;
+- the module comes from ranges this tool opens around it (module hooks and
+  wrappers installed here, nothing in the package): ``Norm2d batch`` /
+  ``Norm2d group`` / ``Norm2d instance`` (a Norm2d call, with the activation
+  it takes along where the tree fuses it), ``GELU`` (a GELU over a map
+  called apart from its norm; the SE's GELU over [N, C] stays with the SE),
+  ``ReLU`` (an ``nn.ReLU`` module), ``SE`` (the squeeze-and-excitation
+  module); none where no hook covers the kernel;
+- ``rest``: neither (the step's own work outside every section).
 
 A backward kernel goes to the part whose forward op created its autograd
-node (the profiler's sequence numbers link the two); what no forward op of a
-range created counts as ``rest``. Printed for each step: device-busy ms and
-kernels, then each part's device ms and launches (forward / backward) and
-its ms by kind (``bench.KERNEL_KINDS``). Nothing is checked: it compares two
-trees in one call on one card (PERF.md section 5).
+node (the profiler's sequence numbers link the two), so the backward splits
+by section too, which the program's own step record, one span for the
+whole backward, cannot; what no forward op of a part created counts as
+``rest``. Printed for each step: device-busy ms and kernels, then each
+part's device ms and launches (forward / backward) and its ms by kind
+(``bench.KERNEL_KINDS``). Nothing is checked: it compares two trees in one
+call on one card (PERF.md section 5).
 """
 
 import collections
@@ -42,6 +43,8 @@ import torch
 
 HERE = Path(__file__).resolve().parent.parent
 BACKWARD = "autograd::engine::evaluate_function"
+SECTIONS = tuple(f"uncrtaints.{n}" for n in ("cast", "encoder", "ltae", "aggregate", "decoder",
+                                             "loss", "optimizer"))
 
 
 class Ranges:
@@ -69,9 +72,9 @@ class Ranges:
 
 
 def install(model, ranges):
-    """The hooks and wrappers on the package under test; returns the labels."""
+    """The hooks and wrappers on the package under test; returns the module
+    labels."""
     from uncrtaints_tpu_torch.models import blocks, layers
-    from uncrtaints_tpu_torch.train import engine
 
     def hook(label):
         return (lambda m, args: ranges.enter(label(m)), lambda m, args, out: ranges.exit())
@@ -90,10 +93,7 @@ def install(model, ranges):
     over_map = lambda x, *a, **k: x.dim() >= 4
     blocks.gelu = ranges.wrap("GELU", blocks.gelu, over_map)
     layers.gelu = ranges.wrap("GELU", layers.gelu, over_map)
-    engine.calc_loss = ranges.wrap("MGNLL loss", engine.calc_loss)
-    engine._cast_for_forward = ranges.wrap("parameter casts", engine._cast_for_forward)
-    return ["Norm2d batch", "Norm2d group", "Norm2d instance", "GELU", "ReLU", "SE",
-            "MGNLL loss", "parameter casts"]
+    return ["Norm2d batch", "Norm2d group", "Norm2d instance", "GELU", "ReLU", "SE"]
 
 
 def attribute(prof, labels, kind_table):
@@ -107,12 +107,17 @@ def attribute(prof, labels, kind_table):
             yield e
             e = e.cpu_parent
 
+    def part(chain):
+        section = next((a.name.split(".", 1)[1] for a in chain if a.name in SECTIONS), None)
+        module = next((a.name for a in chain if a.name in label_set), None)
+        return " / ".join(x for x in (section, module) if x) or "rest"
+
     seq_label = {}
     for e in events:
         chain = list(ancestors(e))
         if e.sequence_nr >= 0 and not any(a.name.startswith(BACKWARD) for a in chain):
-            lab = next((a.name for a in chain if a.name in label_set), None)
-            if lab is not None:
+            lab = part(chain)
+            if lab != "rest":
                 seq_label.setdefault(e.sequence_nr, lab)
     parts = collections.defaultdict(lambda: {"fwd": [0.0, 0], "bwd": [0.0, 0],
                                              "kinds": collections.Counter()})
@@ -125,8 +130,7 @@ def attribute(prof, labels, kind_table):
         if node is not None:
             lab, way = seq_label.get(node.sequence_nr, "rest"), "bwd"
         else:
-            lab = next((a.name for a in chain if a.name in label_set), "rest")
-            way = "fwd"
+            lab, way = part(chain), "fwd"
         for k in e.kernels:
             ms = k.duration / 1e3
             kind = next((name for name, frags in kind_table if any(f in k.name for f in frags)),

@@ -34,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from uncrtaints_tpu_torch import tracing
 from uncrtaints_tpu_torch.ops.dwconv import dw_stencil
 from uncrtaints_tpu_torch.ops.norm import (  # noqa: F401  (batch_moments_f32: ltae.py's)
     activation, affine_act, batch_moments_f32, norm_act, unbiased_factor)
@@ -173,6 +174,8 @@ class Conv2d(nn.Module):
             x = F.pad(x.unsqueeze(1), (0, 0, pad, pad, pad, pad),
                       mode=self.padding_mode).squeeze(1)
             pad = 0
+            if tracing.recording():
+                tracing.count("reflect_pad", tracing.nbytes(x))
         if differentiated:
             y = dw_stencil(x.contiguous(), w.contiguous(), ((pad, pad), (pad, pad)),
                            "reflect" if folded else "zeros")

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from uncrtaints_tpu_torch import tracing
 from uncrtaints_tpu_torch.models.aggregator import TemporalAggregator
 from uncrtaints_tpu_torch.models.blocks import MBConv, ResidualConvBlock
 from uncrtaints_tpu_torch.models.layers import (
@@ -157,26 +158,34 @@ class UNCRTAINTS(nn.Module):
         pad_mask = frame_pad_mask(x, self.pad_value)  # [B, T]
         remat = self.remat and torch.is_grad_enabled()
         block = remat_block if remat else (lambda blk, a: blk(a))
-        out = self.in_conv(x)
-        for blk in self.in_block:
-            out = block(blk, out)
+        with tracing.span("encoder"):
+            out = self.in_conv(x)
+            for blk in self.in_block:
+                out = block(blk, out)
         if not self.is_mono:
-            ar = self.low_res_size
-            down = smart_apply(lambda a: adaptive_max_pool2d(a, (ar, ar)), out)
-            if self.use_v:
-                v, att = self.temporal_encoder(
-                    down, batch_positions=batch_positions, pad_mask=pad_mask,
-                    dropout_generator=dropout_generator)
-            else:
-                att = self.temporal_encoder(down, batch_positions=batch_positions,
-                                            pad_mask=pad_mask)
-            out = self.temporal_aggregator(out, pad_mask=pad_mask, attn_mask=att,
-                                           generator=dropout_generator)
-            if self.use_v:
-                up_v = upsample_bilinear(v, (H, W))
-                out = self.include_v(torch.cat([out, up_v], dim=-1))
+            with tracing.span("ltae"):
+                ar = self.low_res_size
+                down = smart_apply(lambda a: adaptive_max_pool2d(a, (ar, ar)), out)
+                if self.use_v:
+                    v, att = self.temporal_encoder(
+                        down, batch_positions=batch_positions, pad_mask=pad_mask,
+                        dropout_generator=dropout_generator)
+                else:
+                    att = self.temporal_encoder(down, batch_positions=batch_positions,
+                                                pad_mask=pad_mask)
+            with tracing.span("aggregate"):
+                out = self.temporal_aggregator(out, pad_mask=pad_mask, attn_mask=att,
+                                               generator=dropout_generator)
+                if self.use_v:
+                    up_v = upsample_bilinear(v, (H, W))
+                    out = self.include_v(torch.cat([out, up_v], dim=-1))
         else:
             out = out[:, 0]
+        with tracing.span("decoder"):
+            return self._decode(out, block)
+
+    def _decode(self, out: torch.Tensor, block) -> torch.Tensor:
+        """out_block, the heads and the output nonlinearities."""
         for blk in self.out_block:
             out = block(blk, out)
         if not self.separate_out:

@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from uncrtaints_tpu_torch import tracing
 from uncrtaints_tpu_torch.models.aggregator import TemporalAggregator
 from uncrtaints_tpu_torch.models.layers import frame_pad_mask
 from uncrtaints_tpu_torch.models.ltae import LTAE2d
@@ -55,14 +56,20 @@ class UTAE(nn.Module):
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``dropout_generator`` draws the L-TAE's two dropouts in training."""
         pad_mask = frame_pad_mask(x, self.pad_value)  # [B, T]
-        feats = [self.in_conv(x)]
-        for blk in self.down_blocks:
-            feats.append(blk(feats[-1]))
-        out, att = self.temporal_encoder(feats[-1], batch_positions=batch_positions,
-                                         pad_mask=pad_mask, dropout_generator=dropout_generator)
+        with tracing.span("encoder"):
+            feats = [self.in_conv(x)]
+            for blk in self.down_blocks:
+                feats.append(blk(feats[-1]))
+        with tracing.span("ltae"):
+            out, att = self.temporal_encoder(feats[-1], batch_positions=batch_positions,
+                                             pad_mask=pad_mask,
+                                             dropout_generator=dropout_generator)
         for i, blk in enumerate(self.up_blocks):
-            skip = self.temporal_aggregator(feats[-2 - i], pad_mask=pad_mask, attn_mask=att)
-            out = blk(out, skip)
-        out = mean_var_heads(self.out_conv(out), self.out_nonlin_mean, self.out_nonlin_var,
-                             self.scale_by)
-        return out[:, None]
+            with tracing.span("aggregate"):
+                skip = self.temporal_aggregator(feats[-2 - i], pad_mask=pad_mask, attn_mask=att)
+            with tracing.span("decoder"):
+                out = blk(out, skip)
+        with tracing.span("decoder"):
+            out = mean_var_heads(self.out_conv(out), self.out_nonlin_mean, self.out_nonlin_var,
+                                 self.scale_by)
+            return out[:, None]

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from uncrtaints_tpu_torch import tracing
 from uncrtaints_tpu_torch.config import Config
 from uncrtaints_tpu_torch.data.preprocess import process_MS_device
 from uncrtaints_tpu_torch.losses import calc_loss, get_loss
@@ -69,26 +70,56 @@ def _prepare_xy(cfg: Config, batch: Dict, rescale_method: str = "default"):
     Generic form: {'x', 'y'} already processed on the host. Raw-DN form:
     {'x_s2dn', 'y_dn'} uint16 Sentinel-2 codes plus optional processed
     {'x_s1'}; the radiometry runs here, on the device. The scale_by multiply
-    is in fp32 whatever dtype the batch was collated in."""
+    is in fp32 whatever dtype the batch was collated in. Traced as ``cast``:
+    the bytes of the dtype conversions and of the two multiplies (the
+    radiometry's own passes are not counted)."""
     s = cfg.scale_by
-    if "x_s2dn" in batch:
-        s2 = process_MS_device(batch["x_s2dn"].to(torch.float32), rescale_method)
-        if batch.get("x_s1") is not None:
-            x = torch.cat([batch["x_s1"].to(torch.float32), s2], dim=-1)
+    with tracing.span("cast"):
+        if "x_s2dn" in batch:
+            conv = [(batch[k], batch[k].to(torch.float32)) for k in ("x_s2dn", "y_dn")]
+            s2 = process_MS_device(conv[0][1], rescale_method)
+            if batch.get("x_s1") is not None:
+                conv.append((batch["x_s1"], batch["x_s1"].to(torch.float32)))
+                x = torch.cat([conv[-1][1], s2], dim=-1)
+            else:
+                x = s2
+            y = process_MS_device(conv[1][1], rescale_method)
         else:
-            x = s2
-        y_u = process_MS_device(batch["y_dn"].to(torch.float32), rescale_method)
-        return s * x, s * y_u, y_u
-    y = batch["y"].to(torch.float32)
-    return s * batch["x"].to(torch.float32), s * y, y
+            conv = [(batch[k], batch[k].to(torch.float32)) for k in ("x", "y")]
+            x, y = conv[0][1], conv[1][1]
+        sx, sy = s * x, s * y
+        if tracing.recording():
+            tracing.count("cast", sum(_converted(a, b) for a, b in conv)
+                          + tracing.nbytes(sx) + tracing.nbytes(sy))
+        return sx, sy, y
+
+
+def _converted(src: torch.Tensor, out: torch.Tensor) -> int:
+    """The bytes a ``.to()`` from ``src`` to ``out`` wrote (none where it
+    returned its input)."""
+    return 0 if out is src else tracing.nbytes(out)
 
 
 def _cast_for_forward(cfg: Config, model: torch.nn.Module, x: torch.Tensor):
-    """Parameters (not buffers) and input in the compute dtype."""
+    """Parameters (not buffers) and input in the compute dtype. Traced as
+    ``cast``, with the bytes of the copies it makes."""
     dt = _compute_dtype(cfg)
-    params = {name: p.to(dt) if p.is_floating_point() else p
-              for name, p in model.named_parameters()}
-    return params, x.to(dt)
+    with tracing.span("cast"):
+        named = list(model.named_parameters())
+        params = {name: p.to(dt) if p.is_floating_point() else p for name, p in named}
+        xc = x.to(dt)
+        if tracing.recording():
+            tracing.count("cast", sum(_converted(p, params[n]) for n, p in named)
+                          + _converted(x, xc))
+        return params, xc
+
+
+def _forward(cfg: Config, model: torch.nn.Module, x_scaled: torch.Tensor,
+             dates: Optional[torch.Tensor], **kwargs) -> torch.Tensor:
+    """The model's raw output on the parameters and input in the compute
+    dtype (``kwargs``: the forward's further keywords)."""
+    params, xc = _cast_for_forward(cfg, model, x_scaled)
+    return functional_call(model, params, (xc,), {"batch_positions": dates, **kwargs})
 
 
 def eval_forward(cfg: Config, model: torch.nn.Module, x_scaled: torch.Tensor,
@@ -98,9 +129,7 @@ def eval_forward(cfg: Config, model: torch.nn.Module, x_scaled: torch.Tensor,
     the compute dtype, the output split into fp32 (mean, variance or None),
     still in scaled units. The caller holds ``torch.inference_mode()`` and
     has the model in eval mode."""
-    params, xc = _cast_for_forward(cfg, model, x_scaled)
-    out = functional_call(model, params, (xc,), {"batch_positions": dates})
-    return _split_out(out.float(), cfg)
+    return _split_out(_forward(cfg, model, x_scaled, dates).float(), cfg)
 
 
 def check_nans(model: torch.nn.Module) -> List:
@@ -168,15 +197,21 @@ def make_eval_step(cfg: Config, with_metrics: bool = False,
 
     @torch.inference_mode()
     def eval_step(model: torch.nn.Module, batch: Dict) -> Dict:
+        with tracing.step("eval_step", model):
+            return _eval_step(model, batch)
+
+    def _eval_step(model: torch.nn.Module, batch: Dict) -> Dict:
         model.eval()
         x, y, y_u = _prepare_xy(cfg, batch, rescale_method)
-        mean, var = eval_forward(cfg, model, x, batch.get("dates"))
-        loss, variance = calc_loss(criterion, cfg, mean, y, var=var)
-        sp = mesh.spatial()
-        if sp is not None:  # the mean over the scenes' pixels (even bands)
-            loss = mesh.spatial_sum(loss, sp) / sp.n_spatial
-        pred = mean / s
-        rvar = variance / (s * s) if variance is not None else None
+        out = _forward(cfg, model, x, batch.get("dates"))
+        with tracing.span("loss"):
+            mean, var = _split_out(out.float(), cfg)
+            loss, variance = calc_loss(criterion, cfg, mean, y, var=var)
+            sp = mesh.spatial()
+            if sp is not None:  # the mean over the scenes' pixels (even bands)
+                loss = mesh.spatial_sum(loss, sp) / sp.n_spatial
+            pred = mean / s
+            rvar = variance / (s * s) if variance is not None else None
         aux = {"loss": loss}
         if return_outputs:
             aux["pred"] = pred
@@ -320,20 +355,23 @@ def make_train_step(cfg: Config, rescale_method: str = "default") -> Callable:
     k = max(1, int(getattr(cfg, "accum_steps", 1) or 1))
 
     def forward_backward(model, masters, x, y, dates, generator, weight=None):
-        params, xc = _cast_for_forward(cfg, model, x)
-        out = functional_call(model, params, (xc,),
-                              {"batch_positions": dates,
-                               "dropout_generator": generator})
-        mean, var = _split_out(out.float(), cfg)
-        loss, variance = calc_loss(criterion, cfg, mean, y, var=var)
-        if weight is not None:  # this rank's share of the global mean loss
-            loss = loss * weight
-        grads = list(torch.autograd.grad(loss, masters))
+        out = _forward(cfg, model, x, dates, dropout_generator=generator)
+        with tracing.span("loss"):
+            mean, var = _split_out(out.float(), cfg)
+            loss, variance = calc_loss(criterion, cfg, mean, y, var=var)
+            if weight is not None:  # this rank's share of the global mean loss
+                loss = loss * weight
+        with tracing.span("backward"):
+            grads = list(torch.autograd.grad(loss, masters))
         variance = variance.detach() if variance is not None else None
         return loss.detach(), grads, mean.detach(), variance
 
     def train_step(state: TrainState, batch: Dict,
                    generator: Optional[torch.Generator] = None):
+        with tracing.step("train_step", state.model):
+            return _train_step(state, batch, generator)
+
+    def _train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator]):
         model = state.model
         model.train()
         x, y, _ = _prepare_xy(cfg, batch, rescale_method)
@@ -370,22 +408,25 @@ def make_train_step(cfg: Config, rescale_method: str = "default") -> Callable:
             torch._foreach_div_(grads, float(k))
             loss = torch.stack(losses).mean()
         else:  # one all-reduce of the flattened gradients and the loss
-            flat = mesh.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]
-                                                 + [torch.stack(losses).sum().reshape(1)]))
-            grads = [f.view_as(g) for f, g in zip(flat[:-1].split([g.numel() for g in grads]),
-                                                  grads)]
-            loss = flat[-1]
+            with tracing.span("grad_sync"):
+                flat = mesh.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]
+                                                     + [torch.stack(losses).sum().reshape(1)]))
+                grads = [f.view_as(g) for f, g in
+                         zip(flat[:-1].split([g.numel() for g in grads]), grads)]
+                loss = flat[-1]
         mean = torch.cat(means)
         variance = None if variances[0] is None else torch.cat(variances)
 
         mask = None
         if state.freeze_mask is not None:
             mask = [float(state.freeze_mask[n]) for n in names]
-        state.tx.step_(masters, grads, state.opt_state, names, mask)
+        with tracing.span("optimizer"):
+            state.tx.step_(masters, grads, state.opt_state, names, mask)
         state.step += 1
-        aux = {"loss": loss, "pred": mean / s}
-        if variance is not None:
-            aux["var"] = variance / (s * s)
+        with tracing.span("loss"):  # the rescale to data units
+            aux = {"loss": loss, "pred": mean / s}
+            if variance is not None:
+                aux["var"] = variance / (s * s)
         aux["grads"] = dict(zip(names, grads))
         return state, aux
 

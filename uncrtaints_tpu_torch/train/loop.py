@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from uncrtaints_tpu_torch import tracing
 from uncrtaints_tpu_torch.config import Config
 from uncrtaints_tpu_torch.metrics import (
     AvgImgMetrics, compute_ece, compute_uce_auce, img_metrics_batch)
@@ -156,22 +157,26 @@ def _device_batches(loader, device: torch.device, prefetch: bool, train: bool = 
     pageable memory, which makes the host wait for the stream at every batch
     (the plain version: the GPU check holds the prefetch against it)."""
     host_only = lambda b: {k: v for k, v in b.items() if k != "_rows"}
-    if not (prefetch and device.type == "cuda"):
-        for batch in _with_rows(loader, train):
-            yield batch, batch_to_device(host_only(batch), device)
-        return
-
-    side = torch.cuda.Stream(device)
-    for batch in _with_rows(loader, train):
-        with torch.cuda.stream(side):
-            dev = batch_to_device(host_only(batch), device, non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record(side)
-        stream = torch.cuda.current_stream(device)
-        stream.wait_event(copied)
-        for t in dev.values():
-            if isinstance(t, torch.Tensor):
-                t.record_stream(stream)
+    side = torch.cuda.Stream(device) if prefetch and device.type == "cuda" else None
+    batches = iter(_with_rows(loader, train))
+    while True:
+        with tracing.span("next_batch"):  # the wait on the loader
+            batch = next(batches, None)
+        if batch is None:
+            return
+        with tracing.span("to_device"):
+            if side is None:
+                dev = batch_to_device(host_only(batch), device)
+            else:
+                with torch.cuda.stream(side):
+                    dev = batch_to_device(host_only(batch), device, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(side)
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(copied)
+                for t in dev.values():
+                    if isinstance(t, torch.Tensor):
+                        t.record_stream(stream)
         yield batch, dev
 
 
