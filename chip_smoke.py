@@ -38,7 +38,12 @@ norms and U-TAE's narrowest width (``K6_CASES``): the statistics against
 the twins', the apply bit-equal to the eager formula on the kernel's coef /
 off, the backward within a stated relative tolerance, two runs bit-equal,
 timed beside the eager formula it replaces (its autograd for the backward)
-and torch's batch / group norm with the activation. Each kernel's
+and torch's batch / group norm with the activation. K7, the reflect pad and
+its adjoint (``ops/pad.py``), is held at ``K7_CASES``: the forward bit-equal
+to ``F.pad``, the adjoint bit-equal to its plain version and to itself run
+twice, within rounding of autograd's ``reflection_pad3d_backward``, and at
+the paper eval encoder's and U-TAE's widest padded maps timed against
+``F.pad`` and that backward. Each kernel's
 bound is the larger of its bytes over 3.35 TB/s and its operations over the
 card's peak for their type; an exact GELU counts as the 20 fp32 operations
 of its arithmetic and one special-function instruction. For K3 and K4 the
@@ -47,11 +52,11 @@ printed beside the bound and is no part of it.
 Phase 2 runs the port's eval step (forward, MGNLL, scale_by rescale, image
 metrics) of the paper recipe in bf16 on 3 synthetic batches of B=4, T=3,
 256x256 with seeded random weights, and checks that every forward went
-through the kernels (1 K1, 10 K3, 5 K4 and 5 K6 launches, no backward kernel) and
+through the kernels (1 K1, 10 K3, 5 K4, 5 K6 and 1 K7 launches, no backward kernel) and
 that the outputs are finite. One more step runs under ``torch.profiler``:
 device time by kind, the idle share, the kernels by name (10 wgmma K3, 5 K4
 and their 5 pooled-sum passes, the 5 encoder norms' K6 passes and no other
-statistics pass), and the five fused
+statistics pass, 1 K7 and no ATen reflection_pad), and the five fused
 decoder blocks alone with recorded shapes, where no GELU, mean or sum over a
 whole [B,256,256,C] map may run outside the kernels.
 Phase 3 compares the fused eval path with the standard one on the card,
@@ -61,7 +66,7 @@ for the paper recipe's architecture and for the residual + ``use_v`` +
 The scene phase runs ``predict_scene`` of the paper recipe on a synthetic
 T=3, 1024x1024 scene (tile 256, overlap 64, batches of 4: 25 windows in 7
 forwards), checks shapes, finiteness, a positive variance and the launches
-(7 K1, 70 K3, 35 K4, 35 K6, no train kernel), holds a single-window scene against
+(7 K1, 70 K3, 35 K4, 35 K6, 7 K7, no train kernel), holds a single-window scene against
 the eval step and the tiled result against the standard (unfused) path,
 and prints windows/s.
 Phase 4 runs the port's train step (forward, MGNLL, backward, Adam, the
@@ -71,8 +76,8 @@ step (K1 1, K1-bwd 1, K5 12, K2 6, K6 25, K6-bwd 25, no K3 or K4), finite
 losses, a finite non-zero
 gradient for every parameter on the first step, and that the parameters
 moved; it prints the step time and the peak device memory. One more step
-runs under ``torch.profiler``: no ``reflection_pad`` kernel may appear (the
-reflect border lives in K5 and K2), and the device time is printed by kind.
+runs under ``torch.profiler``: no ``reflection_pad`` or K7 kernel may appear
+(the reflect border lives in K5 and K2), and the device time is printed by kind.
 Phase 5 compares one fp32 train step on the card with the same step on
 the CPU on a small input.
 The remat phase runs the paper recipe's train step at B=4 and B=8 without
@@ -94,7 +99,7 @@ run's final test to the bit, that the resumed epoch continued Adam's count
 and the step and ran at the lr the schedule sets there, and that the
 launches over the chain are exactly (train steps) x (1 K1 + 1 K1-bwd + 12 K5
 + 6 K2 + 25 K6 + 25 K6-bwd) + (eval forwards) x (1 K1 + 10 K3 + 5 K4 + 5
-K6). After the counters are
+K6 + 1 K7). After the counters are
 read it holds what only a card runs: a checkpoint saved from the card and
 loaded into a fresh model gives the same eval step to the bit; the batches
 the side-stream prefetch hands out equal the host's; a val epoch with the
@@ -118,15 +123,16 @@ step and 3 eval forwards), the train and val epochs once more through the
 loop with the host synchronizations by line (the step loop's must be the
 one fetch of ``loop.py``; the masks' from the loader threads are printed
 apart) beside the loader alone and the bare steps, ``cli.test
---use_custom`` on the 768x768 mosaic (1 K1 + 10 K3 + 5 K4 + 5 K6), and
+--use_custom`` on the 768x768 mosaic (1 K1 + 10 K3 + 5 K4 + 5 K6 + 1 K7), and
 ``cli.train`` with the default s2cloudless detector and no weights, which
 must stop with its error.
 Phase 8 runs U-TAE at its published widths (encoder [64,64,64,128], decoder
 [32,32,64,128], 16 heads, d_model 256; the MSE loss ``derive`` sets) through
 ``cli.train`` (one epoch, 8 samples a split) and ``cli.test`` at B=4, T=3,
 256x256, bf16 (files, no variance export, bit-equal test metrics, launches
-exactly 3 K1 and 22 K6 a forward and 3 K1 + 3 K1-bwd + 22 K6 + 22 K6-bwd a
-train step and nothing else),
+exactly 3 K1, 22 K6 and 15 K7 a forward and 3 K1 + 3 K1-bwd + 22 K6 + 22
+K6-bwd + 15 K7 + 15 K7 adjoints a train step and nothing else; no ATen
+reflection_pad kernel in its profile),
 then its bare steps (launches per step, step times, peak memory, a finite
 gradient for every parameter, non-zero but for those zero in exact
 arithmetic, one train step under ``torch.profiler`` by kind) and the card
@@ -134,7 +140,8 @@ against the CPU at 32x32 (fp32: eval RMSE and one train step's loss). Every
 other family (U-Net pretrain, UNet3D at T=4, the two recurrent U-Nets,
 ConvLSTM, ConvGRU, FPN + ConvLSTM, at the JAX package's default widths and
 the MSE loss) runs three eval forwards and train steps at 256x256 (finite
-outputs and gradients, no kernel launch but their norms' K6, ``K6_FAMILIES``)
+outputs and gradients, no kernel launch but their norms' K6 and their reflect
+pads' K7, ``K6_FAMILIES``, ``K7_FAMILIES``)
 and is held card against CPU at
 32x32. Last, a second paper-recipe member is trained at another seed, both
 members' test splits are exported by ``cli.test --export_every 1``, and
@@ -153,7 +160,7 @@ same ``cli.train`` in this process with ``--trace_dir --profile``, where the
 trace must name the kernels' ``uncrtaints::`` operators and the FLOP count must
 equal the one the forward gives, and the card's count the CPU's at 32x32.
 Then it holds one exported call at B=4 against the live eval forward
-(exactly 1 K1, 10 K3, 5 K4 and 5 K6 launches), times both, runs ``predict_scene``
+(exactly 1 K1, 10 K3, 5 K4, 5 K6 and 1 K7 launches), times both, runs ``predict_scene``
 through the artifact against the live model, holds the NCCL run's train
 loss equal to this process's to the bit and its test metrics against this
 process's ``cli.test`` of its checkpoint within 1e-6, and prints the loader
@@ -175,13 +182,14 @@ band of 128 rows of the paper recipe's B=4, 256x256 batch. Their eval step
 gradient for every parameter but those zero in exact arithmetic) and
 ``predict_scene(mesh=)`` on a 512x512 scene are held against this process,
 and each rank's launches (1 K1 + 10 K3 + 5 K4 + 5 K6 a forward, K4 in halo
-mode; 1 K1 + 1 K1-bwd + 12 K5 + 6 K2 + 25 K6 + 25 K6-bwd a train step, K5
+mode, no K7; 1 K1 + 1 K1-bwd + 12 K5 + 6 K2 + 25 K6 + 25 K6-bwd a train step, K5
 and K2 in halo mode, K6 summing its statistics over the ranks), its
 train-step peak memory and its collectives' host time are printed.
 The ranks and this process also run UNet3D (T=4), FPN + ConvLSTM and U-TAE
 at its published widths (MSE, attention dropout off) on the same layout:
 eval step, ``predict_scene(mesh=)`` and one train step, held against one
-process with the same gates, each rank's launches equal to one process's.
+process with the same gates, each rank's launches equal to one process's
+but K7's (a band pads at the scene's edge, ``layers.band_pad``: no K7).
 Meanwhile this process runs ``cli.train --ckpt_backend orbax`` (asynchronous
 ``.dcp`` checkpoints) for one epoch, resumed to two, and ``cli.test``, whose
 metrics must equal to the bit a ``cli.test`` of the same weights written
@@ -352,6 +360,30 @@ K6_UTAE = 22
 # batch norms take K6's batch_f32 form, ConvLSTM and ConvGRU have no norm
 K6_FAMILIES = {"unet (pretrain)": (22, 22), "unet3d": (11, 11), "uconvlstm": (24, 24),
                "buconvlstm": (24, 24), "convlstm": (0, 0), "convgru": (0, 0), "fpn": (3, 3)}
+# K7's launches (a reflect-padded conv that K4 / K5 do not fold: the pad, and
+# in a train step its adjoint where the conv's input has a gradient): the
+# paper recipe's eval forward pads once (the encoder's depthwise 3x3), its
+# train step never (K5 folds every reflect conv); fused_eval off pads the
+# decoder's 5 too; U-TAE pads its 15 3x3 convs, and differentiates all 15;
+# the other families (K7 a forward, K7's adjoint a train step), the
+# recurrent U-Nets' and FPN's first padded conv reading the data
+K7_EVAL, K7_STANDARD_EVAL, K7_UTAE = 1, 6, 15
+K7_FAMILIES = {"unet (pretrain)": (15, 15), "unet3d": (0, 0), "uconvlstm": (17, 16),
+               "buconvlstm": (17, 16), "convlstm": (0, 0), "convgru": (0, 0), "fpn": (7, 6)}
+# K7 at the paths' largest padded maps, bf16: the paper eval encoder's
+# depthwise input over B*T frames (the benchmark's B=16 is four of these)
+# and U-TAE's widest level at the benchmark's B=64 over T frames; then
+# checked only: fp32, p = 2, odd H != W, and channels of 3, 12 and 15 (the
+# 2-, 4- and 8-byte vector paths). name: ([N,H,W,C], pad, dtype, timed)
+K7_CASES = {
+    "paper eval enc [48,256,256,256]": ((4 * B * T, PATCH, PATCH, HIDDEN), 1, BF16, True),
+    "U-TAE [192,256,256,64]": ((64 * T, PATCH, PATCH, 64), 1, BF16, True),
+    "fp32 [2,64,64,128]": ((2, 64, 64, 128), 1, FP32, False),
+    "p=2 odd [3,5,7,64]": ((3, 5, 7, 64), 2, BF16, False),
+    "C=15 [2,33,20,15]": ((2, 33, 20, 15), 1, BF16, False),
+    "C=3 p=2 fp32 [2,9,11,3]": ((2, 9, 11, 3), 2, FP32, False),
+    "C=12 p=3 [2,4,9,12]": ((2, 4, 9, 12), 3, BF16, False),
+}
 # what an element of K6 computes, in fp32 operations (bound): forward the
 # statistics' add and multiply-add (3), the affine's multiply and add (2),
 # the activation (an exact GELU: GELU_OPS and an erf; ReLU one compare);
@@ -437,6 +469,7 @@ def phase1_kernels(dev):
     bound_by, library_ms)} at the main path's shape of each kernel."""
     from uncrtaints_tpu_torch import _build
     from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv
+    from uncrtaints_tpu_torch.ops.pad import reflect_pad_plain
 
     t0 = time.perf_counter()
     _build.lib()
@@ -797,7 +830,7 @@ def phase1_kernels(dev):
             # what the port ran before: autograd's input gradient of cuDNN's
             # conv on the padded input, then the reflect pad's backward
             leaf = torch.zeros_like(x).requires_grad_()
-            y = Fn.conv2d(dwconv.reflect_pad(leaf).permute(0, 3, 1, 2), w, groups=C)
+            y = Fn.conv2d(reflect_pad_plain(leaf, 1).permute(0, 3, 1, 2), w, groups=C)
             library = lambda: torch.autograd.grad(y, leaf, xc, retain_graph=True)[0]
             bare = lambda: torch.nn.grad.conv2d_input((N, C, H, W), w, xc, padding=1, groups=C)
             bare_name = "torch.nn.grad.conv2d_input alone"
@@ -808,7 +841,7 @@ def phase1_kernels(dev):
             bare = lambda: Fn.conv2d(xc, w, padding=pad, groups=C)
             bare_name = "cuDNN alone"
             if mode == "reflect":  # what the port ran before: the pad, then cuDNN
-                library = lambda: Fn.conv2d(dwconv.reflect_pad(x).permute(0, 3, 1, 2), w,
+                library = lambda: Fn.conv2d(reflect_pad_plain(x, 1).permute(0, 3, 1, 2), w,
                                             groups=C).permute(0, 2, 3, 1)
                 lib_name = "reflect F.pad + cuDNN"
             else:
@@ -865,7 +898,7 @@ def phase1_kernels(dev):
                      f"cuDNN weight gradient alone {cms:.4f} ms")
             if mode == "reflect":  # what the port ran before: the pad, then cuDNN
                 library = lambda: torch.nn.grad.conv2d_weight(
-                    dwconv.reflect_pad(x).permute(0, 3, 1, 2), (C, 1, kh, kw), gc, groups=C)
+                    reflect_pad_plain(x, 1).permute(0, 3, 1, 2), (C, 1, kh, kw), gc, groups=C)
                 lrel = float(((library().float() - ref).abs() / scale).max())
                 # cuDNN may sum in bf16-rounded partials: 1e-2 of sum |x*g|
                 check(lrel <= 1e-2, f"K2 {name}: the library composition computes another "
@@ -881,9 +914,66 @@ def phase1_kernels(dev):
     out["dw_stencil"]["max_abs_err"] = k5_err
     out["dw_kernel_grad"]["max_abs_err"] = k2_err
     out.update(phase1_norms(dev, randn, result))
+    out.update(phase1_pad(dev, randn, result))
     halo = phase1_halo_modes(dev, randn)
     for name, err in halo.items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    return out
+
+
+def phase1_pad(dev, randn, result):
+    """K7 at ``K7_CASES``: the forward bit-equal to ``F.pad`` (the plain
+    version), the adjoint bit-equal to its plain version (the same fp32 sums
+    in the same order, rounded once), the same bits twice, and within
+    rounding of autograd's ``reflection_pad3d_backward``; at the two path
+    shapes each timed against its byte bound and ATen's (``F.pad`` and its
+    autograd backward)."""
+    from uncrtaints_tpu_torch.ops import pad
+
+    out = {}
+    for name, (shape, p, dtype, timed) in K7_CASES.items():
+        N, H, W, C = shape
+        x = randn(*shape).to(dtype)
+        y = pad.reflect_pad(x, p)
+        g = randn(*y.shape).to(dtype)
+        gx = pad.reflect_pad_adjoint(g, p)
+        again = pad.reflect_pad_adjoint(g, p)
+        torch.cuda.synchronize()
+        fwd_ok = torch.equal(y, pad.reflect_pad_plain(x, p))
+        twin = pad.reflect_pad_adjoint_plain(g, p)
+        adj_ok, same = torch.equal(gx, twin), torch.equal(gx, again)
+        del twin, again
+        # ATen's backward sums in x's dtype with atomics: within 2 bf16 ulps
+        # (1e-6 in fp32) of the largest |gx|
+        leaf = torch.zeros_like(x).requires_grad_()
+        ref = pad.reflect_pad_plain(leaf, p)
+        aten = lambda: torch.autograd.grad(ref, leaf, g, retain_graph=True)[0]
+        top = float(gx.float().abs().max())
+        gap = float((aten().float() - gx.float()).abs().max())
+        tol = (1e-6 if dtype == FP32 else 2 ** -6) * top
+        line = (f"K7 reflect pad {name}, p={p}, {dtype}: forward bit-equal to F.pad {fwd_ok}; "
+                f"adjoint bit-equal to its plain version {adj_ok}, deterministic {same}, "
+                f"against ATen's backward max_abs_err={gap:.3g} (tol {tol:.3g})")
+        if timed:
+            fb = bound(nbytes(x, y), (0, PEAK_FP32))[0]  # a copy: no operations
+            fms, flib = time_kernel(lambda: pad.reflect_pad(x, p)), time_kernel(
+                lambda: pad.reflect_pad_plain(x, p))
+            ams, alib = time_kernel(lambda: pad.reflect_pad_adjoint(g, p)), time_kernel(aten)
+            apl = time_ms(lambda: pad.reflect_pad_adjoint_plain(g, p), runs=7)
+            line += (f"; forward {fms:.4f} ms, bound {fb:.4f} ms ({fb / fms:.0%}), F.pad "
+                     f"(the plain version and ATen's) {flib:.4f} ms; adjoint {ams:.4f} ms, "
+                     f"bound {fb:.4f} ms ({fb / ams:.0%}), plain {apl:.4f} ms, ATen's backward "
+                     f"{alib:.4f} ms")
+            if "reflect_pad" not in out:  # the first timed case is the line's
+                out["reflect_pad"] = result(0.0, fms, flib, fb, "bytes", flib)
+                out["reflect_pad_adjoint"] = result(0.0, ams, apl, fb, "bytes", alib)
+        print(line)
+        check(fwd_ok, f"K7 {name}: the forward is not F.pad's tensor")
+        check(adj_ok and same, f"K7 {name}: the adjoint is not its plain version's, or not "
+                               "deterministic")
+        check(gap <= tol, f"K7 {name}: the adjoint disagrees with ATen's backward")
+        del x, y, g, gx, leaf, ref
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1260,7 +1350,7 @@ def finite(t):
 def phase2_slice(dev):
     from uncrtaints_tpu_torch.config import Config, derive
     from uncrtaints_tpu_torch.data import SyntheticSEN12MSCRTS, collate_multi
-    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv, norm
+    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv, norm, pad
     from uncrtaints_tpu_torch.train import batch_to_device, make_eval_step
 
     cfg = derive(Config(use_sar=True, scale_by=10.0))  # the paper recipe
@@ -1276,9 +1366,9 @@ def phase2_slice(dev):
     torch.cuda.synchronize()
 
     train_kernels = (aggregate.att_group_aggregate_bwd, dwconv.dw_stencil,
-                     dwgrad.dw_kernel_grad, norm.norm_act_bwd)
+                     dwgrad.dw_kernel_grad, norm.norm_act_bwd, pad.reflect_pad_adjoint)
     for f in (aggregate.att_group_aggregate, mbconv.norm_gelu_matmul,
-              mbconv.norm_gelu_dwconv3x3, norm.norm_act, *train_kernels):
+              mbconv.norm_gelu_dwconv3x3, norm.norm_act, pad.reflect_pad, *train_kernels):
         f.launches = 0
     mbconv.norm_gelu_matmul.wgmma_launches = 0
     times, results = [], []
@@ -1291,20 +1381,24 @@ def phase2_slice(dev):
             results.append(aux)
     k1, k3 = aggregate.att_group_aggregate.launches, mbconv.norm_gelu_matmul.launches
     k4, k6 = mbconv.norm_gelu_dwconv3x3.launches, norm.norm_act.launches
+    k7 = pad.reflect_pad.launches
     n_fwd = len(times)
     print(f"phase 2: paper recipe (bf16, {n_params} parameters), {n_fwd} eval "
           f"steps of B={B}, T={T}, {P}x{P}: K1 launches {k1}, K3 launches {k3}, "
-          f"K4 launches {k4}, K6 launches {k6}")
+          f"K4 launches {k4}, K6 launches {k6}, K7 launches {k7}")
     check(k1 == n_fwd, f"K1 launched {k1} times in {n_fwd} forwards (1 each expected)")
     check(k3 == 10 * n_fwd, f"K3 launched {k3} times in {n_fwd} forwards (10 each expected)")
     check(k4 == 5 * n_fwd, f"K4 launched {k4} times in {n_fwd} forwards (5 each expected)")
     check(k6 == K6_EVAL * n_fwd,
           f"K6 launched {k6} times in {n_fwd} forwards ({K6_EVAL} each expected)")
+    check(k7 == K7_EVAL * n_fwd,
+          f"K7 launched {k7} times in {n_fwd} forwards ({K7_EVAL} each expected)")
     check(mbconv.norm_gelu_matmul.wgmma_launches == k3,
           f"only {mbconv.norm_gelu_matmul.wgmma_launches} of the {k3} K3 launches ran the "
           "wgmma kernel")
     check(all(f.launches == 0 for f in train_kernels),
-          "the eval step launched a backward or train-only kernel (K1-bwd, K5, K2, K6-bwd)")
+          "the eval step launched a backward or train-only kernel (K1-bwd, K5, K2, K6-bwd, "
+          "K7's adjoint)")
     for i, aux in enumerate(results[:3]):
         check(finite(aux["loss"]), f"batch {i}: loss not finite")
         for k in ("pred", "var"):
@@ -1319,7 +1413,7 @@ def phase2_slice(dev):
     print(f"  eval step: {ms:.3f} ms median of {n_fwd} (min {min(times):.3f}, "
           f"max {max(times):.3f}), {B / ms * 1e3:.2f} sequences/s")
     profile_eval_step(step, model, batches[0], ms)
-    return cfg, model, batches, {"K1": k1, "K3": k3, "K4": k4, "K6": k6}, ms
+    return cfg, model, batches, {"K1": k1, "K3": k3, "K4": k4, "K6": k6, "K7": k7}, ms
 
 
 def profile_eval_step(step, model, batch, step_ms):
@@ -1327,18 +1421,20 @@ def profile_eval_step(step, model, batch, step_ms):
     :func:`eval_step_report`: the step must run 1 K1, 10 K3 through the
     wgmma kernel and 5 K4 each with its pooled-sum pass and none with
     statistics, 5 K6 (the encoder's group norms: a statistics pass, its
-    second pass, the per-slot math and the apply each), and the five fused
+    second pass, the per-slot math and the apply each), 1 K7 and no ATen
+    reflection_pad kernel, and the five fused
     decoder blocks no GELU, mean or sum over a whole map outside the
     kernels."""
     found, eager = eval_step_report(step, model, batch, step_ms)
     want = {"att_group_": 1, "ngm_wg_kernel": 10, "ngm_kernel": 0, "ngd_tile_kernel": 5,
             "channel_sum_kernel": 5, "group_stats_kernel": K6_EVAL,
             "norm_part_kernel": K6_EVAL, "norm_finalize_kernel": K6_EVAL,
-            "norm_apply_kernel": K6_EVAL}
+            "norm_apply_kernel": K6_EVAL, "reflect_pad_nhwc_kernel": K7_EVAL,
+            "reflection_pad": 0}
     check(found == want,
           f"the eval step's kernels {found}, expected {want} (1 K1, 10 K3 through "
           "the wgmma kernel, 5 K4 each with its pooled-sum pass and none with statistics, "
-          "the second passes of the statistics all K6's)")
+          "the second passes of the statistics all K6's, the encoder's pad K7's)")
     check(not eager, "a fused decoder block ran an eager GELU or reduction over a whole map")
 
 
@@ -1369,7 +1465,8 @@ def eval_step_report(step, model, batch, step_ms):
     count = lambda frag: sum(n for k, (n, _) in names.items() if frag in k)
     found = {f: count(f) for f in ("att_group_", "ngm_wg_kernel", "ngm_kernel", "ngd_tile_kernel",
                                    "channel_sum_kernel", "group_stats_kernel", "norm_part_kernel",
-                                   "norm_finalize_kernel", "norm_apply_kernel")}
+                                   "norm_finalize_kernel", "norm_apply_kernel",
+                                   "reflect_pad_nhwc_kernel", "reflection_pad")}
     print(f"    kernels by name: {found}")
     # the hand-written kernels one by one (template arguments tell the two K3 shapes apart)
     for key, (n, ms) in sorted(names.items()):
@@ -1499,7 +1596,7 @@ def phase_scene(dev, cfg, model, off):
     print(f"  {sec * 1e3:.1f} ms for the scene (host tiling and blend included): "
           f"{n_win / sec:.2f} windows/s, {S * S / sec / 1e6:.3f} Mpixel/s")
     want = {"K1": n_fwd, "K3": 10 * n_fwd, "K4": 5 * n_fwd, "K1-bwd": 0, "K5": 0, "K2": 0,
-            "K6": K6_EVAL * n_fwd, "K6-bwd": 0}
+            "K6": K6_EVAL * n_fwd, "K6-bwd": 0, "K7": K7_EVAL * n_fwd, "K7-adj": 0}
     check(counts == want, f"scene launches {counts}, expected {want}")
     check(mbconv.norm_gelu_matmul.wgmma_launches == counts["K3"],
           "a K3 launch of the scene did not run the wgmma kernel")
@@ -1562,7 +1659,7 @@ def phase4_train(dev, batches):
     print(f"phase 4: paper recipe train step (bf16, Adam lr {cfg.lr}), {TRAIN_STEPS} steps of "
           f"B={B}, T={T}, {PATCH}x{PATCH}: launches {counts}")
     per_step = {"K1": 1, "K1-bwd": 1, "K5": 12, "K2": 6, "K3": 0, "K4": 0, "K6": K6_TRAIN,
-                "K6-bwd": K6_TRAIN}
+                "K6-bwd": K6_TRAIN, "K7": 0, "K7-adj": 0}
     for k, n in per_step.items():
         check(counts[k] == n * TRAIN_STEPS,
               f"{k} launched {counts[k]} times in {TRAIN_STEPS} train steps ({n} each expected)")
@@ -1670,7 +1767,8 @@ def phase_remat(dev):
                   f"bytes), step {r['ms']:.2f} ms (median of {REMAT_STEPS}), device busy "
                   f"{r['busy']:.2f} ms (one step under the profiler), launches a step {per}")
             want = {"K5": 18 if remat else 12, "K2": 6, "K1": 1, "K1-bwd": 1, "K3": 0, "K4": 0,
-                    "K6": K6_REMAT if remat else K6_TRAIN, "K6-bwd": K6_TRAIN}
+                    "K6": K6_REMAT if remat else K6_TRAIN, "K6-bwd": K6_TRAIN, "K7": 0,
+                    "K7-adj": 0}
             check(r["counts"] == {k: n * REMAT_STEPS for k, n in want.items()},
                   f"B={nb} remat {remat}: launches {r['counts']} in {REMAT_STEPS} steps, "
                   f"expected {want} a step")
@@ -1705,9 +1803,9 @@ def phase_remat(dev):
 def profile_train_step(step, state, batch, gen, paper_recipe=True, step_ms=None):
     """One more train step under ``torch.profiler``; prints the device time
     by kind (and, given the unprofiled ``step_ms``, the device's idle share
-    and the largest kernels). For the paper recipe it fails if a reflect-pad
-    kernel runs or K5 or K2 is missing (U-TAE pads its 3x3 convolutions for
-    cuDNN)."""
+    and the largest kernels). It fails if ATen's reflect pad runs (U-TAE pads
+    its 3x3 convolutions for cuDNN through K7), and for the paper recipe if
+    K7 runs or K5 or K2 is missing."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1724,13 +1822,14 @@ def profile_train_step(step, state, batch, gen, paper_recipe=True, step_ms=None)
     for kind, (t, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
         print(f"    {kind}: {t:.3f} ms, {n} launches")
     print(f"    the largest of 'other': {others}")
+    check("reflect pad" not in kinds, "the train step ran ATen's reflection_pad kernel, not K7")
     if not paper_recipe:
         top = sorted(names.items(), key=lambda kv: -kv[1][1])[:6]
         print("    the largest kernels: " + "; ".join(f"{k[:64]} x{n} {ms:.3f} ms"
                                                      for k, (n, ms) in top))
         return
-    check("reflect pad" not in kinds, "the train step ran a reflection_pad kernel: "
-          "the differentiated reflect depthwise conv must not pad")
+    check("K7 reflect pad and its adjoint" not in kinds, "the paper train step padded: the "
+          "differentiated reflect depthwise conv must not pad")
     check(kinds.get("K5 depthwise stencil", (0, 0))[1] >= 12
           and kinds.get("K2 depthwise weight gradient", (0, 0))[1] >= 12,
           f"the profile misses K5 or K2 kernels: {kinds}")
@@ -1832,7 +1931,7 @@ def chain_launches(train_steps, eval_forwards):
     return {"K1": train_steps + eval_forwards, "K1-bwd": train_steps, "K5": 12 * train_steps,
             "K2": 6 * train_steps, "K3": 10 * eval_forwards, "K4": 5 * eval_forwards,
             "K6": K6_TRAIN * train_steps + K6_EVAL * eval_forwards,
-            "K6-bwd": K6_TRAIN * train_steps}
+            "K6-bwd": K6_TRAIN * train_steps, "K7": K7_EVAL * eval_forwards, "K7-adj": 0}
 
 
 def phase6_cli(dev, eval_ms, train_ms, tmp, native):
@@ -2352,13 +2451,14 @@ def phase8_utae(dev, tmp):
     steps = n_samples // B
     evals = 3 * steps  # val and test in cli.train, cli.test
     want = {"K1": 3 * (steps + evals), "K1-bwd": 3 * steps, "K5": 0, "K2": 0, "K3": 0, "K4": 0,
-            "K6": K6_UTAE * (steps + evals), "K6-bwd": K6_UTAE * steps}
+            "K6": K6_UTAE * (steps + evals), "K6-bwd": K6_UTAE * steps,
+            "K7": K7_UTAE * (steps + evals), "K7-adj": K7_UTAE * steps}
     print(f"phase 8: U-TAE (encoder [64,64,64,128], decoder [32,32,64,128], 16 heads, d_model "
           f"256; bf16, B={B}, T={T}, {PATCH}x{PATCH}): cli.train 1 epoch and cli.test, "
           f"{chain_s:.1f} s, {steps} train steps and {evals} eval forwards, launches {counts}")
-    check(counts == want, f"the U-TAE chain launched {counts}, expected {want} (3 K1 and "
-                          f"{K6_UTAE} K6 a forward, 3 K1-bwd and {K6_UTAE} K6-bwd a train step, "
-                          "nothing else)")
+    check(counts == want, f"the U-TAE chain launched {counts}, expected {want} (3 K1, "
+                          f"{K6_UTAE} K6 and {K7_UTAE} K7 a forward, 3 K1-bwd, {K6_UTAE} K6-bwd "
+                          f"and {K7_UTAE} K7 adjoints a train step, nothing else)")
     exp = os.path.join(res, "utae")
     files = ["conf.json", "trainlog.json", "model.pth.tar", "model_epoch_1.pth.tar",
              "test_metrics.json"] + [os.path.join("export", "epoch_1", "test", f"img-{i}_{m}.npy")
@@ -2406,11 +2506,13 @@ def phase8_utae(dev, tmp):
     all_counts = {k: f.launches for k, f in kernels.items()}
     tr_counts = {k: all_counts[k] - ev_counts[k] for k in all_counts}
     check(ev_counts == {"K1": 18, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 0, "K4": 0,
-                        "K6": 6 * K6_UTAE, "K6-bwd": 0}
+                        "K6": 6 * K6_UTAE, "K6-bwd": 0, "K7": 6 * K7_UTAE, "K7-adj": 0}
           and tr_counts == {"K1": 12, "K1-bwd": 12, "K5": 0, "K2": 0, "K3": 0, "K4": 0,
-                            "K6": 4 * K6_UTAE, "K6-bwd": 4 * K6_UTAE},
+                            "K6": 4 * K6_UTAE, "K6-bwd": 4 * K6_UTAE, "K7": 4 * K7_UTAE,
+                            "K7-adj": 4 * K7_UTAE},
           f"U-TAE bare steps launched {ev_counts} in 6 eval forwards and {tr_counts} in 4 train "
-          f"steps (3 K1 and {K6_UTAE} K6 a forward, 3 K1-bwd and {K6_UTAE} K6-bwd a train step)")
+          f"steps (3 K1, {K6_UTAE} K6 and {K7_UTAE} K7 a forward, 3 K1-bwd, {K6_UTAE} K6-bwd "
+          f"and {K7_UTAE} K7 adjoints a train step)")
     zero_ok = exact_zero_gradients(model)
     bad = [n for n, (fin, mx) in grads.items() if not fin or (mx == 0 and n not in zero_ok)]
     zeros = sorted(n for n, (_, mx) in grads.items() if n in zero_ok)
@@ -2478,8 +2580,10 @@ def phase8_families(dev):
     want = dict.fromkeys(kernels, 0)
     want["K6"] = sum(4 * (e + t) for e, t in K6_FAMILIES.values())
     want["K6-bwd"] = sum(4 * t for _, t in K6_FAMILIES.values())
+    want["K7"] = sum(8 * e for e, _ in K7_FAMILIES.values())  # a train step pads as a forward
+    want["K7-adj"] = sum(4 * a for _, a in K7_FAMILIES.values())
     check(counts == want, f"the baseline families launched {counts}, expected {want} (their "
-                          "norms through K6, nothing else)")
+                          "norms through K6, their reflect pads through K7, nothing else)")
     return counts
 
 
@@ -2680,7 +2784,7 @@ def phase9_modules(dev, tmp, native):
     sync()
     one = counts()
     want = {"K1": 1, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 10, "K4": 5, "K6": K6_EVAL,
-            "K6-bwd": 0}
+            "K6-bwd": 0, "K7": K7_EVAL, "K7-adj": 0}
     check(one == want, f"one exported call launched {one}, expected {want}")
     gaps = {k: float((got[k] - ref[k]).abs().max()) for k in ("pred", "var")}
     same = all(torch.equal(got[k], ref[k]) for k in ("pred", "var"))
@@ -2929,8 +3033,11 @@ def family_report(one, got, n_data, n_spatial, label):
         check(srmse <= 5e-3, f"{name} on the mesh: predict_scene {srmse}")
         check(tgap <= 5e-3, f"{name} on the mesh: train loss {tgap}")
         check(not bad, f"{name} on the mesh: gradients zero or not finite: {bad[:8]}")
+        # a band pads at the scene's edge only (layers.band_pad), not through K7
+        band = (lambda c: {**c, "K7": 0, "K7-adj": 0}) if ns > 1 else (lambda c: c)
         for f in fam:
-            check(f["eval counts"] == o["eval counts"] and f["train counts"] == o["train counts"],
+            check(f["eval counts"] == band(o["eval counts"])
+                  and f["train counts"] == band(o["train counts"]),
                   f"{name}: a rank launched {f['eval counts']} / {f['train counts']}, one "
                   f"process {o['eval counts']} / {o['train counts']}")
         for r in (o, *fam):
@@ -3244,7 +3351,9 @@ def phase_bench():
         check(0 < out.get("mfu", 0) < 1, f"the bench's {mode} line has no mfu in (0, 1)")
         torch.cuda.empty_cache()
     counts = {k: f.launches for k, f in kernels.items()}
-    check(all(counts.values()), f"the bench phase launched {counts}: a kernel never ran")
+    # the paper recipe differentiates no reflect pad: K7's adjoint never runs here
+    ran = {k: n for k, n in counts.items() if k != "K7-adj"}
+    check(all(ran.values()), f"the bench phase launched {counts}: a kernel never ran")
     return counts
 
 
@@ -3317,10 +3426,14 @@ def spatial_report(one, got, batch, n_data, n_spatial, label):
     check(all(v <= 5e-3 for v in rmse.values()), f"spatial eval pred/var {rmse}")
     check(mgap <= 1e-3, f"spatial eval metrics gap {mgap}")
 
-    # launches: every rank runs the whole forward on its band, through the halo modes
-    fwd = {"K1": 1, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 10, "K4": 5, "K6": K6_EVAL, "K6-bwd": 0}
+    # launches: every rank runs the whole forward on its band, through the
+    # halo modes; a band pads at the scene's edge only (layers.band_pad), not
+    # through K7
+    k7 = K7_EVAL if ns == 1 else 0
+    fwd = {"K1": 1, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 10, "K4": 5, "K6": K6_EVAL, "K6-bwd": 0,
+           "K7": k7, "K7-adj": 0}
     trn = {"K1": 1, "K1-bwd": 1, "K5": 12, "K2": 6, "K3": 0, "K4": 0, "K6": K6_TRAIN,
-           "K6-bwd": K6_TRAIN}
+           "K6-bwd": K6_TRAIN, "K7": 0, "K7-adj": 0}
     n_scene = -(-one["scene counts"]["K1"] // n_data)  # rounds of one batch a data rank
     for r, g in enumerate(got):
         print(f"  rank {r}: eval launches {g['eval counts']} (halo mode {g['eval halo']}), "
@@ -3478,6 +3591,9 @@ def main():
         # no Pallas kernel: the XLA-fused norms of the JAX package's Norm2d
         "norm_act": ("norm.cu", "models/layers.py:734", "K6"),
         "norm_act_bwd": ("norm.cu", "models/layers.py:734", "K6-bwd"),
+        # no Pallas kernel: jnp.pad, fused by XLA into the convolution
+        "reflect_pad": ("pad.cu", "models/layers.py:Conv2d", "K7"),
+        "reflect_pad_adjoint": ("pad.cu", "models/layers.py:Conv2d", "K7-adj"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"uncrtaints_tpu_torch/csrc/{src}",

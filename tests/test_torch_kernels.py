@@ -746,3 +746,133 @@ def test_norm2d_on_card_matches_cpu(cuda, rng, norm):
         outs.append([t.detach().cpu() for t in (y, *grads, *m.buffers())])
     for a, r in zip(outs[1], outs[0]):
         assert float((a - r).abs().max()) <= 1e-4 * max(float(r.abs().max()), 1.0)
+
+
+# K7's cases: (N, H, W, C, p, offset). C of 256 and 64 (16-byte vectors, the
+# paths' widths), 12 (8 bytes in bf16), 15 and 3 (2 bytes in bf16, 4 in
+# fp32); p of 1, 2 and 3; odd H != W; H of 3 with p = 2 (a row with both
+# mirrors); as a sixth field x a contiguous view one element off 16 bytes
+K7_CASES = [(2, 37, 70, 256, 1, 0), (3, 16, 33, 64, 2, 0), (2, 5, 7, 12, 3, 0),
+            (2, 33, 20, 15, 1, 0), (2, 9, 11, 3, 2, 0), (1, 3, 6, 64, 2, 0),
+            (2, 17, 19, 64, 1, 1)]
+
+
+def _k7_input(rng, dev, dtype, case):
+    N, H, W, C, p, offset = case
+    x = _t(rng.standard_normal((N, H, W, C)), dev, dtype)
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+        x = buf[offset:].view(x.shape).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    return x, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K7_CASES)
+def test_reflect_pad_kernel_matches_fpad(cuda, rng, dtype, case):
+    """K7's forward is F.pad's reflect pad to the bit; one launch."""
+    from uncrtaints_tpu_torch.ops import pad as tp
+    x, p = _k7_input(rng, cuda, dtype, case)
+    n = tp.reflect_pad.launches
+    y = tp.reflect_pad(x, p)
+    torch.cuda.synchronize()
+    assert tp.reflect_pad.launches == n + 1
+    assert torch.equal(y, tp.reflect_pad_plain(x, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K7_CASES)
+def test_reflect_pad_adjoint_kernel_matches_plain(cuda, rng, dtype, case):
+    """K7's adjoint is its plain version (the same fp32 sums in the same
+    order, rounded once) to the bit, in both dtypes, and gives the same bits
+    twice; within rounding of autograd's backward of F.pad."""
+    from uncrtaints_tpu_torch.ops import pad as tp
+    x, p = _k7_input(rng, cuda, dtype, case)
+    N, H, W, C = x.shape
+    g = _t(rng.standard_normal((N, H + 2 * p, W + 2 * p, C)), cuda, dtype)
+    n = tp.reflect_pad_adjoint.launches
+    gx = tp.reflect_pad_adjoint(g, p)
+    again = tp.reflect_pad_adjoint(g, p)
+    torch.cuda.synchronize()
+    assert tp.reflect_pad_adjoint.launches == n + 2
+    assert torch.equal(gx, tp.reflect_pad_adjoint_plain(g, p))
+    assert torch.equal(gx, again)
+    leaf = x.detach().clone().requires_grad_()
+    (ref,) = torch.autograd.grad(tp.reflect_pad_plain(leaf, p), leaf, g)
+    tol = (1e-6 if dtype == torch.float32 else 2 ** -6) * float(gx.float().abs().max())
+    assert float((gx.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_reflect_pad_autograd_on_card(cuda, rng):
+    """The operator's backward on the card is the adjoint kernel."""
+    from uncrtaints_tpu_torch.ops import pad as tp
+    x = _t(rng.standard_normal((2, 8, 9, 64)), cuda, torch.bfloat16).requires_grad_()
+    g = _t(rng.standard_normal((2, 10, 11, 64)), cuda, torch.bfloat16)
+    n = tp.reflect_pad_adjoint.launches
+    (gx,) = torch.autograd.grad(tp.reflect_pad(x, 1), x, g)
+    assert tp.reflect_pad_adjoint.launches == n + 1
+    assert torch.equal(gx, tp.reflect_pad_adjoint_plain(g, 1))
+
+
+@pytest.mark.cuda
+def test_reflect_pad_kernel_refuses_bad_input(cuda):
+    """A non-contiguous map, p >= H or p >= W, and an fp16 map raise."""
+    from uncrtaints_tpu_torch.ops import pad as tp
+    x = torch.zeros(2, 4, 6, 8, device=cuda)
+    with pytest.raises(ValueError):
+        tp.reflect_pad(x.permute(0, 2, 1, 3), 1)
+    with pytest.raises(ValueError):
+        tp.reflect_pad(x, 4)
+    with pytest.raises(ValueError):
+        tp.reflect_pad(torch.zeros(2, 8, 3, 8, device=cuda), 3)
+    with pytest.raises(TypeError):
+        tp.reflect_pad(x.half(), 1)
+    with pytest.raises(ValueError):
+        tp.reflect_pad_adjoint(torch.zeros(2, 10, 14, 8, device=cuda), 4)
+
+
+@pytest.mark.cuda
+def test_utae_train_step_pads_through_k7(cuda):
+    """A U-TAE train step on the card pads its 3x3 convs through K7 and
+    differentiates them through K7's adjoint; card against CPU, fp32 (the
+    gradients zero in exact arithmetic, rounding noise under 1e-5 of the
+    largest, left out: the L-TAE's key-side biases shift every logit of a
+    pixel under its softmax)."""
+    from uncrtaints_tpu_torch.config import Config, derive
+    from uncrtaints_tpu_torch.models import get_generator
+    from uncrtaints_tpu_torch.ops import pad as tp
+    from uncrtaints_tpu_torch.train import create_train_state, make_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = derive(Config(model="utae", use_sar=True, encoder_widths=[16, 16, 16, 32],
+                        decoder_widths=[16, 16, 16, 32], n_head=4, d_model=32,
+                        compute_dtype="float32"))
+    rng = np.random.default_rng(0)
+    batch = {"x": rng.random((2, cfg.input_t, 32, 32, 15), dtype=np.float32),
+             "y": rng.random((2, 1, 32, 32, 13), dtype=np.float32),
+             "dates": np.zeros((2, cfg.input_t), np.float32)}
+    out = {}
+    for dev in ("cpu", cuda):
+        model = get_generator(cfg, device=torch.device(dev),
+                              generator=torch.Generator().manual_seed(0))
+        te = model.temporal_encoder
+        te.use_dropout, te.dropout = False, 0.0
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        n, na = tp.reflect_pad.launches, tp.reflect_pad_adjoint.launches
+        _, aux = make_train_step(cfg)(create_train_state(cfg, model), b)
+        torch.cuda.synchronize()
+        launched = (tp.reflect_pad.launches - n, tp.reflect_pad_adjoint.launches - na)
+        if dev == "cpu":
+            assert launched == (0, 0)
+        else:
+            assert launched[0] > 0 and launched[1] > 0
+        out[dev] = (float(aux["loss"]), {k: g.cpu() for k, g in aux["grads"].items()})
+    (lc, gc), (lg, gg) = out["cpu"], out[cuda]
+    assert abs(lg / lc - 1) <= 1e-4
+    top = max(float(g.abs().max()) for g in gc.values())
+    for k, ref in gc.items():
+        scale = float(ref.abs().max())
+        if scale > 1e-5 * top:
+            assert float((gg[k] - ref).abs().max()) <= 1e-3 * scale, k

@@ -184,12 +184,12 @@ def test_records_and_profiler_events(family, tmp_path):
 def test_counters_equal_the_shapes(monkeypatch):
     """``cast``: the fp32 x and y scaled (4 bytes each), the bf16 input and
     parameters (2 bytes each); ``reflect_pad``: every padded tensor the
-    convolutions' eager pad writes (the kernels' plain versions pad apart).
-    The paper recipe pads its depthwise convs in eval (one a block, encoder
-    on B*T frames, decoder on B) and folds them all in a train step; U-TAE
-    pads every 3x3 conv."""
+    convolutions write (K7's reflect pad, the eager pad of the other modes;
+    the kernels' plain versions pad apart). The paper recipe pads its
+    depthwise convs in eval (one a block, encoder on B*T frames, decoder on
+    B) and folds them all in a train step; U-TAE pads every 3x3 conv."""
     pads = []
-    real_pad = layers.F.pad
+    real_pad, real_reflect = layers.F.pad, layers.reflect_pad
 
     def pad(x, p, mode="constant", value=None):
         out = real_pad(x, p, mode=mode) if value is None else real_pad(x, p, mode, value)
@@ -197,7 +197,13 @@ def test_counters_equal_the_shapes(monkeypatch):
             pads.append(out.numel() * out.element_size())
         return out
 
+    def reflect(x, p):
+        out = real_reflect(x, p)
+        pads.append(out.numel() * out.element_size())
+        return out
+
     monkeypatch.setattr(layers.F, "pad", pad)
+    monkeypatch.setattr(layers, "reflect_pad", reflect)
     for family in sorted(FAMILIES):
         cfg, model, batch = _setup(family)
         n_params = sum(p.numel() for p in model.parameters())

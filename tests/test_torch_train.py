@@ -135,6 +135,11 @@ def _graph_nodes(fn):
     return names
 
 
+def _pads(names):
+    """The pad nodes among ``names``: ATen's pads, and K7's reflect pad."""
+    return [n for n in names if "Pad" in n or "reflect_pad" in n]
+
+
 def test_depthwise_routing(rng):
     """Differentiated depthwise convs go through the K5 operator (dw_stencil); no-grad
     ones (the eval path) and grouped non-depthwise ones stay F.conv2d. The
@@ -145,18 +150,18 @@ def test_depthwise_routing(rng):
     y = tm(x)
     assert "dw_stencil" in type(y.grad_fn).__name__
     assert y.grad_fn.mode == "reflect"
-    assert not [n for n in _graph_nodes(y.grad_fn) if "Pad" in n]
-    assert not [n for n in _graph_nodes(tm(x.clone().requires_grad_()).grad_fn) if "Pad" in n]
+    assert not _pads(_graph_nodes(y.grad_fn))
+    assert not _pads(_graph_nodes(tm(x.clone().requires_grad_()).grad_fn))
     with torch.no_grad():
         assert tm(x).grad_fn is None
     grouped = tl.Conv2d(8, 8, kernel=3, pad=1, groups=4, bias=False)
     nodes = _graph_nodes(grouped(x.clone().requires_grad_()).grad_fn)
     assert "dw_stencil" not in type(grouped(x).grad_fn).__name__
-    assert [n for n in nodes if "Pad" in n]
+    assert _pads(nodes)
     other = tl.Conv2d(8, 8, kernel=3, pad=1, groups=8, bias=False, padding_mode="replicate")
     yo = other(x.clone().requires_grad_())
     assert "dw_stencil" in type(yo.grad_fn).__name__ and yo.grad_fn.mode == "zeros"
-    assert [n for n in _graph_nodes(yo.grad_fn) if "Pad" in n]
+    assert _pads(_graph_nodes(yo.grad_fn))
 
 
 @pytest.mark.parametrize("hw", [(8, 8), (7, 10), (3, 5), (2, 2)])

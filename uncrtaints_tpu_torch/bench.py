@@ -102,11 +102,13 @@ FLOPS_BASIS = ("torch.utils.flop_counter: matmuls, convolutions and the kernels'
 
 # the kernels' launches in one step of the paper recipe on a card
 # (K6: the encoder's 5 group norms in eval, the decoder's batch norms being
-# K3 / K4's; all 25 norms in train, each with its backward)
+# K3 / K4's; all 25 norms in train, each with its backward; K7: the eval
+# encoder's depthwise 3x3, the one reflect conv that K4 or K5 does not fold)
 EXPECTED_LAUNCHES = {
-    "eval": {"K1": 1, "K1-bwd": 0, "K3": 10, "K4": 5, "K5": 0, "K2": 0, "K6": 5, "K6-bwd": 0},
+    "eval": {"K1": 1, "K1-bwd": 0, "K3": 10, "K4": 5, "K5": 0, "K2": 0, "K6": 5, "K6-bwd": 0,
+             "K7": 1, "K7-adj": 0},
     "train": {"K1": 1, "K1-bwd": 1, "K3": 0, "K4": 0, "K5": 12, "K2": 6, "K6": 25,
-              "K6-bwd": 25},
+              "K6-bwd": 25, "K7": 0, "K7-adj": 0},
 }
 METRICS = {"eval": "uncrtaints_256px_t3_eval_throughput",
            "train": "uncrtaints_256px_t3_train_throughput",
@@ -120,6 +122,7 @@ WARMUP = 3
 # kernel's name decides (the hand-written kernels first)
 EVAL_KINDS = (
     ("K1", ("att_group_",)),
+    ("K7 reflect pad", ("reflect_pad_nhwc_kernel",)),
     ("K3", ("ngm_",)),
     ("K4 (with its pooled-sum pass)", ("ngd_", "channel_sum_kernel")),
     ("K6 norm + activation (with its statistics passes)", ("norm_part_", "norm_finalize_",
@@ -135,6 +138,8 @@ EVAL_KINDS = (
 # name, so they come before it)
 KERNEL_KINDS = (
     ("reflect pad", ("reflection_pad",)),
+    ("K7 reflect pad and its adjoint", ("reflect_pad_nhwc_kernel",
+                                        "reflect_pad_adjoint_nhwc_kernel")),
     ("K5 depthwise stencil", ("dw_tile_kernel", "dw_direct_kernel", "dw_adjoint_frame_kernel")),
     ("K2 depthwise weight gradient", ("dw_grad_",)),
     ("K1 and K1-bwd", ("att_group_",)),
@@ -172,12 +177,14 @@ def device_time_by_kind(prof, kind_table):
 
 def kernel_wrappers() -> Dict[str, Callable]:
     """The kernels' wrappers by counter name (each counts its launches; K6
-    the norms with their activation, forward and backward)."""
-    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv, norm
+    the norms with their activation, forward and backward; K7 the reflect
+    pad and its adjoint)."""
+    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv, norm, pad
     return {"K1": aggregate.att_group_aggregate, "K1-bwd": aggregate.att_group_aggregate_bwd,
             "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad,
             "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3,
-            "K6": norm.norm_act, "K6-bwd": norm.norm_act_bwd}
+            "K6": norm.norm_act, "K6-bwd": norm.norm_act_bwd,
+            "K7": pad.reflect_pad, "K7-adj": pad.reflect_pad_adjoint}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -38,6 +38,7 @@ from uncrtaints_tpu_torch import tracing
 from uncrtaints_tpu_torch.ops.dwconv import dw_stencil
 from uncrtaints_tpu_torch.ops.norm import (  # noqa: F401  (batch_moments_f32: ltae.py's)
     activation, affine_act, batch_moments_f32, norm_act, unbiased_factor)
+from uncrtaints_tpu_torch.ops.pad import reflect_pad
 from uncrtaints_tpu_torch.parallel import mesh
 
 _PAD_MODES = ("reflect", "replicate", "circular")  # F.pad modes
@@ -102,7 +103,9 @@ class Conv2d(nn.Module):
     and _dw_reflect3x3); a 3x3 one with a reflect pad of one goes through
     them unpadded (``mode="reflect"``), so neither pass makes or saves a
     padded tensor. Otherwise (eval) it stays ``F.conv2d``, as the JAX eval
-    primal keeps ``lax.conv``."""
+    primal keeps ``lax.conv``. Every other reflect-padded convolution pads
+    through :func:`reflect_pad` (on the card kernel K7, its backward K7's
+    adjoint), then convolves the padded map."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  stride: int = 1, pad: int = 1, padding_mode: str = "reflect",
@@ -167,12 +170,14 @@ class Conv2d(nn.Module):
                                  self.dilation)
             x, pad = band_pad(x, top, bot, pad, self.padding_mode, sp), 0
         if pad and self.padding_mode != "zeros" and not folded:
-            # pad H and W of the NHWC tensor as the last-but-channel dims of
-            # a 5-D view: one pass that keeps NHWC memory (the 2-D pad of
-            # the channels_last view converts to NCHW and back, measured as
-            # the step's largest copy cost on the H100)
-            x = F.pad(x.unsqueeze(1), (0, 0, pad, pad, pad, pad),
-                      mode=self.padding_mode).squeeze(1)
+            if self.padding_mode == "reflect":  # K7 on the card, its adjoint backward
+                x = reflect_pad(x.contiguous(), pad)
+            else:
+                # pad H and W of the NHWC tensor as the last-but-channel dims
+                # of a 5-D view: one pass that keeps NHWC memory (the 2-D pad
+                # of the channels_last view converts to NCHW and back)
+                x = F.pad(x.unsqueeze(1), (0, 0, pad, pad, pad, pad),
+                          mode=self.padding_mode).squeeze(1)
             pad = 0
             if tracing.recording():
                 tracing.count("reflect_pad", tracing.nbytes(x))

@@ -12,6 +12,8 @@ from uncrtaints_tpu_torch.ops.dwgrad import (  # noqa: F401
 from uncrtaints_tpu_torch.ops.mbconv import (  # noqa: F401
     norm_gelu_dwconv3x3, norm_gelu_dwconv3x3_plain, norm_gelu_matmul,
     norm_gelu_matmul_plain)
+from uncrtaints_tpu_torch.ops.pad import (  # noqa: F401
+    reflect_pad, reflect_pad_adjoint, reflect_pad_adjoint_plain, reflect_pad_plain)
 from uncrtaints_tpu_torch.ops.pooling import adaptive_max_pool2d  # noqa: F401
 from uncrtaints_tpu_torch.ops.resize import avg_pool2d, upsample_bilinear  # noqa: F401
 from uncrtaints_tpu_torch.ops.ssim import ssim  # noqa: F401

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from uncrtaints_tpu_torch import _build
+from uncrtaints_tpu_torch.ops.pad import reflect_pad_plain
 
 # the kernel sizes the CUDA kernels are compiled for
 KERNEL_SIZES = ((3, 3), (1, 3), (3, 1))
@@ -66,12 +67,6 @@ _REFLECT_ADJOINT = 2
 _PADS_ONE: Pads = ((1, 1), (1, 1))
 
 
-def reflect_pad(x: torch.Tensor) -> torch.Tensor:
-    """Reflect-pad H and W of an NHWC tensor by one pixel (as the
-    last-but-channel dims of a 5-D view, which keeps NHWC memory)."""
-    return F.pad(x.unsqueeze(1), (0, 0, 1, 1, 1, 1), mode="reflect").squeeze(1)
-
-
 def _shift_add_f32(xp: torch.Tensor, w: torch.Tensor, Ho: int, Wo: int) -> torch.Tensor:
     """The kh*kw shifted fp32 multiply-adds of padded xp with w [C,1,kh,kw],
     dy-major, dx-minor; fp32, not yet rounded."""
@@ -93,7 +88,7 @@ def dw_stencil_plain(x: torch.Tensor, w: torch.Tensor, pads: Pads,
     N, H, W, C = x.shape
     kh, kw = w.shape[-2:]
     Ho, Wo = out_hw(H, W, kh, kw, pads)
-    xp = reflect_pad(x) if mode == "reflect" else zero_pad(x, pads)
+    xp = reflect_pad_plain(x, 1) if mode == "reflect" else zero_pad(x, pads)
     return _shift_add_f32(xp, w, Ho, Wo).to(x.dtype)
 
 

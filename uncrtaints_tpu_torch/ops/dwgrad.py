@@ -29,7 +29,8 @@ from torch.utils.flop_counter import register_flop_formula
 from uncrtaints_tpu_torch import _build
 from uncrtaints_tpu_torch.ops.dwconv import (
     _MODE_NAMES, KERNEL_SIZES, MODES, Pads, check_halo, check_mode, check_pads, halo_rows,
-    mirror_cols, out_hw, pads_of, reflect_pad, zero_pad)
+    mirror_cols, out_hw, pads_of, zero_pad)
+from uncrtaints_tpu_torch.ops.pad import reflect_pad_plain
 
 
 def dw_kernel_grad_plain(x: torch.Tensor, g: torch.Tensor, pads: Pads,
@@ -37,7 +38,7 @@ def dw_kernel_grad_plain(x: torch.Tensor, g: torch.Tensor, pads: Pads,
     """The plain PyTorch version of the kernel: pad (zeros by ``pads``, or a
     reflect pad of one), then one fp32 multiply-reduce per tap (the tap loop
     of the JAX package's dw-conv VJP)."""
-    xp = reflect_pad(x) if mode == "reflect" else zero_pad(x, pads)
+    xp = reflect_pad_plain(x, 1) if mode == "reflect" else zero_pad(x, pads)
     return _taps(xp, g, kh, kw)
 
 

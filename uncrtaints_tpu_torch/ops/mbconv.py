@@ -22,6 +22,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from uncrtaints_tpu_torch import _build
 from uncrtaints_tpu_torch.ops.dwconv import check_halo, halo_rows, mirror_cols
+from uncrtaints_tpu_torch.ops.pad import reflect_pad_plain
 
 BLOCK_M = 128  # P must be a multiple: a CUDA block's rows must not straddle two frames
 
@@ -257,8 +258,7 @@ def norm_gelu_dwconv3x3_plain(x, mean, coef, scale, bias, w,
     xe = x if halo is None else halo_rows(x, *halo)
     h = F.gelu((xe.float() - m) * cf * scale.float() + bias.float())
     if halo is None:
-        # pad H and W of the NHWC map as the inner dims of a 5-D view
-        hp = F.pad(h.unsqueeze(1), (0, 0, 1, 1, 1, 1), mode="reflect").squeeze(1)
+        hp = reflect_pad_plain(h, 1)
     else:
         hp = mirror_cols(h)
     w9 = w.float().reshape(9, C)
