@@ -242,7 +242,7 @@ def test_counters_need_a_profiler_and_a_step():
 def test_reader_names():
     """Every new metric resolves to ``device_ms.py`` or ``mb.py``; every other
     name in BENCHMARK.json to the file it resolves to without them."""
-    assert len(NEW_METRICS) == 20
+    assert len(NEW_METRICS) == 22
     for m in NEW_METRICS:
         want = "mb" if m["name"].split(".")[0].endswith("_mb") else "device_ms"
         assert harness.reader(m["name"]).__module__ == f"bench_h100.metrics.{want}"

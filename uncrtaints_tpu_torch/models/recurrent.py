@@ -28,6 +28,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from uncrtaints_tpu_torch import tracing
 from uncrtaints_tpu_torch.config import Config, input_dim
 from uncrtaints_tpu_torch.models.aggregator import TemporalAggregator
 from uncrtaints_tpu_torch.models.layers import Conv2d, ConvBlock, frame_pad_mask, smart_apply
@@ -44,7 +45,8 @@ def _last_valid(seq: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
 
 
 class ConvLSTMCell(nn.Module):
-    """The i, f, o, g gates from one zero-padded conv over [x, h]."""
+    """The i, f, o, g gates from one zero-padded conv over [x, h]. Counts
+    the bytes of [x, h] and of the gates' pre-activations (``convlstm``)."""
 
     def __init__(self, input_dim: int, hidden_dim: int, kernel: int = 3):
         super().__init__()
@@ -52,7 +54,11 @@ class ConvLSTMCell(nn.Module):
                            pad=kernel // 2, padding_mode="zeros")
 
     def forward(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
-        i, f, o, g = self.conv(torch.cat([x, h], dim=-1)).chunk(4, dim=-1)
+        xh = torch.cat([x, h], dim=-1)
+        gates = self.conv(xh)
+        if tracing.recording():
+            tracing.count("convlstm", tracing.nbytes(xh) + tracing.nbytes(gates))
+        i, f, o, g = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return torch.sigmoid(o) * torch.tanh(c), c
 
@@ -254,7 +260,9 @@ class PyramidBlock(nn.Module):
 
 
 class FPNConvLSTM(nn.Module):
-    """Feature pyramid (on every frame) + ConvLSTM + a 1x1 conv head."""
+    """Feature pyramid (on every frame) + ConvLSTM + a 1x1 conv head; traced
+    as ``encoder`` (inconv, pyramid, mid_conv), ``convlstm`` (the recurrence)
+    and ``decoder`` (the head)."""
 
     def __init__(self, input_dim: int, num_classes: int, inconv: Sequence[int] = (32, 64),
                  n_levels: int = 5, n_channels: int = 64, hidden_size: int = 88,
@@ -273,12 +281,15 @@ class FPNConvLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_positions: Optional[torch.Tensor] = None,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        pad_mask = frame_pad_mask(x, self.pad_value)
-        out = smart_apply(self.pyramid, self.inconv(x), self.pad_value)
-        if self.mid_conv is not None:
-            out = self.mid_conv(out)
-        _, (_, c) = self.convlstm(out, pad_mask=pad_mask)
-        return self.outconv(c)[:, None]
+        with tracing.span("encoder"):
+            pad_mask = frame_pad_mask(x, self.pad_value)
+            out = smart_apply(self.pyramid, self.inconv(x), self.pad_value)
+            if self.mid_conv is not None:
+                out = self.mid_conv(out)
+        with tracing.span("convlstm"):
+            _, (_, c) = self.convlstm(out, pad_mask=pad_mask)
+        with tracing.span("decoder"):
+            return self.outconv(c)[:, None]
 
 
 def build_recurrent(cfg: Config) -> nn.Module:

@@ -21,13 +21,14 @@ The outermost spans, ``eval_step`` and ``train_step`` (:func:`step`), open
 a step record on their thread with a running index (the request's
 identifier) and close it into a buffer of the last ``KEEP`` steps
 (:func:`steps`, :func:`take`). Sections sit flat under the step: ``cast``,
-``encoder``, ``ltae``, ``aggregate``, ``decoder``, ``loss``, ``backward``,
-``optimizer``, ``grad_sync``; a span opened inside another (a block
-recomputed under ``backward``) names it as its parent, so a section's self
-time is its span less the spans it contains. :func:`count` adds bytes to a
+``encoder``, ``ltae``, ``aggregate``, ``convlstm``, ``decoder``, ``loss``,
+``backward``, ``optimizer``, ``grad_sync``; a span opened inside another (a
+block recomputed under ``backward``) names it as its parent, so a section's
+self time is its span less the spans it contains. :func:`count` adds bytes to a
 counter of the open step record (``cast``: what the dtype conversions and
 scale_by multiplies write; ``reflect_pad``: the padded tensors of the eager
-reflect pad).
+reflect pad; ``convlstm``: the [x, h] concatenations and the gates'
+pre-activations a ConvLSTM writes each time step).
 
 The spans leave ``torch.export`` and ``FlopCounterMode`` alone: neither runs
 a profiler, so the spans are empty contexts under them.
