@@ -34,11 +34,14 @@ kernels), the bare bf16 ``torch.matmul`` and the whole function composed of
 PyTorch calls in bf16 (K3), and gelu -> reflect pad -> cuDNN depthwise conv
 (K4). K6, the norms with their activation (``ops/norm.py``), is held
 forward and backward at the paper encoder's group norms, the decoder's batch
-norms and U-TAE's narrowest width (``K6_CASES``): the statistics against
-the twins', the apply bit-equal to the eager formula on the kernel's coef /
-off, the backward within a stated relative tolerance, two runs bit-equal,
-timed beside the eager formula it replaces (its autograd for the backward)
-and torch's batch / group norm with the activation. K7, the reflect pad and
+norms, U-TAE's narrowest width and the benchmark cells' group norms
+(``K6_CASES``): the statistics against the twins', the apply bit-equal to
+the eager formula on the kernel's coef / off, the backward within a stated
+relative tolerance, two runs bit-equal, timed beside the eager formula it
+replaces (its autograd for the backward) and torch's batch / group norm
+with the activation; a group norm that takes one pass is timed through the
+two-pass kernels too. ``python3 chip_smoke.py --k6`` runs that part of
+phase 1 alone. K7, the reflect pad and
 its adjoint (``ops/pad.py``), is held at ``K7_CASES``: the forward bit-equal
 to ``F.pad``, the adjoint bit-equal to its plain version and to itself run
 twice, within rounding of autograd's ``reflection_pad3d_backward``, and at
@@ -345,6 +348,14 @@ K6_CASES = {
     # UNet3D's first batch norm (the affine in fp32) and LeakyReLU, T=4
     "batch_f32 UNet3D [4,4,256,256,32] leaky": ("batch_f32", (B, 4, PATCH, PATCH, 32), 4,
                                                 "leaky_relu"),
+    # the benchmark's cells' group norms over B*T frames (paper B=16: in_conv
+    # and the MBConv's; U-TAE B=64: its 64-channel level; the FPN B=16: its
+    # inconv's 32 and mid_conv's 160 channels), one pass and two timed
+    "group paper B=16 [48,256,256,256] gelu": ("group", (48, PATCH, PATCH, HIDDEN), 4, "gelu"),
+    "group paper B=16 [48,256,256,128] relu": ("group", (48, PATCH, PATCH, 128), 4, "relu"),
+    "group U-TAE B=64 [192,256,256,64] relu": ("group", (192, PATCH, PATCH, 64), 4, "relu"),
+    "group FPN B=16 [48,256,256,32] relu": ("group", (48, PATCH, PATCH, 32), 4, "relu"),
+    "group FPN B=16 [48,256,256,160] relu": ("group", (48, PATCH, PATCH, 160), 4, "relu"),
 }
 K6_LINE_CASE = "group enc [12,256,256,256] gelu"  # the case of the JSON line
 # K6's launches (a forward each norm, a backward each norm in a train step):
@@ -353,6 +364,11 @@ K6_LINE_CASE = "group enc [12,256,256,256] gelu"  # the case of the JSON line
 # backward, a remat step 24 more forwards (each block's norms again);
 # fused_eval off runs the decoder's 15 too
 K6_EVAL, K6_TRAIN, K6_REMAT, K6_STANDARD_EVAL = 5, 25, 49, 20
+# of those, the group norms' forwards (the encoder's 5) take one pass
+# (ops/norm.py:onchip_plan): 5 an eval forward and a train step, each one
+# kernel where the two passes run four; their backwards (one slab a wave)
+# keep the two passes
+K6_ONCHIP = 5
 # U-TAE at its published widths: 10 group and 12 eval batch norms a forward,
 # 22 norms a train step (the L-TAE's own norms are not K6's)
 K6_UTAE = 22
@@ -989,8 +1005,10 @@ def phase1_norms(dev, randn, result):
     at every case (CUDA events) beside the bound, the eager formula the port
     ran before (its autograd for the backward) and one library call: torch's
     batch or group norm on the channels_last view and the activation
-    (autograd of it for the backward). Returns {kernel name: result} for the
-    JSON line and the largest errors."""
+    (autograd of it for the backward). Group and instance norms that take
+    one pass (ops/norm.py:onchip_plan) are timed through the two-pass
+    kernels too, and those held against the twins as well. Returns {kernel
+    name: result} for the JSON line and the largest errors."""
     from uncrtaints_tpu_torch.ops import norm as tn
     U, Fn = torch.ops.uncrtaints, torch.nn.functional
     act_fn = {"gelu": Fn.gelu, "relu": Fn.relu, "none": lambda t: t,
@@ -1026,10 +1044,12 @@ def phase1_norms(dev, randn, result):
         else:
             K = tn.KINDS[kind]
             fwd = lambda: U.norm_act(x, w, b, K, G, A, 0)
+            n1 = (tn.norm_act.onchip, tn.norm_act_bwd.onchip)
             y, mvn, coef, off = fwd()
             bwd = lambda: U.norm_act_bwd(gy, x, w, b, mvn, coef, off, K, G, A, 0)
             got_b = bwd()
             torch.cuda.synchronize()
+            onchip = (tn.norm_act.onchip - n1[0], tn.norm_act_bwd.onchip - n1[1])
             ry, rmvn, _, _ = tn.norm_act_twin(x, w, b, K, G, A)
             stat = float(((mvn - rmvn).abs()[:-1]).max()) / float(x.float().square().max())
             check(stat <= 1e-5 and float(mvn[-1]) == float(rmvn[-1]),
@@ -1083,6 +1103,24 @@ def phase1_norms(dev, randn, result):
             lib_y = act_fn[act](Fn.group_norm(lib_leaf, G, wb, bb, 1e-5))
         gyc = gy.permute(*to_nc)
         kf, kb = time_kernel(fwd), time_kernel(bwd)
+        two = ""
+        if kind != "affine" and any(onchip):  # the same call through the two passes
+            Gk, form = (C if kind == "instance" else G), tn.FORMS[K]
+            x3, g3 = x.view(coef.shape[0], -1, C), gy.view(coef.shape[0], -1, C)
+            cnt = x3.shape[1] * (C // Gk)
+            two_f = lambda: tn.forward_two_pass(x3, w, b, K, Gk, A, form, cnt)
+            two_b = lambda: tn.backward_two_pass(g3, x3, w, b, mvn, coef, off, K, Gk, A, form)
+            y2, dx2 = two_f()[0].view(shape), two_b()[0]
+            e2 = float((y2.float() - ry.float()).abs().max())
+            check(e2 <= 2 ** -6 * float(ry.float().abs().max()),
+                  f"K6 {name}: the two passes' y off the twins' by {e2:.3g}")
+            d2 = float((dx2.float() - ref_b[0].float().view(dx2.shape)).abs().max())
+            check(d2 <= 1e-2 * float(ref_b[0].float().abs().max()),
+                  f"K6-bwd {name}: the two passes' dx off the twins' by {d2:.3g}")
+            tf2, tb2 = time_kernel(two_f), time_kernel(two_b)
+            del y2, dx2
+            two = (f"; one pass forward / backward {onchip}, two passes {tf2:.4f} / {tb2:.4f} "
+                   f"ms ({{bf}} / {{bb}} of bound)")
         pf = time_ms(plain_f, runs=7)
         pb = time_ms(lambda: torch.autograd.grad(yl, leaves, gy, retain_graph=True), runs=7)
         lf = time_kernel(lib_f)
@@ -1098,7 +1136,8 @@ def phase1_norms(dev, randn, result):
               f"bound {bf:.4f} ms, {byf}), plain {pf:.4f} ms, library {lf:.4f} ms; backward "
               f"max_abs_err {berr:.3g}, kernel {kb:.4f} ms ({bb_ms / kb:.0%} of bound "
               f"{bb_ms:.4f} ms, {byb}), plain (autograd of the eager formula) {pb:.4f} ms, "
-              f"library (autograd) {lb:.4f} ms; two runs bit-equal")
+              f"library (autograd) {lb:.4f} ms; two runs bit-equal"
+              + (two.format(bf=f"{bf / tf2:.0%}", bb=f"{bb_ms / tb2:.0%}") if two else ""))
         errs["fwd"], errs["bwd"] = max(errs["fwd"], ferr), max(errs["bwd"], berr)
         if name == K6_LINE_CASE:
             line_out["norm_act"] = result(0.0, kf, pf, bf, byf, lf)
@@ -1107,6 +1146,18 @@ def phase1_norms(dev, randn, result):
     line_out["norm_act"]["max_abs_err"] = errs["fwd"]
     line_out["norm_act_bwd"]["max_abs_err"] = errs["bwd"]
     return line_out
+
+def phase1_norms_alone(dev):
+    """Phase 1's K6 alone (``--k6``): the build, then :func:`phase1_norms`."""
+    from uncrtaints_tpu_torch import _build
+    t0 = time.perf_counter()
+    _build.lib()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    result = lambda *a: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms"), a))
+    return phase1_norms(dev, lambda *s: torch.randn(*s, generator=g, device=dev), result)
+
 
 # the halo modes at the paper shapes, split into bands of rows: K5 and K2 at
 # the encoder's and the decoder's depthwise conv, K4 at the decoder's
@@ -1371,6 +1422,7 @@ def phase2_slice(dev):
               mbconv.norm_gelu_dwconv3x3, norm.norm_act, pad.reflect_pad, *train_kernels):
         f.launches = 0
     mbconv.norm_gelu_matmul.wgmma_launches = 0
+    norm.norm_act.onchip = 0
     times, results = [], []
     for _ in range(2):
         for b in batches:
@@ -1391,6 +1443,10 @@ def phase2_slice(dev):
     check(k4 == 5 * n_fwd, f"K4 launched {k4} times in {n_fwd} forwards (5 each expected)")
     check(k6 == K6_EVAL * n_fwd,
           f"K6 launched {k6} times in {n_fwd} forwards ({K6_EVAL} each expected)")
+    print(f"  K6 in one pass: {norm.norm_act.onchip} of the {k6} forwards")
+    check(norm.norm_act.onchip == K6_ONCHIP * n_fwd,
+          f"{norm.norm_act.onchip} K6 forwards took one pass in {n_fwd} forwards "
+          f"({K6_ONCHIP} each expected: the encoder's group norms)")
     check(k7 == K7_EVAL * n_fwd,
           f"K7 launched {k7} times in {n_fwd} forwards ({K7_EVAL} each expected)")
     check(mbconv.norm_gelu_matmul.wgmma_launches == k3,
@@ -1420,21 +1476,21 @@ def profile_eval_step(step, model, batch, step_ms):
     """One more eval step under ``torch.profiler``, reported by
     :func:`eval_step_report`: the step must run 1 K1, 10 K3 through the
     wgmma kernel and 5 K4 each with its pooled-sum pass and none with
-    statistics, 5 K6 (the encoder's group norms: a statistics pass, its
-    second pass, the per-slot math and the apply each), 1 K7 and no ATen
-    reflection_pad kernel, and the five fused
+    statistics, 5 K6 (the encoder's group norms, each one one-pass kernel:
+    no statistics pass, no second pass, no per-slot math of their own), 1
+    K7 and no ATen reflection_pad kernel, and the five fused
     decoder blocks no GELU, mean or sum over a whole map outside the
     kernels."""
     found, eager = eval_step_report(step, model, batch, step_ms)
     want = {"att_group_": 1, "ngm_wg_kernel": 10, "ngm_kernel": 0, "ngd_tile_kernel": 5,
-            "channel_sum_kernel": 5, "group_stats_kernel": K6_EVAL,
-            "norm_part_kernel": K6_EVAL, "norm_finalize_kernel": K6_EVAL,
-            "norm_apply_kernel": K6_EVAL, "reflect_pad_nhwc_kernel": K7_EVAL,
-            "reflection_pad": 0}
+            "channel_sum_kernel": 5, "group_stats_kernel": 0,
+            "norm_part_kernel": 0, "norm_finalize_kernel": 0,
+            "norm_apply_kernel": K6_EVAL, "norm_apply_kernel_onchip": K6_ONCHIP,
+            "reflect_pad_nhwc_kernel": K7_EVAL, "reflection_pad": 0}
     check(found == want,
           f"the eval step's kernels {found}, expected {want} (1 K1, 10 K3 through "
           "the wgmma kernel, 5 K4 each with its pooled-sum pass and none with statistics, "
-          "the second passes of the statistics all K6's, the encoder's pad K7's)")
+          "the encoder's 5 group norms one pass each, the encoder's pad K7's)")
     check(not eager, "a fused decoder block ran an eager GELU or reduction over a whole map")
 
 
@@ -1466,7 +1522,8 @@ def eval_step_report(step, model, batch, step_ms):
     found = {f: count(f) for f in ("att_group_", "ngm_wg_kernel", "ngm_kernel", "ngd_tile_kernel",
                                    "channel_sum_kernel", "group_stats_kernel", "norm_part_kernel",
                                    "norm_finalize_kernel", "norm_apply_kernel",
-                                   "reflect_pad_nhwc_kernel", "reflection_pad")}
+                                   "norm_apply_kernel_onchip", "reflect_pad_nhwc_kernel",
+                                   "reflection_pad")}
     print(f"    kernels by name: {found}")
     # the hand-written kernels one by one (template arguments tell the two K3 shapes apart)
     for key, (n, ms) in sorted(names.items()):
@@ -1629,6 +1686,7 @@ def phase_scene(dev, cfg, model, off):
 
 def phase4_train(dev, batches):
     from uncrtaints_tpu_torch.config import Config, derive
+    from uncrtaints_tpu_torch.ops import norm
     from uncrtaints_tpu_torch.train import create_train_state, make_train_step
 
     cfg = derive(Config(use_sar=True, scale_by=10.0))  # the paper recipe, bf16
@@ -1643,6 +1701,7 @@ def phase4_train(dev, batches):
     torch.cuda.reset_peak_memory_stats(dev)
     for f in kernels.values():
         f.launches = 0
+    norm.norm_act.onchip = norm.norm_act_bwd.onchip = 0
     times, losses, first_grads = [], [], None
     for i in range(TRAIN_STEPS):
         b = batches[i % len(batches)]
@@ -1663,6 +1722,11 @@ def phase4_train(dev, batches):
     for k, n in per_step.items():
         check(counts[k] == n * TRAIN_STEPS,
               f"{k} launched {counts[k]} times in {TRAIN_STEPS} train steps ({n} each expected)")
+    onchip = (norm.norm_act.onchip, norm.norm_act_bwd.onchip)
+    print(f"  K6 / K6-bwd in one pass: {onchip} of {counts['K6']} / {counts['K6-bwd']}")
+    check(onchip == (K6_ONCHIP * TRAIN_STEPS, 0),
+          f"{onchip} K6 / K6-bwd calls took one pass in {TRAIN_STEPS} train steps "
+          f"({K6_ONCHIP} + 0 each expected: the encoder's group norms' forwards)")
     print(f"  losses {[round(v, 4) for v in losses]}")
     check(all(np.isfinite(v) for v in losses), "a train loss is not finite")
     bad = [n for n, (fin, mx) in first_grads.items() if not (fin and mx > 0)]
@@ -1833,9 +1897,11 @@ def profile_train_step(step, state, batch, gen, paper_recipe=True, step_ms=None)
     check(kinds.get("K5 depthwise stencil", (0, 0))[1] >= 12
           and kinds.get("K2 depthwise weight gradient", (0, 0))[1] >= 12,
           f"the profile misses K5 or K2 kernels: {kinds}")
-    # every norm through K6: four kernels a forward, four a backward
+    # every norm through K6: four kernels a forward and four a backward, the
+    # group norms' forwards one
     k6 = kinds.get("K6 and K6-bwd norm + activation", (0, 0))[1]
-    check(k6 == 8 * K6_TRAIN, f"the train step ran {k6} K6 kernels, {8 * K6_TRAIN} expected")
+    want = 8 * K6_TRAIN - 3 * K6_ONCHIP
+    check(k6 == want, f"the train step ran {k6} K6 kernels, {want} expected")
 
 
 def phase5_train_reference(dev):
@@ -3524,6 +3590,9 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--k6"]:
+        phase1_norms_alone(dev)
+        return 0
 
     clock = [time.perf_counter()]
 

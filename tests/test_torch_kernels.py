@@ -682,6 +682,163 @@ def test_norm_act_kernels_match_twins(cuda, rng, kind, shape, groups, act, dtype
                                                  (*again, *back)))
 
 
+# The one-pass K6 (ops/norm.py:onchip_plan admits these forwards, and the
+# backwards of few waves): the paper encoder's group norms at B=16 (48
+# frames, GELU and ReLU), U-TAE's 64-channel level and its 32^2 levels (64
+# and 128 channels, backward too), the FPN's 32 and 160 channels, an
+# instance norm and an fp32 frame (backward too). (norm, [N,H,W,C], groups,
+# activation, dtype)
+K6_ONCHIP_CASES = [("group", (48, 256, 256, 256), 4, "gelu", torch.bfloat16),
+                   ("group", (48, 256, 256, 128), 4, "relu", torch.bfloat16),
+                   ("group", (64, 256, 256, 64), 4, "relu", torch.bfloat16),
+                   ("group", (192, 32, 32, 64), 4, "relu", torch.bfloat16),
+                   ("group", (192, 32, 32, 128), 4, "relu", torch.bfloat16),
+                   ("group", (48, 256, 256, 32), 4, "relu", torch.bfloat16),
+                   ("group", (48, 256, 256, 160), 4, "relu", torch.bfloat16),
+                   ("instance", (16, 128, 128, 64), 4, "gelu", torch.bfloat16),
+                   ("group", (12, 128, 128, 64), 4, "gelu", torch.float32)]
+
+
+def _k6_card_inputs(dev, kind, shape, dtype):
+    """As :func:`_k6_inputs`, drawn on the card (the paths' maps are large)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda *s: torch.randn(*s, generator=g, device=dev)
+    C = shape[-1]
+    x = (rand(*shape) * 2 + 1).to(dtype)
+    gy = rand(*shape).to(dtype)
+    wb = (None, None) if kind == "instance" else ((rand(C) + 1).to(dtype), rand(C).to(dtype))
+    return x, gy, wb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,groups,act,dtype", K6_ONCHIP_CASES)
+def test_norm_onchip_matches_twins(cuda, kind, shape, groups, act, dtype):
+    """The one-pass kernels (one forward call, and one backward call where
+    ``onchip_plan`` admits it: counted in ``.onchip``) against the twins as
+    the two-pass kernels are held:
+    the statistics within 1e-5, the apply bit-equal to the twin's on the
+    kernel's coef / off, y within 2^-6 (bf16) of the largest, dx within
+    1e-2 (bf16) / 1e-5 (fp32) of the largest, dweight and dbias within
+    1e-2 / 1e-4; the statistics within 1e-5 of the two-pass kernels'; two
+    runs bit-equal."""
+    from uncrtaints_tpu_torch.ops import norm as tn
+    x, g, (w, b) = _k6_card_inputs(cuda, kind, shape, dtype)
+    K, A = tn.KINDS[kind], tn.ACTS[act]
+    U = torch.ops.uncrtaints
+    n0, b0 = tn.norm_act.onchip, tn.norm_act_bwd.onchip
+    y, mvn, coef, off = U.norm_act(x, w, b, K, groups, A, 0)
+    dx, dw, db = U.norm_act_bwd(g, x, w, b, mvn, coef, off, K, groups, A, 0)
+    torch.cuda.synchronize()
+    Fr, C = coef.shape
+    G = C if kind == "instance" else groups
+    bwd_plan = tn.onchip_plan(kind, Fr, x.numel() // (Fr * C), C, G, x.element_size(),
+                              tn.REDUCE_NONE, *tn._device_limits(cuda.index or 0), backward=True)
+    assert (tn.norm_act.onchip, tn.norm_act_bwd.onchip) == (n0 + 1, b0 + (bwd_plan is not None))
+    scale = float(x.float().abs().max()) ** 2
+    ry, rmvn, _, _ = tn.norm_act_twin(x, w, b, K, groups, A)
+    assert float((mvn - rmvn).abs()[:-1].max()) <= 1e-5 * scale
+    assert float(mvn[-1]) == float(rmvn[-1])
+    x3, g3 = x.view(Fr, -1, C), g.view(Fr, -1, C)
+    form = tn.FORMS[K]
+    assert torch.equal(y, tn.apply_twin(x3, coef, off, form, A).view(x.shape))
+    tol = 2 ** -6 if dtype == torch.bfloat16 else 1e-5
+    assert float((y.float() - ry.float()).abs().max()) <= tol * float(ry.float().abs().max())
+    del ry
+    two = tn.forward_two_pass(x3, w, b, K, G, A, form, x3.shape[1] * (C // G))
+    assert float((mvn - two[3]).abs()[:-1].max()) <= 1e-5 * scale
+    del two
+    rdx, rdw, rdb = tn.norm_act_bwd_twin(g, x, w, b, mvn, coef, off, K, groups, A)
+    dtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert float((dx.float() - rdx.float()).abs().max()) <= dtol * float(rdx.float().abs().max())
+    del rdx
+    for got, ref in ((dw, rdw), (db, rdb)):  # empty for instance norm
+        assert got.shape == ref.shape
+        if ref.numel():
+            ptol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+            assert float((got.float() - ref.float()).abs().max()) <= ptol * max(
+                float(ref.float().abs().max()), 1.0)
+    again = U.norm_act(x, w, b, K, groups, A, 0)
+    back = U.norm_act_bwd(g, x, w, b, mvn, coef, off, K, groups, A, 0)
+    assert all(torch.equal(p, q) for p, q in zip((y, mvn, coef, off, dx, dw, db),
+                                                 (*again, *back)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,act", [(256, "gelu"), (128, "relu")])
+def test_norm_onchip_backward_kernel_at_the_paper_widths(cuda, C, act):
+    """The one-pass backward kernel called directly at the paper step's
+    frames (48 x 256^2), where the rule takes two passes (one slab a wave),
+    under the plan the card's budget gives: dx, dweight and dbias against the
+    twin as the routed calls are held, two runs bit-equal."""
+    from uncrtaints_tpu_torch.ops import norm as tn
+    x, g, (w, b) = _k6_card_inputs(cuda, "group", (48, 256, 256, C), torch.bfloat16)
+    K, A = tn.KINDS["group"], tn.ACTS[act]
+    x3, g3 = x.view(48, -1, C), g.view(48, -1, C)
+    y, coef, off, mvn = tn.forward_two_pass(x3, w, b, K, 4, A, 0, x3.shape[1] * (C // 4))
+    sms, smem = tn._device_limits(cuda.index or 0)
+    plan = tn.OnchipPlan(64, 1, sms, -(-x3.shape[1] // sms))  # one 64-channel group a slab
+    cap = (smem - tn._onchip_smem_bytes(0, 64, 2, True)) // tn._onchip_row_bytes(64, 2, True)
+    assert plan.rpb <= cap
+    dx, dw, db = tn.backward_one_pass(g3, x3, w, mvn, coef, off, K, 4, A, plan)
+    rdx, rdw, rdb = tn.norm_act_bwd_twin(g, x, w, b, mvn, coef, off, K, 4, A)
+    assert float((dx.float() - rdx.float().view(dx.shape)).abs().max()) <= 1e-2 * float(
+        rdx.float().abs().max())
+    for got, ref in ((dw, rdw), (db, rdb)):
+        assert float((got.float() - ref.float()).abs().max()) <= 1e-2 * max(
+            float(ref.float().abs().max()), 1.0)
+    again = tn.backward_one_pass(g3, x3, w, mvn, coef, off, K, 4, A, plan)
+    assert all(torch.equal(p, q) for p, q in zip((dx, dw, db), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,dtype", [("group", (4, 64, 64, 128), torch.bfloat16),
+                                              ("instance", (3, 32, 32, 64), torch.float32)])
+def test_norm_onchip_opcheck(cuda, kind, shape, dtype):
+    """``torch.library.opcheck`` of ``norm_act`` on the card where it takes
+    one pass: schema, fake shapes, the registered backward (one pass too),
+    AOT dispatch."""
+    from uncrtaints_tpu_torch.ops import norm as tn
+    x, _, (w, b) = _k6_card_inputs(cuda, kind, shape, dtype)
+    leaves = [t if t is None else t.requires_grad_() for t in (x, w, b)]
+    n0, b0 = tn.norm_act.onchip, tn.norm_act_bwd.onchip
+    torch.library.opcheck(torch.ops.uncrtaints.norm_act.default,
+                          (*leaves, tn.KINDS[kind], 4, tn.ACTS["gelu"], 0))
+    assert tn.norm_act.onchip > n0 and tn.norm_act_bwd.onchip > b0
+
+
+@pytest.mark.cuda
+def test_norm_onchip_routes_by_shape(cuda):
+    """A group-norm frame one row over the one-pass budget, and a batch
+    norm, take the two-pass kernels (``.onchip`` unchanged); a frame at the
+    budget takes one pass; the two agree."""
+    from uncrtaints_tpu_torch.ops import norm as tn
+    sms, smem = tn._device_limits(cuda.index or 0)
+    C, size = 64, 2  # bf16 rows of 128 bytes, one group: the whole row a slab
+    cap = (smem - tn._onchip_smem_bytes(0, C, size, False)) // tn._onchip_row_bytes(C, size, False)
+    rows = cap * sms
+    plan = lambda P: tn.onchip_plan("group", 2, P, C, 1, size, tn.REDUCE_NONE, sms, smem)
+    assert plan(rows) is not None and plan(rows + 1) is None
+    U, K, A = torch.ops.uncrtaints, tn.KINDS["group"], tn.ACTS["relu"]
+    outs = []
+    for P in (rows, rows + 1):
+        x, _, (w, b) = _k6_card_inputs(cuda, "group", (2, P, 1, C), torch.bfloat16)
+        n0, l0 = tn.norm_act.onchip, tn.norm_act.launches
+        y, mvn, coef, off = U.norm_act(x, w, b, K, 1, A, 0)
+        torch.cuda.synchronize()
+        assert tn.norm_act.launches == l0 + 1
+        assert tn.norm_act.onchip == n0 + (P == rows)
+        ry, rmvn, _, _ = tn.norm_act_twin(x, w, b, K, 1, A)
+        assert float((y.float() - ry.float()).abs().max()) <= 2 ** -6 * float(
+            ry.float().abs().max())
+        outs.append(mvn)
+    x, g, (w, b) = _k6_card_inputs(cuda, "batch", (4, 64, 64, 128), torch.bfloat16)
+    n0, b0 = tn.norm_act.onchip, tn.norm_act_bwd.onchip
+    y, mvn, coef, off = U.norm_act(x, w, b, tn.KINDS["batch"], 4, A, 0)
+    U.norm_act_bwd(g, x, w, b, mvn, coef, off, tn.KINDS["batch"], 4, A, 0)
+    torch.cuda.synchronize()
+    assert (tn.norm_act.onchip, tn.norm_act_bwd.onchip) == (n0, b0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["none", "gelu", "relu"])

@@ -317,3 +317,125 @@ def test_unet3d_block_on_the_operators(rng, monkeypatch):
                                    err_msg=name)
     for a, b in zip(b1, b0):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL, atol=ATOL)
+
+
+# The one-pass rule (ops/norm.py:onchip_plan) as a pure function of the call
+# and the card: an H100's 132 SMs and 227 KB of shared memory a block
+H100 = dict(sms=132, smem=232448)
+BF, F32 = 2, 4
+# (kind, frames, rows, channels, groups, itemsize, backward): per-frame norms
+# of the benchmark's cells and a few others that take one pass: every
+# forward within the budget; backwards of a few waves
+ONCHIP = {"paper enc 256 gelu": ("group", 48, 256 * 256, 256, 4, BF, False),
+          "paper in_conv 128": ("group", 48, 256 * 256, 128, 4, BF, False),
+          "U-TAE 64": ("group", 192, 256 * 256, 64, 4, BF, False),
+          "U-TAE 64 at 64^2": ("group", 192, 64 * 64, 64, 4, BF, False),
+          "U-TAE 64 at 32^2 backward": ("group", 192, 32 * 32, 64, 4, BF, True),
+          "U-TAE 128 at 32^2 backward": ("group", 192, 32 * 32, 128, 4, BF, True),
+          "FPN 32": ("group", 48, 256 * 256, 32, 4, BF, False),
+          "FPN 160": ("group", 48, 256 * 256, 160, 4, BF, False),
+          "instance": ("instance", 16, 128 * 128, 64, 4, BF, False),
+          "instance backward": ("instance", 16, 128 * 128, 64, 4, BF, True),
+          "fp32 frame": ("group", 12, 128 * 128, 64, 4, F32, False),
+          "fp32 frame backward": ("group", 12, 128 * 128, 64, 4, F32, True),
+          "one small frame": ("group", 1, 9 * 7, 64, 4, BF, False),
+          "one small frame backward": ("group", 1, 9 * 7, 64, 4, BF, True)}
+
+
+@pytest.mark.parametrize("case", list(ONCHIP))
+def test_onchip_plan_takes_per_frame_norms(case):
+    """Per-frame norms whose slab of whole groups fits the card take one
+    pass, under a plan the kernels can run: whole groups of 16-byte row
+    pieces a slab, at most one block an SM, every row of a slab covered,
+    each block's rows (backward: g's and x's) in its shared memory."""
+    kind, Fr, P, C, G, size, bwd = ONCHIP[case]
+    plan = tn.onchip_plan(kind, Fr, P, C, G, size, tn.REDUCE_NONE, **H100, backward=bwd)
+    assert plan is not None
+    cg = 1 if kind == "instance" else C // G
+    assert plan.W % cg == 0 and C % plan.W == 0 and (plan.W * size) % 16 == 0
+    assert plan.W <= tn._ONCHIP_THREADS
+    assert 1 <= plan.K <= Fr * (C // plan.W) and plan.K * plan.bps <= H100["sms"]
+    assert plan.rpb * plan.bps >= P and plan.rpb * (plan.bps - 1) < P
+    assert tn._onchip_smem_bytes(plan.rpb, plan.W, size, bwd) <= H100["smem"]
+
+
+def test_onchip_plan_of_the_paper_step():
+    """The paper step's group norms: slabs of one 64-channel group (256
+    channels) or two 32-channel groups (128 channels), 128-byte row pieces,
+    three slabs a wave over 44 blocks forward; the backward's waves would
+    hold one slab each, so it takes two passes."""
+    plan = lambda C, bwd: tn.onchip_plan("group", 48, 65536, C, 4, BF, tn.REDUCE_NONE, **H100,
+                                         backward=bwd)
+    for C in (256, 128):
+        assert plan(C, False) == tn.OnchipPlan(W=64, K=3, bps=44, rpb=1490)
+        assert plan(C, True) is None  # 96-192 waves of one slab: two passes
+
+
+# (kind, frames, rows, channels, groups, itemsize, reduce): two passes
+TWO_PASS = {"batch": ("batch", 1, 48 * 65536, 256, 256, BF, tn.REDUCE_NONE),
+            "batch_f32": ("batch_f32", 1, 4 * 4 * 65536, 32, 32, BF, tn.REDUCE_NONE),
+            "the affine form": ("affine", 1, 16 * 65536, 128, 128, BF, tn.REDUCE_NONE),
+            "a spatial split": ("group", 48, 128 * 256, 256, 4, BF, tn.REDUCE_SPATIAL),
+            "a data-parallel batch norm": ("batch", 1, 65536, 128, 128, BF, tn.REDUCE_WORLD),
+            "the 1024^2 scene frame": ("group", 3, 1024 * 1024, 256, 4, BF, tn.REDUCE_NONE),
+            "rows off 16 bytes": ("group", 12, 65536, 20, 4, BF, tn.REDUCE_NONE),
+            "fp32 rows off 16 bytes": ("instance", 2, 64, 10, 10, F32, tn.REDUCE_NONE),
+            "an unknown dtype size": ("group", 12, 65536, 64, 4, 1, tn.REDUCE_NONE)}
+# (kind, frames, rows, channels, groups, itemsize): backwards within the
+# budget whose many waves make one pass the slower
+MANY_WAVES = {"paper enc 256": ("group", 48, 256 * 256, 256, 4, BF),
+              "paper in_conv 128": ("group", 48, 256 * 256, 128, 4, BF),
+              "U-TAE 64": ("group", 192, 256 * 256, 64, 4, BF),
+              "U-TAE 64 at 64^2": ("group", 192, 64 * 64, 64, 4, BF),
+              "FPN 32": ("group", 48, 256 * 256, 32, 4, BF)}
+
+
+@pytest.mark.parametrize("case", list(TWO_PASS))
+@pytest.mark.parametrize("bwd", [False, True], ids=["forward", "backward"])
+def test_onchip_plan_sends_the_rest_to_two_passes(case, bwd):
+    kind, Fr, P, C, G, size, reduce = TWO_PASS[case]
+    assert tn.onchip_plan(kind, Fr, P, C, G, size, reduce, **H100, backward=bwd) is None
+
+
+@pytest.mark.parametrize("case", list(MANY_WAVES))
+def test_onchip_plan_sends_backwards_of_many_waves_to_two_passes(case):
+    kind, Fr, P, C, G, size = MANY_WAVES[case]
+    assert tn.onchip_plan(kind, Fr, P, C, G, size, tn.REDUCE_NONE, **H100) is not None
+    assert tn.onchip_plan(kind, Fr, P, C, G, size, tn.REDUCE_NONE, **H100, backward=True) is None
+
+
+def test_onchip_plan_small_waves_take_two_passes():
+    """A card whose blocks hold less: forward waves of one 8.4 MB slab (a
+    64-channel frame) take two passes; a single such wave takes one."""
+    small = dict(H100, smem=100 * 1024)
+    plan = lambda Fr: tn.onchip_plan("group", Fr, 65536, 64, 4, BF, tn.REDUCE_NONE, **small)
+    assert plan(48) is None
+    assert plan(1) is not None and plan(1).K == 1
+
+
+def test_onchip_plan_fpn_mid_conv_backward_over_budget():
+    """The FPN's 160-channel frame: its forward's slab of x fits (one pass),
+    its backward's x and fp32 g' do not, in any whole groups of 128-byte row
+    pieces: two passes."""
+    plan = lambda bwd: tn.onchip_plan("group", 48, 65536, 160, 4, BF, tn.REDUCE_NONE, **H100,
+                                      backward=bwd)
+    assert plan(False) == tn.OnchipPlan(W=160, K=1, bps=132, rpb=497)
+    assert plan(True) is None
+
+
+@pytest.mark.parametrize("bwd", [False, True], ids=["forward", "backward"])
+def test_onchip_plan_budget_edge(bwd):
+    """A frame of one group one row over what the card's blocks hold goes
+    to two passes; at the budget, one pass over every SM."""
+    C = 64
+    cap = ((H100["smem"] - tn._onchip_smem_bytes(0, C, BF, bwd))
+           // tn._onchip_row_bytes(C, BF, bwd))
+    plan = lambda P: tn.onchip_plan("group", 4, P, C, 1, BF, tn.REDUCE_NONE, **H100,
+                                    backward=bwd)
+    assert plan(cap * H100["sms"]) == tn.OnchipPlan(W=C, K=1, bps=H100["sms"], rpb=cap)
+    assert plan(cap * H100["sms"] + 1) is None
+    small = dict(H100, sms=66, smem=116224)  # half the SMs, half the shared memory
+    assert tn.onchip_plan("group", 1, cap * H100["sms"] // 8, C, 1, BF, tn.REDUCE_NONE,
+                          **small, backward=bwd) is not None
+    assert tn.onchip_plan("group", 1, cap * H100["sms"], C, 1, BF, tn.REDUCE_NONE, **small,
+                          backward=bwd) is None

@@ -239,10 +239,29 @@ def test_counters_need_a_profiler_and_a_step():
     assert tracing.steps() == []
 
 
+def test_counter_into_the_record_of_another_thread():
+    """Autograd runs a CUDA backward on its own thread: there a counter adds
+    to the record its forward took with ``open_record``, and to nothing
+    without it."""
+    import threading
+    model = torch.nn.Linear(1, 1)
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tracing.open_record() is None
+        with tracing.step("train_step", model):
+            rec = tracing.open_record()
+            tracing.count("norm_onchip", 3)
+            t = threading.Thread(target=lambda: (tracing.count("norm_onchip", 5),
+                                                 tracing.count("norm_onchip", 7, rec)))
+            t.start()
+            t.join()
+    (got,) = tracing.take()
+    assert got is rec and got.counters == {"norm_onchip": 10}
+
+
 def test_reader_names():
     """Every new metric resolves to ``device_ms.py`` or ``mb.py``; every other
     name in BENCHMARK.json to the file it resolves to without them."""
-    assert len(NEW_METRICS) == 22
+    assert len(NEW_METRICS) == 24
     for m in NEW_METRICS:
         want = "mb" if m["name"].split(".")[0].endswith("_mb") else "device_ms"
         assert harness.reader(m["name"]).__module__ == f"bench_h100.metrics.{want}"

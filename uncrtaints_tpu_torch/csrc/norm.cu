@@ -32,9 +32,9 @@
 // affine and the activation into one pass, their autodiff into the
 // neighbours. Here that fusion is written by hand.
 //
-// Bound: device memory. The forward reads x twice (statistics, apply) and
-// writes y once; the backward reads g and x twice (sums, dx) and writes dx.
-// What the design does about it:
+// Bound: device memory. The passes above read x twice (statistics, apply)
+// and write y once; the backward reads g and x twice (sums, dx) and writes
+// dx. What the design does about it:
 // - every element moves as part of a 16-byte vector where C and the
 //   pointers allow (8 bf16 or 4 fp32 channels a thread), converted to fp32
 //   in registers: no fp32 copy of x and no pre-activation map is written;
@@ -49,9 +49,39 @@
 //   each way, so a norm is four launches forward and four backward.
 // Channel counts or pointers that rule out 16-byte vectors take the scalar
 // instantiation (one channel a thread) of the same kernels.
+//
+// One pass (group and instance norms, no collective): a frame's statistics
+// need only that frame's rows, and a slab of whole groups of one frame fits
+// the card's shared memory. norm_apply_kernel_onchip and
+// norm_dx_kernel_onchip do the whole forward or backward in one cooperative
+// launch of one block an SM: x (and g) cross device memory once, y (dx) is
+// written once. The grid walks the slabs in waves (K slabs a wave, each over
+// bps blocks). A block copies its rows of the wave's slab into shared memory
+// (cp.async, 16 bytes a copy) and adds its per-channel sums in lane order
+// (a warp's rows folded by a shuffle tree first); it writes its per-group
+// (backward: per-channel) partial; a grid barrier; every block of the slab
+// adds the slab's partials in the same fixed order (same bits in every
+// block, no atomics), derives coef / off (backward: A, B) exactly as the
+// finalize kernels do, and applies them to its rows from shared memory. As
+// the apply frees a row's slot it copies the next wave's row into it and
+// adds that row's sums a few rows later, once the copy has landed: the next
+// wave's reads and sums overlap this wave's writes, and only the block's
+// reduction, the barrier and the per-slot math lie between two waves (about
+// 5 us on an H100; ops/norm.py:onchip_plan takes one pass only where the
+// waves are long enough to pay for that). The backward keeps g' = g *
+// act'(pre) in fp32 in g's slot once its sums are taken, so dx does not
+// recompute the activation's derivative. The partials alternate between two
+// buffers by wave, so one barrier a wave suffices. The backward's dweight
+// and dbias add the per-slot sums over the frames in order after one last
+// barrier.
 #include <initializer_list>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cgrp = cooperative_groups;
+
 
 namespace {
 
@@ -420,6 +450,567 @@ __global__ void __launch_bounds__(NORM_THREADS)
   }
 }
 
+// ------------------------------------------------ the one-pass kernels --
+
+constexpr int OC_THREADS = 512;
+constexpr int OC_WARPS = OC_THREADS / 32;
+// rows a thread has in flight while it applies (the forward's x; the
+// backward's g and x, two copies a row, take half as many)
+constexpr int ONCHIP_LAG = 8;
+
+// The wave plan of the one-pass kernels (ops/norm.py:onchip_plan chooses it):
+// F frames of P rows, C channels in G groups; a slab is W channels (whole
+// groups) of one frame's rows; a wave holds K slabs, each spread over bps
+// blocks of rpb rows (the last block of a slab fewer); the grid is K * bps
+// blocks, one an SM.
+struct OnchipPlan {
+  long long F, P, rpb;
+  int C, G, W, K, bps;
+};
+
+// A block's dynamic shared memory: its rows [rpb][W] (elem bytes an element:
+// the forward's x; the backward's x and, beside it, g' in fp32), then fp32
+// scratch: the row lanes' sums [OC_RED], their chunk sums [OC_THREADS], two
+// per-channel arrays [W]. ops/norm.py:_onchip_smem_bytes is the same sum.
+constexpr int OC_RED = OC_THREADS * 8;
+__host__ __device__ inline long long onchip_data_bytes(long long rpb, int W, int elem) {
+  return (rpb * W * elem + 15) / 16 * 16;
+}
+__host__ __device__ inline long long onchip_smem_bytes(long long rpb, int W, int elem) {
+  return onchip_data_bytes(rpb, W, elem) + 4LL * (OC_RED + OC_THREADS + 2 * W);
+}
+
+// every lane gets the same bits (a + b == b + a at each level of the tree)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// out[c], c < W: the block's total of channel c over its row lanes, in a
+// fixed order. Row lane rl, lane `lane` holds v[k] of channel lane * VEC + k;
+// red [RL][W] holds them, then OC_THREADS / W threads a channel add strided
+// chunks of lanes into red2, then one thread a channel adds the chunks.
+template <int VEC>
+__device__ void lane_totals(const float* v, bool active, int rl, int lane, int RL, int W,
+                            float* red, float* red2, float* out) {
+  __syncthreads();
+  if (active)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) red[rl * W + lane * VEC + k] = v[k];
+  __syncthreads();
+  const int H = OC_THREADS / W, tid = threadIdx.x;
+  if (tid < H * W) {
+    const int c = tid % W, h = tid / W;
+    float t = 0.0f;
+    for (int l = h; l < RL; l += H) t += red[l * W + c];
+    red2[h * W + c] = t;
+  }
+  __syncthreads();
+  if (tid < W) {
+    float t = 0.0f;
+    for (int h = 0; h < H; ++h) t += red2[h * W + tid];
+    out[tid] = t;
+  }
+}
+
+// outa[c], outb[c], c < W: the block's totals of a and b (a thread's VEC
+// channels, as lane_totals) in a fixed order, then a barrier. Where a row's
+// cvec lanes divide a warp, each warp first folds its rows with a shuffle
+// tree and one row a warp goes through shared memory; a and b are changed.
+template <int VEC>
+__device__ void channel_totals(float* a, float* b, bool active, int rl, int lane, int cvec,
+                               int RL, int W, float* red, float* red2, float* outa,
+                               float* outb) {
+  if (32 % cvec) {
+    lane_totals<VEC>(a, active, rl, lane, RL, W, red, red2, outa);
+    lane_totals<VEC>(b, active, rl, lane, RL, W, red, red2, outb);
+    __syncthreads();
+    return;
+  }
+  for (int o = cvec; o < 32; o <<= 1)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      a[k] += __shfl_xor_sync(0xffffffffu, a[k], o);
+      b[k] += __shfl_xor_sync(0xffffffffu, b[k], o);
+    }
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const bool first = (tid & 31) < cvec, both = 2 * OC_WARPS * W <= OC_RED;
+  float* rb = both ? red + OC_WARPS * W : red;
+  __syncthreads();
+  if (first)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      red[warp * W + lane * VEC + k] = a[k];
+      if (both) rb[warp * W + lane * VEC + k] = b[k];
+    }
+  __syncthreads();
+  for (int c = tid; c < (both ? 2 * W : W); c += OC_THREADS) {
+    const float* src = c < W ? red + c : rb + (c - W);
+    float t = 0.0f;
+    for (int w = 0; w < OC_WARPS; ++w) t += src[w * W];
+    (c < W ? outa[c] : outb[c - W]) = t;
+  }
+  if (!both) {
+    __syncthreads();
+    if (first)
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) rb[warp * W + lane * VEC + k] = b[k];
+    __syncthreads();
+    for (int c = tid; c < W; c += OC_THREADS) {
+      float t = 0.0f;
+      for (int w = 0; w < OC_WARPS; ++w) t += rb[w * W + c];
+      outb[c] = t;
+    }
+  }
+  __syncthreads();
+}
+
+// 16 bytes of VEC values rounded to T, stored with the streaming hint (read
+// by the next layer, never by this kernel again)
+template <typename T, int VEC>
+__device__ __forceinline__ void store_stream(T* p, const float* v) {
+  static_assert(VEC * sizeof(T) == 16, "one 16-byte vector");
+  uint4 u;
+  T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) e[j] = from_f32<T>(v[j]);
+  __stcs(reinterpret_cast<uint4*>(p), u);
+}
+
+// Where block blockIdx.x works in wave wv: whether it has a slab (a wave
+// past the last has none), the slab's frame and first channel, the block's
+// first row and row count.
+struct OnchipSlot {
+  bool has;
+  long long f, r0, nrows;
+  int c0;
+};
+
+__device__ __forceinline__ OnchipSlot onchip_slot(const OnchipPlan& pl, long long wv) {
+  const int ngr = pl.C / pl.W, si = blockIdx.x / pl.bps, piece = blockIdx.x % pl.bps;
+  const long long slab = wv * pl.K + si;
+  OnchipSlot o;
+  o.has = slab < pl.F * ngr;
+  o.f = o.has ? slab / ngr : 0;
+  o.c0 = o.has ? static_cast<int>(slab % ngr) * pl.W : 0;
+  o.r0 = static_cast<long long>(piece) * pl.rpb;
+  o.nrows = o.has ? max(0LL, min(pl.rpb, pl.P - o.r0)) : 0;
+  return o;
+}
+
+// the element offset of the block's first row of its slab, at channel c
+__device__ __forceinline__ long long onchip_base(const OnchipPlan& pl, const OnchipSlot& o,
+                                                 int c) {
+  return (o.f * pl.P + o.r0) * pl.C + o.c0 + c;
+}
+
+// The whole forward of a group (kind 1, form 0) or instance norm (kind 2,
+// form 1) in one pass; coef, off, mvn as norm_finalize_kernel writes them
+// (the first block of each slab writes its slab's), y = act(pre). part
+// [2][K * bps][gr][2] fp32 scratch (gr = W / (C / G) groups a slab).
+template <typename T, int ACT>
+__global__ void __launch_bounds__(OC_THREADS, 1)
+    norm_apply_kernel_onchip(const T* __restrict__ x, const void* __restrict__ w,
+                             const void* __restrict__ b, int wcode, int kind, OnchipPlan pl,
+                             float count, float* __restrict__ part, T* __restrict__ coef,
+                             T* __restrict__ off, float* __restrict__ mvn, T* __restrict__ y) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = pl.W, C = pl.C, cvec = W / VEC, RL = OC_THREADS / cvec;
+  const int tid = threadIdx.x, lane = tid % cvec, rl = tid / cvec;
+  const bool active = rl < RL;
+  const int cg = C / pl.G, gr = W / cg, warp = tid >> 5, wl = tid & 31;
+  const int si = blockIdx.x / pl.bps, piece = blockIdx.x % pl.bps;
+  const int form = kind == kInstance ? 1 : 0;
+  T* buf = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(smem + onchip_data_bytes(pl.rpb, W, sizeof(T)));
+  float* red2 = red + OC_RED;
+  float* ca = red2 + OC_THREADS;  // the sums of x, then coef
+  float* cb = ca + W;             // the sums of x^2, then off
+  const long long FG = pl.F * pl.G;
+  const long long nwave = (pl.F * (C / W) + pl.K - 1) / pl.K;
+  cgrp::grid_group grid = cgrp::this_grid();
+  // a thread's rows of its slab are r = rl + i * RL (rows(n) of them below
+  // n), each in its own slot of buf: slot(r)
+  auto rows = [&](long long n) { return n > rl ? (n - rl + RL - 1) / RL : 0LL; };
+  auto slot = [&](long long r) { return buf + (r * cvec + lane) * VEC; };
+  float s[VEC], q[VEC];  // the sums of x and x^2 of the thread's rows on chip
+  auto add_row = [&](long long r) {
+    float v[VEC];
+    load_f32<T, VEC>(slot(r), v);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      s[k] += v[k];
+      q[k] = fmaf(v[k], v[k], q[k]);
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) s[k] = q[k] = 0.0f;
+  OnchipSlot o = onchip_slot(pl, 0);
+  const long long first = active ? rows(o.nrows) : 0;
+  for (long long i = 0; i < first; ++i)
+    cp_async16(slot(rl + i * RL), x + onchip_base(pl, o, lane * VEC) + (rl + i * RL) * C, true);
+  cp_async_commit();
+  cp_async_wait<0>();
+  for (long long i = 0; i < first; ++i) add_row(rl + i * RL);
+  for (long long wv = 0; wv < nwave; ++wv) {
+    float* pbuf = part + (wv & 1) * (2LL * pl.K * pl.bps * gr);
+    const long long base = onchip_base(pl, o, lane * VEC);
+    const OnchipSlot nx = onchip_slot(pl, wv + 1);
+    const long long nbase = onchip_base(pl, nx, lane * VEC);
+    channel_totals<VEC>(s, q, active, rl, lane, cvec, RL, W, red, red2, ca, cb);
+    for (int j = warp; j < gr; j += OC_WARPS) {  // the block's sums a group
+      float ts = 0.0f, tq = 0.0f;
+      for (int k = wl; k < cg; k += 32) {
+        ts += ca[j * cg + k];
+        tq += cb[j * cg + k];
+      }
+      ts = warp_sum(ts);
+      tq = warp_sum(tq);
+      if (wl == 0) {
+        pbuf[(static_cast<long long>(blockIdx.x) * gr + j) * 2] = ts;
+        pbuf[(static_cast<long long>(blockIdx.x) * gr + j) * 2 + 1] = tq;
+      }
+    }
+    // the slab's weight and bias into red2 (free until the next wave's
+    // totals) while the barrier waits
+    const bool pre = kind != kInstance && 2 * W <= OC_THREADS;
+    if (pre && tid < W) {
+      red2[tid] = wload(w, wcode, o.c0 + tid);
+      red2[W + tid] = wload(b, wcode, o.c0 + tid);
+    }
+    grid.sync();
+    if (o.has) {  // the slab's sums over its blocks, then coef / off
+      const float* ps = pbuf + static_cast<long long>(si) * pl.bps * gr * 2;
+      for (int j = warp; j < gr; j += OC_WARPS) {
+        float ts = 0.0f, tq = 0.0f;
+        for (int p = wl; p < pl.bps; p += 32) {
+          ts += ps[(static_cast<long long>(p) * gr + j) * 2];
+          tq += ps[(static_cast<long long>(p) * gr + j) * 2 + 1];
+        }
+        ts = warp_sum(ts);
+        tq = warp_sum(tq);
+        const float m = __fdiv_rn(ts, count);
+        const float raw = __fsub_rn(__fdiv_rn(tq, count), __fmul_rn(m, m));
+        const float v = fmaxf(raw, 0.0f);
+        const float rr = rsqrtf(__fadd_rn(v, NORM_EPS));
+        const long long fg = o.f * pl.G + o.c0 / cg + j;
+        if (piece == 0 && wl == 0) {
+          mvn[fg] = m;
+          mvn[FG + fg] = v;
+          mvn[2 * FG + fg] = raw;
+        }
+        for (int k = wl; k < cg; k += 32) {
+          const int c = o.c0 + j * cg + k;
+          float cf, of;
+          if (kind == kInstance) {
+            cf = rr;
+            of = m;
+          } else {
+            cf = __fmul_rn(rr, pre ? red2[j * cg + k] : wload(w, wcode, c));
+            of = __fsub_rn(pre ? red2[W + j * cg + k] : wload(b, wcode, c), __fmul_rn(m, cf));
+          }
+          const T ct = from_f32<T>(cf), ot = from_f32<T>(of);
+          ca[j * cg + k] = to_f32(ct);
+          cb[j * cg + k] = to_f32(ot);
+          if (piece == 0) {
+            coef[o.f * C + c] = ct;
+            off[o.f * C + c] = ot;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // y from the rows on chip. Each row's slot, once read, takes the next
+    // wave's row (a thread's slots are its own), whose sums are added LAG
+    // rows later, once its copy has landed: the next wave's reads and sums
+    // overlap this wave's writes.
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) s[k] = q[k] = 0.0f;
+    const long long mine = o.has && active ? rows(o.nrows) : 0;
+    const long long next = active ? rows(nx.nrows) : 0;
+    long long i = 0;
+    if (mine > 0) {
+      float cf[VEC], of[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        cf[k] = ca[lane * VEC + k];
+        of[k] = cb[lane * VEC + k];
+      }
+      for (; i < mine; ++i) {
+        const long long r = rl + i * RL;
+        float v[VEC], out[VEC];
+        load_f32<T, VEC>(slot(r), v);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          out[k] = act_f<ACT>(pre_act<T>(v[k], cf[k], of[k], form, 1.0f, 0.0f));
+        store_stream<T, VEC>(y + base + r * C, out);
+        if (i < next) cp_async16(slot(r), x + nbase + r * C, true);
+        cp_async_commit();
+        const long long j = i - ONCHIP_LAG;
+        if (j >= 0 && j < next) {
+          cp_async_wait<ONCHIP_LAG>();
+          add_row(rl + j * RL);
+        }
+      }
+    }
+    long long done = i > ONCHIP_LAG ? (i - ONCHIP_LAG < next ? i - ONCHIP_LAG : next) : 0;
+    for (; i < next; ++i) cp_async16(slot(rl + i * RL), x + nbase + (rl + i * RL) * C, true);
+    cp_async_commit();
+    cp_async_wait<0>();
+    for (; done < next; ++done) add_row(rl + done * RL);
+    o = nx;
+    // channel_totals' first barrier keeps ca / cb until every thread of the
+    // block has read them
+  }
+  if (blockIdx.x == 0 && tid == 0) mvn[3 * FG] = count;
+}
+
+// The whole backward of a group or instance norm in one pass: from g, x and
+// the forward's coef, off, mvn, dx (as norm_dx_kernel) and, for group norm,
+// dweight / dbias (as norm_bwd_finalize_kernel). part [2][K * bps][W][2]
+// and S [2][F][C] fp32 scratch (the slots' sums of g' and g' * x).
+template <typename T, int ACT>
+__global__ void __launch_bounds__(OC_THREADS, 1)
+    norm_dx_kernel_onchip(const T* __restrict__ gy, const T* __restrict__ x,
+                          const void* __restrict__ w, int wcode, const T* __restrict__ coef,
+                          const T* __restrict__ off, const float* __restrict__ mvn, int kind,
+                          OnchipPlan pl, float* __restrict__ part, float* __restrict__ S,
+                          void* __restrict__ dw, void* __restrict__ db, T* __restrict__ dx) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = pl.W, C = pl.C, cvec = W / VEC, RL = OC_THREADS / cvec;
+  const int tid = threadIdx.x, lane = tid % cvec, rl = tid / cvec;
+  const bool active = rl < RL;
+  const int cg = C / pl.G, gr = W / cg, warp = tid >> 5, wl = tid & 31;
+  const int si = blockIdx.x / pl.bps, piece = blockIdx.x % pl.bps;
+  const int form = kind == kInstance ? 1 : 0;
+  T* xb = reinterpret_cast<T*>(smem);  // x, then g' in fp32 in g's slots
+  float* gb = reinterpret_cast<float*>(smem + pl.rpb * W * sizeof(T));
+  float* red = reinterpret_cast<float*>(smem + onchip_data_bytes(pl.rpb, W, sizeof(T) + 4));
+  float* red2 = red + OC_RED;
+  float* ca = red2 + OC_THREADS;  // the slots' sums of g', then A
+  float* cb = ca + W;             // of g' * x, then B
+  const long long FG = pl.F * pl.G, FC = pl.F * C;
+  const float n = mvn[3 * FG];
+  const long long nwave = (pl.F * (C / W) + pl.K - 1) / pl.K;
+  cgrp::grid_group grid = cgrp::this_grid();
+  constexpr int LAG = ONCHIP_LAG / 2;
+  auto rows = [&](long long n) { return n > rl ? (n - rl + RL - 1) / RL : 0LL; };
+  auto xs = [&](long long r) { return xb + (r * cvec + lane) * VEC; };
+  auto gs = [&](long long r) { return gb + (r * cvec + lane) * VEC; };
+  // row r of the slab at element `at`: g's 16 bytes at the front of its slot
+  auto fetch = [&](long long r, long long at) {
+    cp_async16(xs(r), x + at + r * C, true);
+    cp_async16(gs(r), gy + at + r * C, true);
+  };
+  // the slots' coef / off of the thread's lanes, and its sums of g' and
+  // g' * x over its rows on chip
+  float cf[VEC], of[VEC], s1[VEC], s2[VEC];
+  // g' = g * act'(pre) of row r added to the sums and kept in its slot
+  auto add_row = [&](long long r, const float* c, const float* o_) {
+    float xv[VEC], gv[VEC];
+    load_f32<T, VEC>(xs(r), xv);
+    load_f32<T, VEC>(reinterpret_cast<const T*>(gs(r)), gv);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      gv[k] *= act_grad<ACT>(pre_act<T>(xv[k], c[k], o_[k], form, 1.0f, 0.0f));
+      s1[k] += gv[k];
+      s2[k] = fmaf(gv[k], xv[k], s2[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; k += 4)
+      *reinterpret_cast<float4*>(gs(r) + k) = make_float4(gv[k], gv[k + 1], gv[k + 2], gv[k + 3]);
+  };
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) s1[k] = s2[k] = 0.0f;
+  OnchipSlot o = onchip_slot(pl, 0);
+  const long long first = active ? rows(o.nrows) : 0;
+  for (long long i = 0; i < first; ++i) fetch(rl + i * RL, onchip_base(pl, o, lane * VEC));
+  cp_async_commit();
+  load_f32<T, VEC>(coef + o.f * C + o.c0 + lane * VEC, cf);
+  load_f32<T, VEC>(off + o.f * C + o.c0 + lane * VEC, of);
+  cp_async_wait<0>();
+  for (long long i = 0; i < first; ++i) add_row(rl + i * RL, cf, of);
+  for (long long wv = 0; wv < nwave; ++wv) {
+    float* pbuf = part + (wv & 1) * (2LL * pl.K * pl.bps * W);
+    const long long base = onchip_base(pl, o, lane * VEC);
+    const OnchipSlot nx = onchip_slot(pl, wv + 1);
+    const long long nbase = onchip_base(pl, nx, lane * VEC);
+    channel_totals<VEC>(s1, s2, active, rl, lane, cvec, RL, W, red, red2, ca, cb);
+    if (tid < W) {
+      pbuf[(static_cast<long long>(blockIdx.x) * W + tid) * 2] = ca[tid];
+      pbuf[(static_cast<long long>(blockIdx.x) * W + tid) * 2 + 1] = cb[tid];
+    }
+    // what the per-group chain reads besides the sums, into red2 while the
+    // barrier waits: a channel's weight (instance: coef, off), a group's
+    // mean, variance and variance before the clamp
+    const bool pre = 2 * W + 3 * gr <= OC_THREADS;
+    if (pre) {
+      for (int c = tid; c < W; c += OC_THREADS) {
+        const long long slot = o.f * C + o.c0 + c;
+        if (kind == kInstance) {
+          red2[c] = to_f32(coef[slot]);
+          red2[W + c] = to_f32(off[slot]);
+        } else {
+          red2[c] = wload(w, wcode, o.c0 + c);
+        }
+      }
+      for (int j = tid; j < gr; j += OC_THREADS) {
+        const long long fg = o.f * pl.G + o.c0 / cg + j;
+        red2[2 * W + j] = mvn[fg];
+        red2[2 * W + gr + j] = mvn[FG + fg];
+        red2[2 * W + 2 * gr + j] = mvn[2 * FG + fg];
+      }
+    }
+    grid.sync();
+    if (o.has) {  // the slots' sums over the slab's blocks, then A, B
+      // OC_THREADS / W threads a channel add strided blocks, then one adds
+      // their sums: a fixed order
+      const float* ps = pbuf + static_cast<long long>(si) * pl.bps * W * 2;
+      const int H = OC_THREADS / W;
+      if (tid < H * W) {
+        const int c = tid % W, h = tid / W;
+        float t1 = 0.0f, t2 = 0.0f;
+#pragma unroll 16
+        for (int p = h; p < pl.bps; p += H) {
+          t1 += ps[(static_cast<long long>(p) * W + c) * 2];
+          t2 += ps[(static_cast<long long>(p) * W + c) * 2 + 1];
+        }
+        red[h * W + c] = t1;
+        red[OC_THREADS + h * W + c] = t2;
+      }
+      __syncthreads();
+      if (tid < W) {
+        float t1 = 0.0f, t2 = 0.0f;
+        for (int h = 0; h < H; ++h) {
+          t1 += red[h * W + tid];
+          t2 += red[OC_THREADS + h * W + tid];
+        }
+        ca[tid] = t1;
+        cb[tid] = t2;
+        if (piece == 0) {
+          S[o.f * C + o.c0 + tid] = t1;
+          S[FC + o.f * C + o.c0 + tid] = t2;
+        }
+      }
+      __syncthreads();
+      for (int j = warp; j < gr; j += OC_WARPS) {
+        const long long fg = o.f * pl.G + o.c0 / cg + j;
+        const float m = pre ? red2[2 * W + j] : mvn[fg];
+        const float v = pre ? red2[2 * W + gr + j] : mvn[FG + fg];
+        const float raw = pre ? red2[2 * W + 2 * gr + j] : mvn[2 * FG + fg];
+        const float rr = rsqrtf(__fadd_rn(v, NORM_EPS));
+        float dr = 0.0f, dm = 0.0f;
+        for (int k = wl; k < cg; k += 32) {
+          const int c = j * cg + k;
+          const float t1 = ca[c], t2 = cb[c];
+          if (kind == kInstance) {  // y = (x - m_T) * r_T
+            const long long slot = o.f * C + o.c0 + c;
+            const float mt = pre ? red2[W + c] : to_f32(off[slot]);
+            const float rt = pre ? red2[c] : to_f32(coef[slot]);
+            dr += t2 - mt * t1;
+            dm -= rt * t1;
+          } else {
+            const float wc = pre ? red2[c] : wload(w, wcode, o.c0 + c);
+            dr += wc * (t2 - m * t1);
+            dm -= rr * wc * t1;
+          }
+        }
+        dr = warp_sum(dr);
+        dm = warp_sum(dm);
+        const float dv = raw >= 0.0f ? dr * -0.5f * rr * rr * rr : 0.0f;
+        const float A = 2.0f * dv / n, B = (dm - 2.0f * m * dv) / n;
+        __syncwarp();
+        for (int k = wl; k < cg; k += 32) {
+          ca[j * cg + k] = A;
+          cb[j * cg + k] = B;
+        }
+      }
+    }
+    __syncthreads();
+    // dx from the rows on chip; the next wave's rows into the freed slots,
+    // their sums added LAG rows later (as the forward)
+    float cn[VEC], on[VEC];  // the next slab's coef / off
+    load_f32<T, VEC>(coef + nx.f * C + nx.c0 + lane * VEC, cn);
+    load_f32<T, VEC>(off + nx.f * C + nx.c0 + lane * VEC, on);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) s1[k] = s2[k] = 0.0f;
+    const long long mine = o.has && active ? rows(o.nrows) : 0;
+    const long long next = active ? rows(nx.nrows) : 0;
+    long long i = 0;
+    if (mine > 0) {
+      float A[VEC], B[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        A[k] = ca[lane * VEC + k];
+        B[k] = cb[lane * VEC + k];
+      }
+      for (; i < mine; ++i) {
+        const long long r = rl + i * RL;
+        float xv[VEC], out[VEC];
+        load_f32<T, VEC>(xs(r), xv);
+        const float* gp = gs(r);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          float d = gp[k] * cf[k];
+          d += fmaf(A[k], xv[k], B[k]);
+          out[k] = d;
+        }
+        store_stream<T, VEC>(dx + base + r * C, out);
+        if (i < next) fetch(r, nbase);
+        cp_async_commit();
+        const long long j = i - LAG;
+        if (j >= 0 && j < next) {
+          cp_async_wait<LAG>();
+          add_row(rl + j * RL, cn, on);
+        }
+      }
+    }
+    long long done = i > LAG ? (i - LAG < next ? i - LAG : next) : 0;
+    for (; i < next; ++i) fetch(rl + i * RL, nbase);
+    cp_async_commit();
+    cp_async_wait<0>();
+    for (; done < next; ++done) add_row(rl + done * RL, cn, on);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      cf[k] = cn[k];
+      of[k] = on[k];
+    }
+    o = nx;
+  }
+  if (dw == nullptr) return;
+  grid.sync();  // every slab's S is written
+  constexpr int U = 8;
+  for (int c = blockIdx.x * OC_THREADS + tid; c < C; c += gridDim.x * OC_THREADS) {
+    const int g = c / cg;
+    float sw = 0.0f, sb = 0.0f;
+    for (long long f0 = 0; f0 < pl.F; f0 += U) {  // U frames' loads in flight, added in order
+      float mu[U], vu[U], a1[U], a2[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long f = f0 + u < pl.F ? f0 + u : f0;
+        const long long fg = f * pl.G + g;
+        mu[u] = mvn[fg];
+        vu[u] = mvn[FG + fg];
+        a1[u] = S[f * C + c];
+        a2[u] = S[FC + f * C + c];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (f0 + u < pl.F) {
+          const float r = rsqrtf(__fadd_rn(vu[u], NORM_EPS));
+          sw += r * (a2[u] - mu[u] * a1[u]);
+          sb += a1[u];
+        }
+      }
+    }
+    wstore(dw, wcode, c, sw);
+    wstore(db, wcode, c, sb);
+  }
+}
+
 // ----------------------------------------------------------- launches --
 //
 // The slot arrays coef / off are in x's dtype T for forms 0 and 1 and in
@@ -675,6 +1266,116 @@ int run_dx(const void* g, const void* x, const void* coef, const void* off, Affi
   return err ? err : static_cast<int>(cudaGetLastError());
 }
 
+// The one-pass launches: the plan checked against the kernels' assumptions
+// (whole groups a slab, 16-byte row pieces, a channel a thread in the
+// reductions, every row covered), then one cooperative launch of K * bps
+// blocks; the runtime refuses a grid that cannot be resident at once.
+template <typename T>
+bool onchip_plan_ok(const OnchipPlan& pl, int elem, std::initializer_list<const void*> ptrs) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (pl.F <= 0 || pl.P <= 0 || pl.C <= 0 || pl.G <= 0 || pl.W <= 0 || pl.K <= 0 ||
+      pl.bps <= 0 || pl.rpb <= 0 || pl.C % pl.G || pl.C % pl.W || pl.W % (pl.C / pl.G) ||
+      pl.W % VEC || pl.W > OC_THREADS || pl.rpb * pl.bps < pl.P ||
+      pl.F * pl.P > (1LL << 40) || pl.F * pl.G > (1LL << 31) - 1)
+    return false;
+  for (const void* p : ptrs)
+    if (p == nullptr || !aligned16(p)) return false;
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return onchip_smem_bytes(pl.rpb, pl.W, elem) <= optin;
+}
+
+template <typename Kern>
+int launch_cooperative(Kern kern, const OnchipPlan& pl, long long smem, void** args,
+                       cudaStream_t s) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                    dim3(static_cast<unsigned>(pl.K * pl.bps)), dim3(OC_THREADS),
+                                    args, static_cast<size_t>(smem), s);
+  return static_cast<int>(err);
+}
+
+template <typename T, int ACT>
+struct OnchipFwdL {
+  static int run(const void* x, const void* w, const void* b, int wcode, int kind, OnchipPlan pl,
+                 float count, float* part, void* coef, void* off, float* mvn, void* y,
+                 cudaStream_t s) {
+    const T* xp = static_cast<const T*>(x);
+    T* cp = static_cast<T*>(coef);
+    T* op = static_cast<T*>(off);
+    T* yp = static_cast<T*>(y);
+    void* args[] = {&xp, &w, &b, &wcode, &kind, &pl, &count, &part, &cp, &op, &mvn, &yp};
+    return launch_cooperative(norm_apply_kernel_onchip<T, ACT>, pl,
+                              onchip_smem_bytes(pl.rpb, pl.W, sizeof(T)), args, s);
+  }
+};
+
+template <typename T, int ACT>
+struct OnchipBwdL {
+  static int run(const void* g, const void* x, const void* w, int wcode, const void* coef,
+                 const void* off, const float* mvn, int kind, OnchipPlan pl, float* part,
+                 float* S, void* dw, void* db, void* dx, cudaStream_t s) {
+    const T* gp = static_cast<const T*>(g);
+    const T* xp = static_cast<const T*>(x);
+    const T* cp = static_cast<const T*>(coef);
+    const T* op = static_cast<const T*>(off);
+    T* dxp = static_cast<T*>(dx);
+    void* args[] = {&gp, &xp, &w, &wcode, &cp, &op, &mvn, &kind, &pl, &part, &S, &dw, &db, &dxp};
+    return launch_cooperative(norm_dx_kernel_onchip<T, ACT>, pl,
+                              onchip_smem_bytes(pl.rpb, pl.W, sizeof(T) + 4), args, s);
+  }
+};
+
+int run_onchip_forward(const void* x, const void* w, const void* b, int wcode, int kind,
+                       int dtype, const OnchipPlan& pl, int act, float count, float* part,
+                       void* coef, void* off, float* mvn, void* y, cudaStream_t s) {
+  if ((kind != kGroup && kind != kInstance) || (kind == kGroup && (w == nullptr || b == nullptr)))
+    return kBad;
+  const std::initializer_list<const void*> ptrs{x, coef, off, y};
+  int err;
+  if (dtype == kBFloat16)
+    err = onchip_plan_ok<__nv_bfloat16>(pl, 2, ptrs)
+              ? with_act<OnchipFwdL, __nv_bfloat16>(act, x, w, b, wcode, kind, pl, count, part,
+                                                    coef, off, mvn, y, s)
+              : kBad;
+  else if (dtype == kFloat32)
+    err = onchip_plan_ok<float>(pl, 4, ptrs)
+              ? with_act<OnchipFwdL, float>(act, x, w, b, wcode, kind, pl, count, part, coef, off,
+                                            mvn, y, s)
+              : kBad;
+  else
+    return kBad;
+  return err ? err : static_cast<int>(cudaGetLastError());
+}
+
+int run_onchip_backward(const void* g, const void* x, const void* w, int wcode, const void* coef,
+                        const void* off, const float* mvn, int kind, int dtype,
+                        const OnchipPlan& pl, int act, float* part, float* S, void* dw, void* db,
+                        void* dx, cudaStream_t s) {
+  if ((kind != kGroup && kind != kInstance) ||
+      (kind == kGroup && (w == nullptr || dw == nullptr || db == nullptr)))
+    return kBad;
+  const std::initializer_list<const void*> ptrs{g, x, coef, off, dx};
+  void* dwk = kind == kInstance ? nullptr : dw;
+  int err;
+  if (dtype == kBFloat16)
+    err = onchip_plan_ok<__nv_bfloat16>(pl, 6, ptrs)
+              ? with_act<OnchipBwdL, __nv_bfloat16>(act, g, x, w, wcode, coef, off, mvn, kind,
+                                                    pl, part, S, dwk, db, dx, s)
+              : kBad;
+  else if (dtype == kFloat32)
+    err = onchip_plan_ok<float>(pl, 8, ptrs)
+              ? with_act<OnchipBwdL, float>(act, g, x, w, wcode, coef, off, mvn, kind, pl, part,
+                                            S, dwk, db, dx, s)
+              : kBad;
+  else
+    return kBad;
+  return err ? err : static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The passes one by one, for a caller that runs a collective between them
@@ -774,4 +1475,42 @@ extern "C" int uncr_norm_backward(const void* g, const void* x, const void* w, c
   if (!err)
     err = run_bwd_finalize(S, mvn, w, wcode, coef, off, kind, F, G, C, cdtype, ab, dw, db, s);
   return err ? err : run_dx(g, x, coef, off, aff, ab, dx, dtype, F, P, C, form, act, s);
+}
+
+// The whole forward of a group or instance norm in one pass (one process, the
+// slab of whole groups on chip): the plan (W channels a slab, K slabs a wave,
+// bps blocks a slab of rpb rows each) from ops/norm.py:onchip_plan; part
+// [2][K * bps][W / (C / G)][2] fp32 scratch; coef, off, mvn, y as
+// uncr_norm_forward gives them.
+extern "C" int uncr_norm_forward_onchip(const void* x, const void* w, const void* b, int wcode,
+                                        int kind, int dtype, long long F, long long P, int C,
+                                        int G, int W, int K, int bps, long long rpb, int act,
+                                        float count, float* part, void* coef, void* off,
+                                        float* mvn, void* y, void* stream) {
+  const OnchipPlan pl{F, P, rpb, C, G, W, K, bps};
+  return run_onchip_forward(x, w, b, wcode, kind, dtype, pl, act, count, part, coef, off, mvn, y,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Its backward in one pass: part [2][K * bps][W][2] and S [2][F][C] fp32
+// scratch; dw, db, dx as uncr_norm_backward gives them.
+extern "C" int uncr_norm_backward_onchip(const void* g, const void* x, const void* w, int wcode,
+                                         const void* coef, const void* off, const float* mvn,
+                                         int kind, int dtype, long long F, long long P, int C,
+                                         int G, int W, int K, int bps, long long rpb, int act,
+                                         float* part, float* S, void* dw, void* db, void* dx,
+                                         void* stream) {
+  const OnchipPlan pl{F, P, rpb, C, G, W, K, bps};
+  return run_onchip_backward(g, x, w, wcode, coef, off, mvn, kind, dtype, pl, act, part, S, dw,
+                             db, dx, static_cast<cudaStream_t>(stream));
+}
+
+// The current device's SM count and the shared memory a block may opt into
+// (what ops/norm.py:onchip_plan sizes the waves by)
+extern "C" int uncr_device_limits(int* out) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -14,7 +14,10 @@ by hand:
               with the pre-activation recomputed -> A, B, dweight, dbias ->
               [collective over A, B] -> dx = g' * coef + A * x + B
 
-as ``torch.library`` operators: ``uncrtaints::norm_act`` (statistics of x:
+(group and instance norms with no collective, whose frame's slab of whole
+groups fits the card's shared memory, take one pass instead: x, and g with
+it, cross device memory once; :func:`onchip_plan` decides) as
+``torch.library`` operators: ``uncrtaints::norm_act`` (statistics of x:
 train-mode batch norm, group and instance norm) with its backward
 ``uncrtaints::norm_act_bwd``, and ``uncrtaints::norm_affine_act`` (a given
 per-channel affine: the eval-mode batch norm) with
@@ -38,12 +41,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from uncrtaints_tpu_torch import _build
+from uncrtaints_tpu_torch import _build, tracing
 from uncrtaints_tpu_torch.parallel import mesh
 
 # batch_f32: the batch norm of the L-TAE's form that UNet3D runs (flax's
@@ -58,6 +61,14 @@ EPS = 1e-5
 REDUCE_NONE, REDUCE_WORLD, REDUCE_SPATIAL = 0, 1, 2
 _BLOCKS_PER_SM = 4  # the statistics' grid: about this many blocks an SM
 _MIN_ROWS = 64  # and at least this many rows a block
+_ONCHIP_THREADS = 512  # the one-pass kernels' block (csrc/norm.cu: OC_THREADS)
+# Where one pass beats two on an H100 (PERF.md §6, K6): each wave costs a
+# few microseconds between its sums and its apply (the block reductions, the
+# grid barrier, the per-slot math), so the forward wants waves of at least
+# this much x (or a single wave), and the backward, whose waves hold one slab
+# of x and fp32 g' at the paths' widths, at most this many waves
+_ONCHIP_MIN_WAVE_BYTES = 12 * 2 ** 20
+_ONCHIP_MAX_BWD_WAVES = 6
 
 
 # -------------------------------------------------- the eager formula --
@@ -303,6 +314,80 @@ def dx_twin(g3: torch.Tensor, x3: torch.Tensor, coef: torch.Tensor, off: torch.T
     return d.to(x3.dtype)
 
 
+# ------------------------------------------------- the one-pass rule --
+
+class OnchipPlan(NamedTuple):
+    """The one-pass kernels' waves: slabs of ``W`` channels (whole groups)
+    of one frame's rows, ``K`` slabs a wave, each over ``bps`` blocks (one an
+    SM) of ``rpb`` rows."""
+    W: int
+    K: int
+    bps: int
+    rpb: int
+
+
+def _onchip_row_bytes(W: int, itemsize: int, backward: bool) -> int:
+    """The bytes a one-pass block holds of a row of its slab: x (backward:
+    x and, beside it, g' in fp32)."""
+    return W * (itemsize + 4 * backward)
+
+
+def _onchip_smem_bytes(rpb: int, W: int, itemsize: int, backward: bool) -> int:
+    """A one-pass block's shared memory (csrc/norm.cu: onchip_smem_bytes):
+    its ``rpb`` rows and the fp32 scratch of its sums."""
+    data = -(-rpb * _onchip_row_bytes(W, itemsize, backward) // 16) * 16
+    return data + 4 * (_ONCHIP_THREADS * 8 + _ONCHIP_THREADS + 2 * W)
+
+
+def onchip_plan(kind: str, frames: int, rows: int, channels: int, groups: int, itemsize: int,
+                reduce: int, sms: int, smem: int, backward: bool = False) -> Optional[OnchipPlan]:
+    """Whether a norm call takes the one-pass kernels, and their waves; None
+    sends it to the two passes. ``kind`` a name of :data:`KINDS` or
+    ``"affine"`` (``norm_affine_act``); ``frames`` x ``rows`` rows of
+    ``channels`` channels (``_geometry``), ``itemsize`` x's bytes an
+    element, ``reduce`` the operator's collective; the card's ``sms`` and
+    the shared memory a block may opt into (``smem``).
+
+    One pass needs statistics per frame (group, instance) and no collective
+    between the passes, rows of whole 16-byte vectors, and a slab of whole
+    groups of one frame whose rows (backward: x and g' in fp32) fit the
+    shared memory of at most ``sms`` blocks. Of the group counts a slab may
+    take (row pieces of at least 128 bytes, or the whole row), the one that
+    holds the most bytes a wave wins, the wider on a tie; its slabs take as
+    many blocks as the card has to spare. Then one pass must be the faster:
+    a forward of one wave or of waves of at least 12 MiB of x, a backward of
+    at most 6 waves (measured crossovers; below them the fixed cost of a
+    wave outweighs the pass it saves)."""
+    if kind not in ("group", "instance") or reduce != REDUCE_NONE or itemsize not in (2, 4):
+        return None
+    C, P = channels, rows
+    G = C if kind == "instance" else groups
+    if frames < 1 or P < 1 or C % G or (C * itemsize) % 16:
+        return None
+    cg = C // G
+    best, key = None, None
+    for gr in (d for d in range(1, G + 1) if G % d == 0):
+        W = gr * cg
+        piece = W * itemsize
+        if piece % 16 or W > _ONCHIP_THREADS or piece < min(128, C * itemsize):
+            continue
+        cap = ((smem - _onchip_smem_bytes(0, W, itemsize, backward))
+               // _onchip_row_bytes(W, itemsize, backward))
+        if cap < 1 or -(-P // cap) > sms:
+            continue
+        K = min(sms // -(-P // cap), frames * (C // W))
+        bps = min(sms // K, P)
+        plan = OnchipPlan(W, K, bps, -(-P // bps))
+        if key is None or (K * P * piece, W) > key:
+            best, key = plan, (K * P * piece, W)
+    if best is None:
+        return None
+    waves = -(-frames * (C // best.W) // best.K)
+    if backward:
+        return best if waves <= _ONCHIP_MAX_BWD_WAVES else None
+    return best if waves == 1 or key[0] >= _ONCHIP_MIN_WAVE_BYTES else None
+
+
 # ------------------------------------------------------ the launches --
 
 @functools.lru_cache(maxsize=None)
@@ -334,6 +419,11 @@ _ENTRIES = {
                           _VP, _VP, _VP, _VP, _VP, _VP],
     "uncr_norm_backward": [_VP, _VP, _VP, _VP, _CI, _VP, _VP, _VP, _CI, _CI, _CLL, _CLL, _CI,
                            _CI, _CI, _CI, _CI, _VP, _VP, _VP, _VP, _VP],
+    "uncr_norm_forward_onchip": [_VP, _VP, _VP, _CI, _CI, _CI, _CLL, _CLL, _CI, _CI, _CI, _CI,
+                                 _CI, _CLL, _CI, _CF, _VP, _VP, _VP, _VP, _VP, _VP],
+    "uncr_norm_backward_onchip": [_VP, _VP, _VP, _CI, _VP, _VP, _VP, _CI, _CI, _CLL, _CLL, _CI,
+                                  _CI, _CI, _CI, _CI, _CLL, _CI, _VP, _VP, _VP, _VP, _VP, _VP],
+    "uncr_device_limits": [_VP],
 }
 
 
@@ -440,9 +530,67 @@ def dx_kernel(g3: torch.Tensor, x3: torch.Tensor, coef: torch.Tensor, off: torch
     return dx
 
 
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int) -> Tuple[int, int]:
+    """(SMs, shared memory a block may opt into) of card ``index``."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        _build.check(_fn("uncr_device_limits")(ctypes.addressof(out)), "uncr_device_limits")
+    return tuple(out)
+
+
+_KIND_NAMES = {v: k for k, v in KINDS.items()}
+
+
+def _onchip_route(x3: torch.Tensor, kind: int, G: int, backward: bool,
+                  *tensors: torch.Tensor) -> Optional[OnchipPlan]:
+    """:func:`onchip_plan` for this call on its card (no collective: the
+    whole pass in one process), None also where a tensor the kernel reads
+    or writes in 16-byte vectors is not aligned to them."""
+    if any(t.data_ptr() % 16 for t in (x3, *tensors)):
+        return None
+    Fr, P, C = x3.shape
+    index = x3.device.index if x3.device.index is not None else torch.cuda.current_device()
+    return onchip_plan(_KIND_NAMES[kind], Fr, P, C, G, x3.element_size(), REDUCE_NONE,
+                       *_device_limits(index), backward=backward)
+
+
 def forward_kernel(x3: torch.Tensor, weight, bias, kind: int, G: int, act: int, form: int,
                    count: int):
-    """The whole forward in one C call (no collective between the passes):
+    """The whole forward (no collective between the passes): in one pass
+    where :func:`onchip_plan` admits the call (counted in
+    ``norm_act.onchip``, and its x's bytes in the step's ``norm_onchip``
+    counter), else the two passes. (y, coef, off, mvn)."""
+    plan = _onchip_route(x3, kind, G, False)
+    if plan is None:
+        return forward_two_pass(x3, weight, bias, kind, G, act, form, count)
+    out = forward_one_pass(x3, weight, bias, kind, G, act, count, plan)
+    norm_act.onchip += 1
+    if tracing.recording():
+        tracing.count("norm_onchip", tracing.nbytes(x3))
+    return out
+
+
+def forward_one_pass(x3: torch.Tensor, weight, bias, kind: int, G: int, act: int, count: int,
+                     plan: OnchipPlan):
+    """The one-pass forward kernel under ``plan``: (y, coef, off, mvn)."""
+    Fr, P, C = x3.shape
+    dev = x3.device
+    part = torch.empty(4 * plan.K * plan.bps * (plan.W // (C // G)), dtype=torch.float32,
+                       device=dev)
+    coef = torch.empty((Fr, C), dtype=x3.dtype, device=dev)
+    off = torch.empty_like(coef)
+    mvn = torch.empty(3 * Fr * G + 1, dtype=torch.float32, device=dev)
+    y = torch.empty_like(x3)
+    _call("uncr_norm_forward_onchip", dev, x3.data_ptr(), _ptr(weight), _ptr(bias), _code(weight),
+          kind, _code(x3), Fr, P, C, G, plan.W, plan.K, plan.bps, plan.rpb, act, float(count),
+          part.data_ptr(), coef.data_ptr(), off.data_ptr(), mvn.data_ptr(), y.data_ptr())
+    return y, coef, off, mvn
+
+
+def forward_two_pass(x3: torch.Tensor, weight, bias, kind: int, G: int, act: int, form: int,
+                     count: int):
+    """The whole forward in one C call of the two-pass kernels:
     (y, coef, off, mvn)."""
     Fr, P, C = x3.shape
     dev = x3.device
@@ -461,7 +609,42 @@ def forward_kernel(x3: torch.Tensor, weight, bias, kind: int, G: int, act: int, 
 def backward_kernel(g3: torch.Tensor, x3: torch.Tensor, weight, bias, mvn: torch.Tensor,
                     coef: torch.Tensor, off: torch.Tensor, kind: int, G: int, act: int,
                     form: int):
-    """The whole backward in one C call: (dx, dweight, dbias)."""
+    """The whole backward: in one pass where :func:`onchip_plan` admits the
+    call (counted in ``norm_act_bwd.onchip``, and g's and x's bytes in the
+    step's ``norm_onchip`` counter), else the two passes. (dx, dweight,
+    dbias)."""
+    plan = _onchip_route(x3, kind, G, True, g3, coef, off)
+    if plan is None:
+        return backward_two_pass(g3, x3, weight, bias, mvn, coef, off, kind, G, act, form)
+    out = backward_one_pass(g3, x3, weight, mvn, coef, off, kind, G, act, plan)
+    norm_act_bwd.onchip += 1
+    if tracing.recording():
+        tracing.count("norm_onchip", 2 * tracing.nbytes(x3))
+    return out
+
+
+def backward_one_pass(g3: torch.Tensor, x3: torch.Tensor, weight, mvn: torch.Tensor,
+                      coef: torch.Tensor, off: torch.Tensor, kind: int, G: int, act: int,
+                      plan: OnchipPlan):
+    """The one-pass backward kernel under ``plan``: (dx, dweight, dbias)."""
+    Fr, P, C = x3.shape
+    dev = x3.device
+    part = torch.empty(4 * plan.K * plan.bps * plan.W, dtype=torch.float32, device=dev)
+    S = torch.empty(2 * Fr * C, dtype=torch.float32, device=dev)
+    dw, db = _param_grads(weight, kind, C, dev)
+    dx = torch.empty_like(x3)
+    _call("uncr_norm_backward_onchip", dev, g3.data_ptr(), x3.data_ptr(), _ptr(weight),
+          _code(weight), coef.data_ptr(), off.data_ptr(), mvn.data_ptr(), kind, _code(x3), Fr, P,
+          C, G, plan.W, plan.K, plan.bps, plan.rpb, act, part.data_ptr(), S.data_ptr(), _ptr(dw),
+          _ptr(db), dx.data_ptr())
+    return dx, dw, db
+
+
+def backward_two_pass(g3: torch.Tensor, x3: torch.Tensor, weight, bias, mvn: torch.Tensor,
+                      coef: torch.Tensor, off: torch.Tensor, kind: int, G: int, act: int,
+                      form: int):
+    """The whole backward in one C call of the two-pass kernels: (dx,
+    dweight, dbias)."""
     Fr, P, C = x3.shape
     dev = x3.device
     bpf = _bpf(x3, Fr, P)
@@ -684,12 +867,18 @@ def _k6_setup(ctx, inputs, output):
     _, mvn, coef, off = output
     ctx.save_for_backward(x, weight, bias, mvn, coef, off)
     ctx.args = (kind, groups, act, reduce)
+    ctx.record = tracing.open_record()
 
 
 def _k6_backward(ctx, gy, _gmvn, _gcoef, _goff):
     x, weight, bias, mvn, coef, off = ctx.saved_tensors
+    n0 = norm_act_bwd.onchip
     dx, dw, db = torch.ops.uncrtaints.norm_act_bwd(gy.contiguous(), x, weight, bias, mvn, coef,
                                                    off, *ctx.args)
+    # autograd runs a CUDA backward on its own thread, outside the step's
+    # record: count its one pass into the record its forward saw
+    if ctx.record is not None and not tracing.recording() and norm_act_bwd.onchip > n0:
+        tracing.count("norm_onchip", 2 * tracing.nbytes(x), ctx.record)
     if weight is None:
         return dx, None, None, None, None, None, None
     return dx, dw.to(weight.dtype), db.to(bias.dtype), None, None, None, None
@@ -795,7 +984,7 @@ def norm_act(x: torch.Tensor, kind: str, weight: Optional[torch.Tensor] = None,
     process group (batch) or a spatial split (group, instance) the sums are
     reduced over the ranks inside the operator, both ways.
     ``norm_act.launches`` counts the forwards on the card, of this and of
-    :func:`affine_act`."""
+    :func:`affine_act`; ``norm_act.onchip`` those that took one pass."""
     if kind not in KINDS:
         raise ValueError(f"norm_act: unknown norm {kind!r} ({', '.join(KINDS)})")
     if act not in ACTS:
@@ -880,7 +1069,8 @@ def norm_act_bwd(g: torch.Tensor, x: torch.Tensor, weight: Optional[torch.Tensor
     (``torch.ops.uncrtaints.norm_act_bwd``): (dx, dweight, dbias) from the
     output gradient g and what the forward operator returned (mvn, coef,
     off). No collective (one process). ``norm_act_bwd.launches`` counts the
-    backward launches, of this operator and of :func:`affine_act`'s."""
+    backward launches, of this operator and of :func:`affine_act`'s;
+    ``norm_act_bwd.onchip`` those that took one pass."""
     return torch.ops.uncrtaints.norm_act_bwd(g.contiguous(), x.contiguous(), weight, bias, mvn,
                                              coef, off, KINDS[kind], groups, ACTS[act],
                                              REDUCE_NONE)
@@ -888,4 +1078,6 @@ def norm_act_bwd(g: torch.Tensor, x: torch.Tensor, weight: Optional[torch.Tensor
 
 norm_act.launches = 0
 norm_act_bwd.launches = 0
+norm_act.onchip = 0
+norm_act_bwd.onchip = 0
 

@@ -28,7 +28,8 @@ self time is its span less the spans it contains. :func:`count` adds bytes to a
 counter of the open step record (``cast``: what the dtype conversions and
 scale_by multiplies write; ``reflect_pad``: the padded tensors of the eager
 reflect pad; ``convlstm``: the [x, h] concatenations and the gates'
-pre-activations a ConvLSTM writes each time step).
+pre-activations a ConvLSTM writes each time step; ``norm_onchip``: what the
+one-pass norms did not read a second time, x forward, g and x backward).
 
 The spans leave ``torch.export`` and ``FlopCounterMode`` alone: neither runs
 a profiler, so the spans are empty contexts under them.
@@ -160,12 +161,21 @@ def recording() -> bool:
             and getattr(_local, "record", None) is not None)
 
 
-def count(name: str, nbytes: int) -> None:
-    """Add ``nbytes`` to counter ``name`` of the open step record (nothing
-    without a profiler or outside a step)."""
-    if recording():
-        c = _local.record.counters
-        c[name] = c.get(name, 0) + int(nbytes)
+def open_record() -> Optional[Step]:
+    """The open step record of this thread while :func:`recording` (else
+    None), for work that runs on another thread: autograd runs a CUDA
+    backward on its own, and counts into the record its forward saw."""
+    return _local.record if recording() else None
+
+
+def count(name: str, nbytes: int, record: Optional[Step] = None) -> None:
+    """Add ``nbytes`` to counter ``name`` of ``record`` (one
+    :func:`open_record` gave), else of this thread's open step record
+    (nothing without a profiler or outside a step)."""
+    if record is None and recording():
+        record = _local.record
+    if record is not None:
+        record.counters[name] = record.counters.get(name, 0) + int(nbytes)
 
 
 def nbytes(t: torch.Tensor) -> int:
