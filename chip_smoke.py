@@ -208,13 +208,6 @@ exact arithmetic), and ``cli.test`` (bit-equal metrics), ``cli.train
 ``load_pretrained_partial`` (equal values and mask) give what the
 ``.pth.tar`` gives; the file's bytes and the host ms of both routes' save
 and load are printed beside the card.
-The bench phase runs the port's benchmark (``uncrtaints_tpu_torch/bench.py``)
-in this process, each of its four modes once at short length (2 windows;
-the e2e tree 16 patches of 5 time points, 2 epochs): the eval step, the
-train step, the 1024x1024 scene and the GeoTIFF tree through the loader,
-and prints each mode's JSON line; it fails if a line is not ``correct``
-(the bench's own gates: fused vs standard eval, finite losses, gradients
-and outputs, the launches of each step) or has no ``mfu`` in (0, 1).
 Any failed check raises. The last line of stdout is the JSON result; the
 line before it lists the kernels. Without a CUDA device the script exits
 with an error and prints no result.
@@ -233,13 +226,10 @@ import sys
 import tempfile
 import time
 import warnings
+from typing import Callable, Dict
 
 import numpy as np
 import torch
-
-from uncrtaints_tpu_torch import bench
-from uncrtaints_tpu_torch.bench import (EVAL_KINDS, KERNEL_KINDS, device_time_by_kind,
-                                        exact_zero_gradients, kernel_wrappers)
 
 SEED = 0
 TIMING_RUNS = 15
@@ -406,6 +396,122 @@ K7_CASES = {
 # backward the recomputed affine (2), act' (GELU: GELU_OPS, the pdf's 5
 # operations and an exponential), g' (1), the sums (3) and dx (4)
 K6_FWD_OPS, K6_BWD_OPS = 5, 10
+
+# device kernels of an eval step by kind: the first fragment found in a
+# kernel's name decides (the hand-written kernels first)
+EVAL_KINDS = (
+    ("K1", ("att_group_",)),
+    ("K7 reflect pad", ("reflect_pad_nhwc_kernel",)),
+    ("K3", ("ngm_",)),
+    ("K4 (with its pooled-sum pass)", ("ngd_", "channel_sum_kernel")),
+    ("K6 norm + activation (with its statistics passes)", ("norm_part_", "norm_finalize_",
+                                                          "norm_apply_", "group_stats_kernel")),
+    ("GEMMs outside the kernels", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "splitK")),
+    ("convolutions (cuDNN)", ("cudnn", "conv", "Conv")),
+    ("reductions", ("reduce_kernel",)),
+    ("GELU", ("gelu", "Gelu")),
+    ("dtype and layout copies", ("copy", "Copy", "CatArray", "Memcpy")),
+    ("elementwise", ("elementwise",)),
+)
+# the same for a train step (a GELU or a copy is an elementwise kernel by
+# name, so they come before it)
+KERNEL_KINDS = (
+    ("reflect pad", ("reflection_pad",)),
+    ("K7 reflect pad and its adjoint", ("reflect_pad_nhwc_kernel",
+                                        "reflect_pad_adjoint_nhwc_kernel")),
+    ("K5 depthwise stencil", ("dw_tile_kernel", "dw_direct_kernel", "dw_adjoint_frame_kernel")),
+    ("K2 depthwise weight gradient", ("dw_grad_",)),
+    ("K1 and K1-bwd", ("att_group_",)),
+    ("K6 and K6-bwd norm + activation", ("norm_part_", "norm_finalize_", "norm_apply_",
+                                         "norm_bwd_", "norm_dx_", "group_stats_kernel")),
+    ("GEMMs", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "splitK")),
+    ("reductions", ("reduce_kernel",)),
+    ("GELU", ("gelu", "Gelu")),
+    ("dtype and layout copies", ("copy", "Copy", "CatArray", "Memcpy")),
+    ("Adam (_foreach)", ("multi_tensor_apply",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def device_time_by_kind(prof, kind_table):
+    """({kind: (ms, launches)}, {kernel name: (launches, ms)}, the largest
+    'other' kernels) of the device kernels a profile recorded."""
+    from torch.autograd import DeviceType
+    kinds, names, others = {}, {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kind = next((k for k, frags in kind_table if any(f in e.key for f in frags)), "other")
+        t, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (t + us / 1e3, n + e.count)
+        n0, t0 = names.get(e.key, (0, 0.0))
+        names[e.key] = (n0 + e.count, t0 + us / 1e3)
+        if kind == "other":
+            others.append((round(us / 1e3, 3), e.count, e.key[:60]))
+    return kinds, names, sorted(others, reverse=True)[:4]
+
+
+def kernel_wrappers() -> Dict[str, Callable]:
+    """The kernels' wrappers by counter name (each counts its launches; K6
+    the norms with their activation, forward and backward; K7 the reflect
+    pad and its adjoint)."""
+    from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv, norm, pad
+    return {"K1": aggregate.att_group_aggregate, "K1-bwd": aggregate.att_group_aggregate_bwd,
+            "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad,
+            "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3,
+            "K6": norm.norm_act, "K6-bwd": norm.norm_act_bwd,
+            "K7": pad.reflect_pad, "K7-adj": pad.reflect_pad_adjoint}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch count so far (read, never reset here)."""
+    return {k: f.launches for k, f in kernel_wrappers().items()}
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    return {k: n - before[k] for k, n in launch_counts().items()}
+
+
+def exact_zero_gradients(model) -> set:
+    """The parameters whose gradient is zero in exact arithmetic in a train
+    step: a bias that feeds a batch norm in training (the norm takes out its
+    mean), also through a bias-free convolution (a batch-norm MBConv's
+    PreNorm bias ahead of pw1), and the L-TAE's key bias and, in the tiny
+    L-TAE whose input feeds only the keys, its input norm's and input conv's
+    biases (a shift of every logit of a pixel, under the softmax over T).
+    Rounding leaves noise there, or an exact zero."""
+    from uncrtaints_tpu_torch.models.blocks import MBConv
+    from uncrtaints_tpu_torch.models.layers import Norm2d
+    from uncrtaints_tpu_torch.models.ltae import BatchNorm1d, LTAE2dtiny
+    names = set()
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, MBConv) and mod.norm == "batch" and mod.expansion != 1:
+            names.add(f"{prefix}.conv.norm.bias")
+        if isinstance(mod, LTAE2dtiny):
+            names |= {f"{prefix}.in_norm.bias", f"{prefix}.inconv.bias"}
+        if isinstance(mod, torch.nn.Sequential):
+            kids = list(mod.children())
+            for i, (a, b) in enumerate(zip(kids, kids[1:])):
+                batch_norm = isinstance(b, BatchNorm1d) or (isinstance(b, Norm2d)
+                                                            and b.norm == "batch")
+                if batch_norm and getattr(a, "bias", None) is not None:
+                    names.add(f"{prefix}.{i}.bias")
+    return names | {n for n, _ in model.named_parameters()
+                    if n.endswith("attention_heads.fc1_k.bias")}
+
+
+def gap_ok(got: torch.Tensor, ref: torch.Tensor) -> Dict:
+    """The fused-vs-standard gate of chip_smoke.py phase 3: max |gap| within
+    0.02 and its RMSE within 5e-3 of max |ref|."""
+    d = (got.float() - ref.float()).abs()
+    top = float(ref.abs().max())
+    mx, rmse = float(d.max()), float(d.square().mean().sqrt())
+    return {"max": mx, "rmse": rmse, "max_ref": top,
+            "ok": finite(got) and mx <= 0.02 * top and rmse <= 5e-3 * top}
+
 
 def check(ok, msg):
     if not ok:
@@ -1570,7 +1676,7 @@ def phase3_references(dev, cfg, model, batch):
     check((mbconv.norm_gelu_matmul.launches, mbconv.norm_gelu_dwconv3x3.launches) == n,
           "fused_eval=off launched K3 or K4")
     for k in ("pred", "var"):
-        gap = bench.gap_ok(fused[k], std[k])
+        gap = gap_ok(fused[k], std[k])
         print(f"phase 3: fused vs standard eval on the card, {k}: max {gap['max']:.4g} (<= "
               f"{0.02 * gap['max_ref']:.4g}), RMSE {gap['rmse']:.4g} (<= "
               f"{5e-3 * gap['max_ref']:.4g})")
@@ -1676,7 +1782,7 @@ def phase_scene(dev, cfg, model, off):
 
     std = predict_scene(off, cfg, scene, dates, **kw)
     for k in ("pred", "var"):
-        gap = bench.gap_ok(torch.from_numpy(out[k]), torch.from_numpy(std[k]))
+        gap = gap_ok(torch.from_numpy(out[k]), torch.from_numpy(std[k]))
         print(f"  fused vs standard scene, {k}: max {gap['max']:.4g} (<= "
               f"{0.02 * gap['max_ref']:.4g}), RMSE {gap['rmse']:.4g} (<= "
               f"{5e-3 * gap['max_ref']:.4g})")
@@ -3327,15 +3433,15 @@ def phase11_jax_checkpoint(dev, tmp, card):
           f"the .ckpt round trip: model {same_model}, Adam {same_adam}, lr {got.tx.lr} vs "
           f"{lr}, step {got.step}, meta {meta}")
     ref = eval_step(src.model, batches[2])
-    before = {k: f.launches for k, f in kernels.items()}
+    before = launch_counts()
     out = eval_step(got.model, batches[2])
-    one_eval = {k: f.launches - before[k] for k, f in kernels.items()}
+    one_eval = launches_since(before)
     check(torch.equal(out["pred"], ref["pred"]) and torch.equal(out["var"], ref["var"]),
           "the eval step of the model loaded from the .ckpt differs from the source's")
     check(one_eval == chain_launches(0, 1), f"the eval step after the load launched {one_eval}")
-    before = {k: f.launches for k, f in kernels.items()}
+    before = launch_counts()
     got, aux = step(got, batches[2], gen)
-    one_train = {k: f.launches - before[k] for k, f in kernels.items()}
+    one_train = launches_since(before)
     check(one_train == chain_launches(1, 0), f"the train step after the load launched "
                                              f"{one_train}")
     zero_ok = exact_zero_gradients(got.model)
@@ -3388,38 +3494,6 @@ def phase11_jax_checkpoint(dev, tmp, card):
           f"{os.path.getsize(ppath)} bytes; host ms (median of 3): save_jax_checkpoint "
           f"{save_jax_ms:.1f}, save_checkpoint (.pth.tar) {save_pth_ms:.1f}, load_checkpoint "
           f".ckpt {load_jax_ms:.1f}, .pth.tar {load_pth_ms:.1f}; card {card}")
-    return counts
-
-
-# the bench phase: the port's benchmark, each mode at short length
-BENCH_WINDOWS, BENCH_E2E_PATCHES = 2, 16
-
-
-def phase_bench():
-    """The four modes of ``uncrtaints_tpu_torch.bench`` on the card, with
-    their defaults but the length; prints each line. Returns the launches
-    of the phase (every kernel must have run)."""
-    kernels = kernel_wrappers()
-    for f in kernels.values():
-        f.launches = 0
-    runs = {"eval": lambda: bench.run_eval(windows=BENCH_WINDOWS),
-            "train": lambda: bench.run_train(windows=BENCH_WINDOWS),
-            "scene": lambda: bench.run_scene(windows=BENCH_WINDOWS),
-            "e2e": lambda: bench.run_e2e(windows=BENCH_WINDOWS, n_patches=BENCH_E2E_PATCHES)}
-    for mode, run in runs.items():
-        t0 = time.perf_counter()
-        out = run()
-        print(json.dumps(out))
-        print(f"bench phase, {mode}: {out['metric']} {out['value']:.3f} {out['unit']} "
-              f"(windows {out['window_values']}), step {out['step_ms_p50']:.3f} ms, mfu "
-              f"{out.get('mfu')}, correct {out['correct']} ({time.perf_counter() - t0:.1f} s)")
-        check(out["correct"], f"the bench's {mode} line is not correct: {out['checks']}")
-        check(0 < out.get("mfu", 0) < 1, f"the bench's {mode} line has no mfu in (0, 1)")
-        torch.cuda.empty_cache()
-    counts = {k: f.launches for k, f in kernels.items()}
-    # the paper recipe differentiates no reflect pad: K7's adjoint never runs here
-    ran = {k: n for k, n in counts.items() if k != "K7-adj"}
-    check(all(ran.values()), f"the bench phase launched {counts}: a kernel never ran")
     return counts
 
 
@@ -3634,22 +3708,19 @@ def main():
         took("phase 10")
         jaxck = phase11_jax_checkpoint(dev, work, card)
         took("phase 11")
-    benched = phase_bench()
-    took("the bench phase")
     print(f"launches by path: eval {evalc}; scene {scene}; train {train}; remat {remat}; "
           f"CLIs {cli}; "
           f"real data {real}; U-TAE {utae}; other families {families}; ensemble members "
           f"{members}; export and the traced run {modules}; spatial mesh and orbax {spatial}; "
-          f"the JAX checkpoint {jaxck}; the bench {benched}")
+          f"the JAX checkpoint {jaxck}")
 
     # launches: the sum over the paths' runs (eval, scene, train, remat, the
     # CLI chain, the real-data CLIs, U-TAE's CLIs and bare steps, the other
     # families, the ensemble's members, one exported call and the traced
-    # run, the spatial ranks and the orbax chain, the JAX checkpoint's, the
-    # bench's four modes), each counted from 0 just before the path to just
-    # after it
+    # run, the spatial ranks and the orbax chain, the JAX checkpoint's), each
+    # counted from 0 just before the path to just after it
     paths = (evalc, scene, train, remat, cli, real, utae, families, members, modules, spatial,
-             jaxck, benched)
+             jaxck)
     meta = {  # name: (source, the TPU kernel it replaces, its counter)
         "att_group_aggregate": ("aggregate.cu", "ops/pallas_aggregate.py:268", "K1"),
         "att_group_aggregate_bwd": ("aggregate.cu", "ops/pallas_aggregate.py:164", "K1-bwd"),

@@ -1,7 +1,8 @@
 """The port's host pipeline against the JAX package's: every collate
 bit-identical on the same samples (with the JAX package's compiled slab
-writers and with its numpy fallback), the numpy ``process_MS``, and the
-loader's sample order, length, sharding and thread lifetime."""
+writers and with its numpy fallback), the numpy ``process_MS``, the bytes
+of a sequence each collate hands to the device, and the loader's sample
+order, length, sharding and thread lifetime."""
 
 import threading
 import time
@@ -91,6 +92,28 @@ def test_raw_batch_feeds_the_steps_like_the_processed_one():
     host = tp.make_fast_collate()(raw)
     torch.testing.assert_close(x, torch.from_numpy(host["x"]), rtol=1e-6, atol=1e-7)
     torch.testing.assert_close(y, torch.from_numpy(host["y"]), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("radiometry", ["device_raw_dn", "host_lut"])
+def test_bytes_a_sequence_hands_to_the_device(radiometry):
+    """The keys a step receives of each collate's batch, through
+    batch_to_device: raw, fp32 S1 (2 bands) and uint16 S2 (13) of T frames
+    and the uint16 target; host, the fp32 x (15 bands) and y; both the fp32
+    dates."""
+    from uncrtaints_tpu_torch.config import Config
+    from uncrtaints_tpu_torch.train.engine import _prepare_xy, batch_to_device
+    B, T, P = 3, 3, 24
+    raw = _raw(_samples(8, n=B, t=T, patch=P), 8)
+    if radiometry == "device_raw_dn":
+        collate, keys = tp.make_raw_collate(), ("x_s1", "x_s2dn", "y_dn", "dates")
+        want = T * P * P * (2 * 4 + 13 * 2) + P * P * 13 * 2 + T * 4
+    else:
+        collate, keys = tp.make_fast_collate(), ("x", "y", "dates")
+        want = T * P * P * 15 * 4 + P * P * 13 * 4 + T * 4
+    batch = collate(raw)
+    sent = batch_to_device({k: batch[k] for k in keys}, "cpu")
+    _prepare_xy(Config(use_sar=True), sent)  # the step needs no other key
+    assert sum(t.numel() * t.element_size() for t in sent.values()) == want * B
 
 
 def test_marker_mismatch_and_wrong_inputs_raise():

@@ -17,13 +17,19 @@ import numpy as np
 import pytest
 import torch
 
+import uncrtaints_tpu.data.pipeline as jpipe
 import uncrtaints_tpu.data.sen12mscr as jcr
 import uncrtaints_tpu.data.sen12mscrts as jts
 from uncrtaints_tpu_torch.cli.test import CUSTOM_DATES, CUSTOM_PATCHES
+from uncrtaints_tpu_torch.config import Config, derive
+from uncrtaints_tpu_torch.data import make_fast_collate, make_raw_collate
 from uncrtaints_tpu_torch.data import sen12mscr as tcr, sen12mscrts as tts
+from uncrtaints_tpu_torch.data.preprocess import process_MS
 from uncrtaints_tpu_torch.data.synthetic_tree import (
     default_date, patch_name, write_sen12mscrts_tree)
 from uncrtaints_tpu_torch.data.tiff import write_tiff
+from uncrtaints_tpu_torch.train import batch_to_device
+from uncrtaints_tpu_torch.train.engine import _prepare_xy
 
 HW = 16
 T = 30
@@ -279,3 +285,40 @@ def test_no_samples_warns(tmp_path):
         warnings.simplefilter("always")
         ds = tts.SEN12MSCRTS(str(tmp_path), split="train", cloud_masks=MASKS, device="cpu")
     assert len(ds) == 0 and any("No data samples" in str(w.message) for w in seen)
+
+
+def test_raw_dn_samples_of_the_tree_equal_the_jax_packages_batch(tree):
+    """SEN12MSCRTS(raw_s2=True) -> the raw collate -> _prepare_xy against the
+    JAX package's processed samples -> its collate_multi (x and y within
+    1e-6 after scale_by); the single-pass collate's LUT likewise."""
+    kw = dict(split="test", cloud_masks=MASKS, n_input_samples=3)
+    raw = tts.SEN12MSCRTS(tree, device="cpu", raw_s2=True, **kw)
+    ref = jts.SEN12MSCRTS(tree, **kw)
+    samples = [raw[0], raw[1]]
+    assert samples[0]["rescale_method"] == "default"
+    assert samples[0]["input"]["S2"][0].dtype == np.uint16
+    want = jpipe.collate_multi([ref[0], ref[1]], use_sar=True)
+    cfg = derive(Config(use_sar=True, scale_by=10.0, device="cpu"))
+    for collate in (make_raw_collate(), make_fast_collate()):
+        got = batch_to_device(collate(samples, use_sar=True), "cpu")
+        x, _, y = _prepare_xy(cfg, got)
+        np.testing.assert_allclose(x.numpy() / cfg.scale_by, want["x"], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(y.numpy(), want["y"], rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got["dates"].numpy(), want["dates"])
+
+
+def test_a_tree_of_fewer_time_points_reads(tmp_path):
+    root = str(tmp_path)
+    write_sen12mscrts_tree(root, {TEST: range(2)}, hw=16, time_points=range(5), workers=2)
+    kw = dict(cloud_masks=MASKS, n_input_samples=3, time_points=range(5), device="cpu")
+    raw, done = tts.SEN12MSCRTS(root, raw_s2=True, **kw), tts.SEN12MSCRTS(root, **kw)
+    assert len(raw) == 2 and len(raw.paths[1]["S2"]) == 5
+    a, b = raw[1], done[1]
+    assert a["input"]["idx"] == b["input"]["idx"] and len(a["input"]["S2"]) == 3
+    for f, g in zip(a["input"]["S2"] + a["target"]["S2"], b["input"]["S2"] + b["target"]["S2"]):
+        np.testing.assert_array_equal(process_MS(f.astype(np.float32), "default"), g)
+
+
+def test_raw_dn_needs_cloudy_cloudfree_samples(tree):
+    with pytest.raises(ValueError, match="raw_s2"):
+        tts.SEN12MSCRTS(tree, cloud_masks=None, raw_s2=True, device="cpu")

@@ -31,7 +31,7 @@ ENTRY_MODULES = ("cli.train", "cli.test", "cli.precompute", "cli.convert", "cli.
                  "models.recurrent", "models.jax_bridge", "export", "parallel",
                  "parallel.mesh", "native", "infer", "models.layers", "models.blocks",
                  "models.uncrtaints", "ops.pooling", "ops.resize", "ops.ssim", "ops.dwconv",
-                 "ops.dwgrad", "ops.mbconv", "train.flax_format", "bench")
+                 "ops.dwgrad", "ops.mbconv", "train.flax_format")
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
@@ -72,18 +72,6 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert len(files) >= 52
     hits = {os.path.relpath(f, REPO): pat.findall(open(f).read()) for f in files}
     assert not {f: h for f, h in hits.items() if h}
-
-
-def test_the_bench_keeps_the_root_benchs_v100_anchors():
-    """The port's bench carries its own copy of the root bench.py's two
-    V100 anchors (the root module imports JAX; the port does not)."""
-    import importlib.util
-    from uncrtaints_tpu_torch import bench
-    spec = importlib.util.spec_from_file_location("root_bench", os.path.join(REPO, "bench.py"))
-    root = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(root)
-    assert bench.V100_REFERENCE_SEQ_PER_SEC == root.V100_REFERENCE_SEQ_PER_SEC
-    assert bench.V100_REFERENCE_TRAIN_SEQ_PER_SEC == root.V100_REFERENCE_TRAIN_SEQ_PER_SEC
 
 
 # ------------------------------------------------------------- config --

@@ -7,6 +7,8 @@ attention dropout's law, and the whole train step against
 ``uncrtaints_tpu.train.make_train_step`` at fp32 and small widths (32,
 n_head 4, d_model 64, T=3) with weights carried by ``from_jax_variables``.
 Inputs come from a numpy seed and go to both frameworks as numpy arrays.
+The first step's gradients of the recipe and of each variant are finite
+and zero only where exact arithmetic makes them zero.
 """
 
 import os
@@ -28,6 +30,8 @@ from uncrtaints_tpu_torch.models import layers as tl
 from uncrtaints_tpu_torch.models.jax_bridge import from_jax_variables, jax_to_torch_names
 from uncrtaints_tpu_torch.train import (
     batch_to_device, create_train_state, epoch_lr, make_train_step, set_learning_rate)
+
+from test_torch_variants import VARIANTS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -557,6 +561,31 @@ def test_train_step_freeze_mask_and_lr_match_jax(jax_state):
         else:
             assert torch.equal(p, before[n]), n
             assert ts.opt_state.nu[n].abs().max() > 0, n
+
+
+@pytest.mark.parametrize("name", ["paper", *VARIANTS])
+def test_first_step_gradients_are_finite_and_zero_only_where_exact(name):
+    """The first train step's gradients of the recipe and of each variant:
+    finite, and non-zero but where exact arithmetic makes them zero
+    (``chip_smoke.exact_zero_gradients``; there rounding leaves noise or an
+    exact zero)."""
+    from chip_smoke import exact_zero_gradients
+    cfg = _cfg(**VARIANTS.get(name, {}))
+    rng = np.random.default_rng(0)
+    B, T, H = 2, cfg.input_t, 16
+    batch = {"x": rng.random((B, T, H, H, 15)).astype(np.float32),
+             "y": rng.random((B, 1, H, H, 13)).astype(np.float32),
+             "dates": rng.integers(0, 1500, (B, T)).astype(np.float32)}
+    model = get_generator(cfg, "cpu", generator=torch.Generator().manual_seed(0))
+    state = create_train_state(cfg, model)
+    _, aux = make_train_step(cfg)(state, batch_to_device(batch, "cpu"),
+                                  torch.Generator().manual_seed(1))
+    zero_ok = exact_zero_gradients(model)
+    assert zero_ok <= set(aux["grads"])
+    bad = sorted(n for n, g in aux["grads"].items()
+                 if not bool(torch.isfinite(g).all()) or (float(g.abs().max()) == 0
+                                                         and n not in zero_ok))
+    assert not bad and bool(torch.isfinite(aux["loss"]))
 
 
 def test_train_step_runs_without_jax():

@@ -28,7 +28,7 @@ by section too, which the program's own step record, one span for the
 whole backward, cannot; what no forward op of a part created counts as
 ``rest``. Printed for each step: device-busy ms and kernels, then each
 part's device ms and launches (forward / backward) and its ms by kind
-(``bench.KERNEL_KINDS``). Nothing is checked: it compares two trees in one
+(``chip_smoke.KERNEL_KINDS``). Nothing is checked: it compares two trees in one
 call on one card (PERF.md section 5).
 """
 
@@ -169,7 +169,6 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import uncrtaints_tpu_torch
-    from uncrtaints_tpu_torch.bench import KERNEL_KINDS
     from uncrtaints_tpu_torch.config import Config, derive
     from uncrtaints_tpu_torch.data import SyntheticSEN12MSCRTS, collate_multi
     from uncrtaints_tpu_torch.train import (batch_to_device, create_train_state, make_eval_step,
@@ -201,7 +200,7 @@ def main():
             run()
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3
-        parts, busy, n_all = attribute(prof, labels, KERNEL_KINDS)
+        parts, busy, n_all = attribute(prof, labels, smoke.KERNEL_KINDS)
         report(title, parts, busy, n_all, host_ms)
     return 0
 
