@@ -41,7 +41,10 @@ relative tolerance, two runs bit-equal, timed beside the eager formula it
 replaces (its autograd for the backward) and torch's batch / group norm
 with the activation; a group norm that takes one pass is timed through the
 two-pass kernels too. ``python3 chip_smoke.py --k6`` runs that part of
-phase 1 alone. K7, the reflect pad and
+phase 1 alone. The encoder's group-norm block at the benchmark's 48 frames
+runs as the group chain against its standard body, both timed, each pass of
+the chain timed beside its bound and the pooled-sum pass held against its
+twin and run twice. K7, the reflect pad and
 its adjoint (``ops/pad.py``), is held at ``K7_CASES``: the forward bit-equal
 to ``F.pad``, the adjoint bit-equal to its plain version and to itself run
 twice, within rounding of autograd's ``reflection_pad3d_backward``, and at
@@ -55,22 +58,29 @@ printed beside the bound and is no part of it.
 Phase 2 runs the port's eval step (forward, MGNLL, scale_by rescale, image
 metrics) of the paper recipe in bf16 on 3 synthetic batches of B=4, T=3,
 256x256 with seeded random weights, and checks that every forward went
-through the kernels (1 K1, 10 K3, 5 K4, 5 K6 and 1 K7 launches, no backward kernel) and
-that the outputs are finite. One more step runs under ``torch.profiler``:
-device time by kind, the idle share, the kernels by name (10 wgmma K3, 5 K4
-and their 5 pooled-sum passes, the 5 encoder norms' K6 passes and no other
-statistics pass, 1 K7 and no ATen reflection_pad), and the five fused
-decoder blocks alone with recorded shapes, where no GELU, mean or sum over a
-whole [B,256,256,C] map may run outside the kernels.
-Phase 3 compares the fused eval path with the standard one on the card,
-and the card with the CPU (the kernels' plain versions) on a small input,
+through the kernels (1 K1, 12 K3, 6 K4, 1 K6 and no K7 launches, and the
+encoder's group chain's statistics, pooled-sum and apply passes once each;
+no backward kernel) and that the outputs are finite. One more step runs
+under ``torch.profiler``: device time by kind, the idle share, the kernels
+by name (12 wgmma K3, 6 K4, the decoder's 5 pooled-sum passes, the group
+chain's statistics and pooled-sum passes, in_conv's one-pass K6, the gn3
+apply, no K7 and no ATen reflection_pad), and the five fused decoder blocks
+alone with recorded shapes, where no GELU, mean or sum over a whole
+[B,256,256,C] map may run outside the kernels.
+Phase 3 holds the fused eval path against the standard one on the card
+(``fused_gate``: at fp32 compute within the fused-vs-standard gate
+``gap_ok``, at bf16 within its RMSE, no farther in RMSE from the fp32
+evaluation than the standard path and at the worst pixel within 1.25 times
+the standard path's gap to it), and the card with the CPU (the kernels' plain
+versions) on a small input,
 for the paper recipe's architecture and for the residual + ``use_v`` +
 ``separate_out`` variant.
 The scene phase runs ``predict_scene`` of the paper recipe on a synthetic
 T=3, 1024x1024 scene (tile 256, overlap 64, batches of 4: 25 windows in 7
 forwards), checks shapes, finiteness, a positive variance and the launches
-(7 K1, 70 K3, 35 K4, 35 K6, 7 K7, no train kernel), holds a single-window scene against
-the eval step and the tiled result against the standard (unfused) path,
+(7 K1, 84 K3, 42 K4, 7 K6, the group chain's three passes 7 times each,
+no K7, no train kernel), holds a single-window scene against
+the eval step and the tiled result as phase 3 holds the eval step,
 and prints windows/s.
 Phase 4 runs the port's train step (forward, MGNLL, backward, Adam, the
 rescale) of the paper recipe in bf16: 4 steps of B=4, T=3, 256x256 over the
@@ -101,8 +111,8 @@ finite test metrics, that the two test runs equal each other and the train
 run's final test to the bit, that the resumed epoch continued Adam's count
 and the step and ran at the lr the schedule sets there, and that the
 launches over the chain are exactly (train steps) x (1 K1 + 1 K1-bwd + 12 K5
-+ 6 K2 + 25 K6 + 25 K6-bwd) + (eval forwards) x (1 K1 + 10 K3 + 5 K4 + 5
-K6 + 1 K7). After the counters are
++ 6 K2 + 25 K6 + 25 K6-bwd) + (eval forwards) x (1 K1 + 12 K3 + 6 K4 + 1
+K6). After the counters are
 read it holds what only a card runs: a checkpoint saved from the card and
 loaded into a fresh model gives the same eval step to the bit; the batches
 the side-stream prefetch hands out equal the host's; a val epoch with the
@@ -126,7 +136,7 @@ step and 3 eval forwards), the train and val epochs once more through the
 loop with the host synchronizations by line (the step loop's must be the
 one fetch of ``loop.py``; the masks' from the loader threads are printed
 apart) beside the loader alone and the bare steps, ``cli.test
---use_custom`` on the 768x768 mosaic (1 K1 + 10 K3 + 5 K4 + 5 K6 + 1 K7), and
+--use_custom`` on the 768x768 mosaic (1 K1 + 12 K3 + 6 K4 + 1 K6), and
 ``cli.train`` with the default s2cloudless detector and no weights, which
 must stop with its error.
 Phase 8 runs U-TAE at its published widths (encoder [64,64,64,128], decoder
@@ -163,7 +173,7 @@ same ``cli.train`` in this process with ``--trace_dir --profile``, where the
 trace must name the kernels' ``uncrtaints::`` operators and the FLOP count must
 equal the one the forward gives, and the card's count the CPU's at 32x32.
 Then it holds one exported call at B=4 against the live eval forward
-(exactly 1 K1, 10 K3, 5 K4, 5 K6 and 1 K7 launches), times both, runs ``predict_scene``
+(exactly 1 K1, 12 K3, 6 K4 and 1 K6 launches), times both, runs ``predict_scene``
 through the artifact against the live model, holds the NCCL run's train
 loss equal to this process's to the bit and its test metrics against this
 process's ``cli.test`` of its checkpoint within 1e-6, and prints the loader
@@ -184,9 +194,10 @@ band of 128 rows of the paper recipe's B=4, 256x256 batch. Their eval step
 (loss, pred, var, metrics), one train step (loss, a finite non-zero
 gradient for every parameter but those zero in exact arithmetic) and
 ``predict_scene(mesh=)`` on a 512x512 scene are held against this process,
-and each rank's launches (1 K1 + 10 K3 + 5 K4 + 5 K6 a forward, K4 in halo
-mode, no K7; 1 K1 + 1 K1-bwd + 12 K5 + 6 K2 + 25 K6 + 25 K6-bwd a train step, K5
-and K2 in halo mode, K6 summing its statistics over the ranks), its
+and each rank's launches (1 K1 + 12 K3 + 6 K4 + 1 K6 a forward, K4 in halo
+mode, the group chain's sums and K6's summed over the ranks, no K7; 1 K1 +
+1 K1-bwd + 12 K5 + 6 K2 + 25 K6 + 25 K6-bwd a train step, K5 and K2 in halo
+mode, K6 summing its statistics over the ranks), its
 train-step peak memory and its collectives' host time are printed.
 The ranks and this process also run UNet3D (T=4), FPN + ConvLSTM and U-TAE
 at its published widths (MSE, attention dropout off) on the same layout:
@@ -201,7 +212,7 @@ Phase 11 writes the JAX package's single-file checkpoint (flax msgpack
 ``.ckpt`` + ``.meta.json``) with ``save_jax_checkpoint`` after two train
 steps of the paper recipe, and the same state as ``.pth.tar``: a fresh model
 loads the ``.ckpt`` bit-equal (model, Adam's state, lr, step, epoch; the
-eval step's pred and var; 1 K1 + 10 K3 + 5 K4), trains one step (1 K1 + 1
+eval step's pred and var; 1 K1 + 12 K3 + 6 K4), trains one step (1 K1 + 1
 K1-bwd + 12 K5 + 6 K2, every gradient finite and non-zero but those zero in
 exact arithmetic), and ``cli.test`` (bit-equal metrics), ``cli.train
 --resume_from`` (first loss within 5e-4 relative) and
@@ -348,17 +359,25 @@ K6_CASES = {
     "group FPN B=16 [48,256,256,160] relu": ("group", (48, PATCH, PATCH, 160), 4, "relu"),
 }
 K6_LINE_CASE = "group enc [12,256,256,256] gelu"  # the case of the JSON line
+# The paper recipe's eval forward: the five decoder blocks (batch norms) run
+# K3 -> K4 -> K3 each, and so does the encoder's group-norm block (the group
+# chain, models/blocks.py:MBConv._fused_group_body), with K6's statistics
+# pass ahead of it, the pooled-sum pass between K4 and the second K3 and
+# K6's apply after it (each counted in its own wrapper, GN_PASSES_EVAL
+# each a forward), under a spatial split too (K4 in halo mode)
+K3_EVAL, K4_EVAL, GN_PASSES_EVAL = 12, 6, 1
+GN_PASSES = ("GN-stats", "GN-pool", "GN-apply")  # their counters (kernel_wrappers)
 # K6's launches (a forward each norm, a backward each norm in a train step):
-# the paper recipe's eval forward runs the encoder's 5 group norms (its
-# decoder's batch norms are K3 / K4's), a train step all 25 norms and their
-# backward, a remat step 24 more forwards (each block's norms again);
-# fused_eval off runs the decoder's 15 too
-K6_EVAL, K6_TRAIN, K6_REMAT, K6_STANDARD_EVAL = 5, 25, 49, 20
-# of those, the group norms' forwards (the encoder's 5) take one pass
-# (ops/norm.py:onchip_plan): 5 an eval forward and a train step, each one
-# kernel where the two passes run four; their backwards (one slab a wave)
+# the paper recipe's eval forward runs in_conv's group norm (the MBConvs'
+# norms are the chains'), a train step all 25 norms and their backward, a
+# remat step 24 more forwards (each block's norms again); fused_eval off runs
+# the encoder block's 4 and the decoder's 15 too
+K6_EVAL, K6_TRAIN, K6_REMAT, K6_STANDARD_EVAL = 1, 25, 49, 20
+# of those, the group norms' forwards (the encoder's 5 in a train step,
+# in_conv's in an eval forward) take one pass (ops/norm.py:onchip_plan), each
+# one kernel where the two passes run four; their backwards (one slab a wave)
 # keep the two passes
-K6_ONCHIP = 5
+K6_ONCHIP, K6_ONCHIP_EVAL = 5, 1
 # U-TAE at its published widths: 10 group and 12 eval batch norms a forward,
 # 22 norms a train step (the L-TAE's own norms are not K6's)
 K6_UTAE = 22
@@ -368,12 +387,12 @@ K6_FAMILIES = {"unet (pretrain)": (22, 22), "unet3d": (11, 11), "uconvlstm": (24
                "buconvlstm": (24, 24), "convlstm": (0, 0), "convgru": (0, 0), "fpn": (3, 3)}
 # K7's launches (a reflect-padded conv that K4 / K5 do not fold: the pad, and
 # in a train step its adjoint where the conv's input has a gradient): the
-# paper recipe's eval forward pads once (the encoder's depthwise 3x3), its
-# train step never (K5 folds every reflect conv); fused_eval off pads the
-# decoder's 5 too; U-TAE pads its 15 3x3 convs, and differentiates all 15;
+# paper recipe's eval forward never (K4 folds every depthwise conv's pad),
+# nor its train step (K5 folds every reflect conv); fused_eval off pads the
+# encoder's and the decoder's 5; U-TAE pads its 15 3x3 convs, and differentiates all 15;
 # the other families (K7 a forward, K7's adjoint a train step), the
 # recurrent U-Nets' and FPN's first padded conv reading the data
-K7_EVAL, K7_STANDARD_EVAL, K7_UTAE = 1, 6, 15
+K7_EVAL, K7_STANDARD_EVAL, K7_UTAE = 0, 6, 15
 K7_FAMILIES = {"unet (pretrain)": (15, 15), "unet3d": (0, 0), "uconvlstm": (17, 16),
                "buconvlstm": (17, 16), "convlstm": (0, 0), "convgru": (0, 0), "fpn": (7, 6)}
 # K7 at the paths' largest padded maps, bf16: the paper eval encoder's
@@ -404,8 +423,8 @@ EVAL_KINDS = (
     ("K7 reflect pad", ("reflect_pad_nhwc_kernel",)),
     ("K3", ("ngm_",)),
     ("K4 (with its pooled-sum pass)", ("ngd_", "channel_sum_kernel")),
-    ("K6 norm + activation (with its statistics passes)", ("norm_part_", "norm_finalize_",
-                                                          "norm_apply_", "group_stats_kernel")),
+    ("K6 norm + activation (with its statistics passes; the group chain's pooled sum)",
+     ("norm_part_", "norm_finalize_", "norm_apply_", "group_stats_kernel", "gelu_pool_")),
     ("GEMMs outside the kernels", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "splitK")),
     ("convolutions (cuDNN)", ("cudnn", "conv", "Conv")),
     ("reductions", ("reduce_kernel",)),
@@ -457,13 +476,16 @@ def device_time_by_kind(prof, kind_table):
 def kernel_wrappers() -> Dict[str, Callable]:
     """The kernels' wrappers by counter name (each counts its launches; K6
     the norms with their activation, forward and backward; K7 the reflect
-    pad and its adjoint)."""
+    pad and its adjoint; GN_PASSES the eval group-norm MBConv chain's
+    statistics, pooled-sum and apply passes)."""
     from uncrtaints_tpu_torch.ops import aggregate, dwconv, dwgrad, mbconv, norm, pad
     return {"K1": aggregate.att_group_aggregate, "K1-bwd": aggregate.att_group_aggregate_bwd,
             "K5": dwconv.dw_stencil, "K2": dwgrad.dw_kernel_grad,
             "K3": mbconv.norm_gelu_matmul, "K4": mbconv.norm_gelu_dwconv3x3,
             "K6": norm.norm_act, "K6-bwd": norm.norm_act_bwd,
-            "K7": pad.reflect_pad, "K7-adj": pad.reflect_pad_adjoint}
+            "K7": pad.reflect_pad, "K7-adj": pad.reflect_pad_adjoint,
+            "GN-stats": norm.norm_stats, "GN-pool": norm.norm_gelu_pool,
+            "GN-apply": norm.norm_apply}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -511,6 +533,49 @@ def gap_ok(got: torch.Tensor, ref: torch.Tensor) -> Dict:
     mx, rmse = float(d.max()), float(d.square().mean().sqrt())
     return {"max": mx, "rmse": rmse, "max_ref": top,
             "ok": finite(got) and mx <= 0.02 * top and rmse <= 5e-3 * top}
+
+
+# the bf16 fused path's largest gap to the fp32 evaluation, at most this
+# many times the bf16 standard path's (on an H100 at phase 2's batches and
+# the scene: 0.66-1.14 times; the parent's fused path, batch-norm blocks
+# only, 0.91-1.04)
+FUSED_MAX_OVER_STANDARD = 1.25
+
+
+def fused_gate(label, fused, std, fused32, std32):
+    """Phase 3's and the scene's gates of the fused eval path against the
+    standard one on the same weights: at fp32 compute the fused path within
+    :func:`gap_ok` of the standard path (the same function); at the
+    recipe's bf16 within its RMSE, no farther in RMSE from the fp32
+    standard evaluation than the standard bf16 path is, and at its worst
+    pixel within FUSED_MAX_OVER_STANDARD times the standard bf16 path's
+    largest gap to that evaluation (a fault of the bf16 kernels confined to
+    a few pixels shows there). (The two bf16 paths
+    round apart in all six MBConvs, the encoder's group chain keeping its
+    norms' affines and its SE in fp32 where the standard body rounds to
+    bf16, and the L-TAE's attention over T carries a pixel's difference to
+    the output: at bf16 each path's largest gap to the fp32 evaluation, and
+    so theirs to each other, passes the gate's 2%: on an H100 at phase 2's
+    batches the standard path 3.6-3.9%, the fused one 2.9-3.7%.)"""
+    for k in ("pred", "var"):
+        g32, g16 = gap_ok(fused32[k], std32[k]), gap_ok(fused[k], std[k])
+        ef, es = gap_ok(fused[k], std32[k]), gap_ok(std[k], std32[k])
+        print(f"{label}, {k}: fp32 fused vs standard max {g32['max']:.4g} (<= "
+              f"{0.02 * g32['max_ref']:.4g}), RMSE {g32['rmse']:.4g} (<= "
+              f"{5e-3 * g32['max_ref']:.4g}); bf16 fused vs standard max {g16['max']:.4g}, RMSE "
+              f"{g16['rmse']:.4g} (<= {5e-3 * g16['max_ref']:.4g}); against the fp32 standard "
+              f"evaluation, bf16 fused max {ef['max']:.4g} (<= "
+              f"{FUSED_MAX_OVER_STANDARD * es['max']:.4g}) RMSE {ef['rmse']:.4g}, bf16 standard "
+              f"max {es['max']:.4g} RMSE {es['rmse']:.4g}")
+        check(g32["ok"], f"{label}: the fp32 fused/standard gap in {k}")
+        check(finite(fused[k]) and g16["rmse"] <= 5e-3 * g16["max_ref"],
+              f"{label}: the bf16 fused/standard RMSE gap in {k}")
+        check(ef["rmse"] <= es["rmse"],
+              f"{label}: the bf16 fused path is farther from the fp32 evaluation than the "
+              f"standard path in {k}")
+        check(ef["max"] <= FUSED_MAX_OVER_STANDARD * es["max"],
+              f"{label}: the bf16 fused path's largest gap to the fp32 evaluation in {k} is more "
+              f"than {FUSED_MAX_OVER_STANDARD} times the standard path's")
 
 
 def check(ok, msg):
@@ -1265,6 +1330,158 @@ def phase1_norms_alone(dev):
     return phase1_norms(dev, lambda *s: torch.randn(*s, generator=g, device=dev), result)
 
 
+# the group chain at the benchmark's eval batch: the paper encoder's block
+# over B=16 x T=3 frames of 256x256x128, bf16
+GN_FRAMES = 16 * T
+
+
+def phase1_group_chain(dev):
+    """The encoder's group-norm MBConv in eval as the group chain
+    (``MBConv._fused_group_body``) at GN_FRAMES frames: the block against
+    its standard body (the fused-vs-standard gate) and both timed; each
+    pass of the chain on the block's own intermediates, timed beside its
+    bound; the statistics pass and the pooled-sum pass against their twins
+    (1e-5 of the sum of |terms|), the apply bit-equal to its twin, two calls
+    of the pooled sum bit-equal, and the eager SE sum it replaces. Returns
+    {wrapper name: the :func:`phase1_kernels` fields} of the three passes."""
+    from uncrtaints_tpu_torch.models.blocks import MBConv
+    from uncrtaints_tpu_torch.models.layers import Norm2d, init_weights
+    from uncrtaints_tpu_torch.ops import mbconv, norm
+
+    gen = torch.Generator().manual_seed(SEED)
+    blk = MBConv(128, 128, expansion=2, norm="group")
+    init_weights(blk, gen)
+    with torch.no_grad():
+        for m in blk.modules():  # the group norms' affines off 1 and 0
+            if isinstance(m, Norm2d):
+                m.weight.copy_(1.0 + 0.3 * torch.randn(m.weight.shape, generator=gen))
+                m.bias.copy_(0.3 * torch.randn(m.bias.shape, generator=gen))
+    blk = blk.to(dev).eval()
+    for p in blk.parameters():
+        p.data = p.data.bfloat16()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a = (torch.randn(GN_FRAMES, PATCH, PATCH, 128, generator=g, device=dev) * 1.5
+         + 0.5).bfloat16()
+    NF, H, W, C = a.shape
+    P, hid, G = H * W, blk.hidden, blk.n_groups
+    fn, shape = blk.conv.fn, f"[{NF},{H},{W},{C}]"
+    with torch.inference_mode():
+        std = blk(a)
+        blk.fused_eval = True
+        n0 = {f.__name__: f.launches for f in (mbconv.norm_gelu_matmul,
+                                                mbconv.norm_gelu_dwconv3x3, norm.norm_stats,
+                                                norm.norm_gelu_pool, norm.norm_apply)}
+        got = blk(a)
+        torch.cuda.synchronize()
+        n1 = {f.__name__: f.launches - n0[f.__name__]
+              for f in (mbconv.norm_gelu_matmul, mbconv.norm_gelu_dwconv3x3, norm.norm_stats,
+                        norm.norm_gelu_pool, norm.norm_apply)}
+        check(n1 == {"norm_gelu_matmul": 2, "norm_gelu_dwconv3x3": 1, "norm_stats": 1,
+                     "norm_gelu_pool": 1, "norm_apply": 1}, f"the group chain launched {n1}")
+        gap = gap_ok(got, std)
+        print(f"group chain: the encoder block {shape} bf16 against its standard body: max "
+              f"{gap['max']:.4g} (<= {0.02 * gap['max_ref']:.4g}), RMSE {gap['rmse']:.4g} (<= "
+              f"{5e-3 * gap['max_ref']:.4g}); two calls bit-equal {torch.equal(blk(a), got)}")
+        check(gap["ok"], "the group chain is off its standard body")
+        check(torch.equal(blk(a), got), "two calls of the group chain differ")
+        del std, got
+        t_chain = time_kernel(lambda: blk(a))
+        blk.fused_eval = False
+        t_std = time_kernel(lambda: blk(a))
+        blk.fused_eval = True
+        print(f"  the block: standard body {t_std:.3f} ms, group chain {t_chain:.3f} ms "
+              f"({t_std / t_chain:.2f}x)")
+
+        # each pass on the block's own intermediates
+        a3 = a.view(NF, P, C)
+        m0, r0 = norm.group_moments(norm.norm_stats(a3, G), P * C // G)
+        w1 = fn[0].weight[:, :, 0, 0].t().to(torch.bfloat16).contiguous()
+        k3a = (a3, m0, r0, blk.conv.norm.weight, blk.conv.norm.bias, w1)
+        k3a_kw = dict(groups_in=G, groups_out=G, do_gelu=False, do_stats=True)
+        h1, s1, q1 = mbconv.norm_gelu_matmul(*k3a, **k3a_kw)
+        m1, r1 = norm.group_moments(torch.stack([s1, q1]), P * hid // G)
+        wd = fn[3].weight[:, 0].permute(1, 2, 0)
+        k4a = (h1.view(NF, H, W, hid), m1, r1, fn[1].weight, fn[1].bias, wd)
+        k4_kw = dict(groups_in=G, groups_out=G, do_stats=True)
+        h2, s2, q2 = mbconv.norm_gelu_dwconv3x3(*k4a, **k4_kw)
+        m2, r2 = norm.group_moments(torch.stack([s2, q2]), P * hid // G)
+        pa = (h2, m2, r2, fn[4].weight, fn[4].bias)
+        pool = norm.norm_gelu_pool(*pa)
+        se = fn[6](h2, mean=pool / P, scale_only=True)
+        w2 = fn[7].weight[:, :, 0, 0].t().to(torch.bfloat16).contiguous()
+        k3b = (h2.view(NF, P, hid), m2, r2, fn[4].weight, fn[4].bias, w2)
+        k3b_kw = dict(se=se, groups_in=G, groups_out=G, do_gelu=True, do_stats=True)
+        y, s3, q3 = mbconv.norm_gelu_matmul(*k3b, **k3b_kw)
+        coef, off = norm.group_affine(*norm.group_moments(torch.stack([s3, q3]), P * C // G),
+                                      fn[8].weight, fn[8].bias, y.dtype)
+        z = norm.norm_apply(y, coef, off)
+
+        # the statistics pass and the apply against their twins
+        sums, stwin = norm.norm_stats(a3, G), norm.stats_twin(a3, G)
+        es = rel_to(sums - stwin, norm.stats_twin(a3.abs(), G))  # [sum |x|, sum x^2]
+        same_apply = torch.equal(z, norm.apply_twin(y, coef, off, 0, norm.ACTS["none"]))
+        print(f"  K6 statistics pass {list(a3.shape)} bf16: rel_err against its twin {es:.3g} "
+              f"(tol 1e-5); K6 apply (gn3) bit-equal to its twin {same_apply}")
+        check(es <= 1e-5, "the statistics pass disagrees with its twin")
+        check(same_apply, "the apply differs from its twin")
+
+        # the pooled sum against its twin, and repeated
+        twin = norm.gelu_pool_twin(h2.view(NF, P, hid), m2, r2, fn[4].weight, fn[4].bias)
+        terms = torch.zeros_like(twin)
+        for f0 in range(0, NF, 8):  # the sum of |terms|, a few frames at a time
+            hf = h2[f0:f0 + 8].view(-1, P, hid).float()
+            mf = m2[f0:f0 + 8].repeat_interleave(hid // G, -1)[:, None, :]
+            rf = r2[f0:f0 + 8].repeat_interleave(hid // G, -1)[:, None, :]
+            terms[f0:f0 + 8] = torch.nn.functional.gelu(
+                (hf - mf) * rf * fn[4].weight.float() + fn[4].bias.float()).abs().sum(dim=1)
+            del hf
+        ep = rel_to(pool - twin, terms)
+        same = torch.equal(norm.norm_gelu_pool(*pa), pool)
+        print(f"  pooled-sum pass {list(h2.shape)} bf16: rel_err against its twin {ep:.3g} "
+              f"(tol 1e-5), two calls bit-equal {same}")
+        check(ep <= 1e-5, "the pooled-sum pass disagrees with its twin")
+        check(same, "two calls of the pooled-sum pass differ")
+
+        nel, nh = a.numel(), h2.numel()
+        cases = [  # (name, call, bytes, fp32 operations, special-function operations)
+            ("K6 statistics pass", lambda: norm.norm_stats(a3, G), nbytes(a), 3 * nel, 0),
+            ("K3 pw1, gn0 prologue, gn1 statistics", lambda: mbconv.norm_gelu_matmul(
+                *k3a, **k3a_kw), nbytes(a, h1), 4 * nel, 0),
+            ("K4, gn1 + GELU, gn2 statistics", lambda: mbconv.norm_gelu_dwconv3x3(
+                *k4a, **k4_kw), nbytes(h1, h2), (4 + GELU_OPS + 18 + 3) * nh, GELU_SFU * nh),
+            ("pooled-sum pass", lambda: norm.norm_gelu_pool(*pa), nbytes(h2),
+             (4 + GELU_OPS + 1) * nh, GELU_SFU * nh),
+            ("K3 pw2, gn2 + GELU + SE prologue, gn3 statistics", lambda: mbconv.norm_gelu_matmul(
+                *k3b, **k3b_kw), nbytes(h2, y), (5 + GELU_OPS) * nh, GELU_SFU * nh),
+            ("K6 apply (gn3)", lambda: norm.norm_apply(y, coef, off), nbytes(y, z), 2 * nel, 0),
+            ("residual add (eager)", lambda: a + z.view(a.shape), 3 * nbytes(a), nel, 0),
+        ]
+        total, total_bound, timed = 0.0, 0.0, {}
+        for name, call, n_byte, ops, sfu in cases:
+            kms = time_kernel(call)
+            bms, by = bound(n_byte, (ops, PEAK_FP32), (sfu, PEAK_SFU))
+            total, total_bound, timed[name] = total + kms, total_bound + bms, (kms, bms, by)
+            print(f"  {name}: {kms:.4f} ms, bound {bms:.4f} ms ({by}: {n_byte / 1e6:.1f} MB; "
+                  f"{bms / kms:.0%} of it)")
+        pms = time_ms(lambda: norm.gelu_pool_twin(h2.view(NF, P, hid), m2, r2, fn[4].weight,
+                                                  fn[4].bias), runs=3)
+        sms = time_ms(lambda: norm.stats_twin(a3, G), runs=3)
+        ams = time_ms(lambda: norm.apply_twin(y, coef, off, 0, norm.ACTS["none"]), runs=3)
+        gelu_map = fn[4](h2, act="gelu")  # the standard body's gelu(gn2(h2)), the eager SE's input
+        lms = time_kernel(lambda: gelu_map.sum(dim=(1, 2), dtype=torch.float32))
+        gms = time_kernel(lambda: gelu_map * (se.to(gelu_map.dtype)[:, None, None, :]))
+        print(f"  the passes {total:.3f} ms (bounds {total_bound:.3f} ms); the twins: statistics "
+              f"{sms:.3f} ms, pooled sum {pms:.3f} ms, apply {ams:.3f} ms; the standard body's "
+              f"eager SE on gelu(gn2(h2)): the pooled sum {lms:.4f} ms and the gate x * y "
+              f"{gms:.4f} ms")
+    fields = lambda err, case, plain_ms: dict(zip(
+        ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+        (err, timed[case][0], plain_ms, *timed[case][1:], None)))
+    return {"norm_stats": fields(float((sums - stwin).abs().max()), "K6 statistics pass", sms),
+            "norm_gelu_pool": fields(float((pool - twin).abs().max()), "pooled-sum pass", pms),
+            "norm_apply": fields(0.0, "K6 apply (gn3)", ams)}
+
+
 # the halo modes at the paper shapes, split into bands of rows: K5 and K2 at
 # the encoder's and the decoder's depthwise conv, K4 at the decoder's
 HALO_SPLITS = (2, 4)
@@ -1524,8 +1741,10 @@ def phase2_slice(dev):
 
     train_kernels = (aggregate.att_group_aggregate_bwd, dwconv.dw_stencil,
                      dwgrad.dw_kernel_grad, norm.norm_act_bwd, pad.reflect_pad_adjoint)
+    gn_passes = {k: f for k, f in kernel_wrappers().items() if k in GN_PASSES}
     for f in (aggregate.att_group_aggregate, mbconv.norm_gelu_matmul,
-              mbconv.norm_gelu_dwconv3x3, norm.norm_act, pad.reflect_pad, *train_kernels):
+              mbconv.norm_gelu_dwconv3x3, norm.norm_act, pad.reflect_pad, *gn_passes.values(),
+              *train_kernels):
         f.launches = 0
     mbconv.norm_gelu_matmul.wgmma_launches = 0
     norm.norm_act.onchip = 0
@@ -1545,14 +1764,21 @@ def phase2_slice(dev):
           f"steps of B={B}, T={T}, {P}x{P}: K1 launches {k1}, K3 launches {k3}, "
           f"K4 launches {k4}, K6 launches {k6}, K7 launches {k7}")
     check(k1 == n_fwd, f"K1 launched {k1} times in {n_fwd} forwards (1 each expected)")
-    check(k3 == 10 * n_fwd, f"K3 launched {k3} times in {n_fwd} forwards (10 each expected)")
-    check(k4 == 5 * n_fwd, f"K4 launched {k4} times in {n_fwd} forwards (5 each expected)")
+    check(k3 == K3_EVAL * n_fwd,
+          f"K3 launched {k3} times in {n_fwd} forwards ({K3_EVAL} each expected)")
+    check(k4 == K4_EVAL * n_fwd,
+          f"K4 launched {k4} times in {n_fwd} forwards ({K4_EVAL} each expected)")
+    gn = {k: f.launches for k, f in gn_passes.items()}
+    print(f"  the group chain's passes: {gn}")
+    check(all(n == GN_PASSES_EVAL * n_fwd for n in gn.values()),
+          f"the group chain's passes launched {gn} in {n_fwd} forwards ({GN_PASSES_EVAL} each "
+          "expected: the encoder's block)")
     check(k6 == K6_EVAL * n_fwd,
           f"K6 launched {k6} times in {n_fwd} forwards ({K6_EVAL} each expected)")
     print(f"  K6 in one pass: {norm.norm_act.onchip} of the {k6} forwards")
-    check(norm.norm_act.onchip == K6_ONCHIP * n_fwd,
+    check(norm.norm_act.onchip == K6_ONCHIP_EVAL * n_fwd,
           f"{norm.norm_act.onchip} K6 forwards took one pass in {n_fwd} forwards "
-          f"({K6_ONCHIP} each expected: the encoder's group norms)")
+          f"({K6_ONCHIP_EVAL} each expected: in_conv's group norm)")
     check(k7 == K7_EVAL * n_fwd,
           f"K7 launched {k7} times in {n_fwd} forwards ({K7_EVAL} each expected)")
     check(mbconv.norm_gelu_matmul.wgmma_launches == k3,
@@ -1575,28 +1801,31 @@ def phase2_slice(dev):
     print(f"  eval step: {ms:.3f} ms median of {n_fwd} (min {min(times):.3f}, "
           f"max {max(times):.3f}), {B / ms * 1e3:.2f} sequences/s")
     profile_eval_step(step, model, batches[0], ms)
-    return cfg, model, batches, {"K1": k1, "K3": k3, "K4": k4, "K6": k6, "K7": k7}, ms
+    return cfg, model, batches, {"K1": k1, "K3": k3, "K4": k4, "K6": k6, "K7": k7, **gn}, ms
 
 
 def profile_eval_step(step, model, batch, step_ms):
     """One more eval step under ``torch.profiler``, reported by
-    :func:`eval_step_report`: the step must run 1 K1, 10 K3 through the
-    wgmma kernel and 5 K4 each with its pooled-sum pass and none with
-    statistics, 5 K6 (the encoder's group norms, each one one-pass kernel:
-    no statistics pass, no second pass, no per-slot math of their own), 1
-    K7 and no ATen reflection_pad kernel, and the five fused
-    decoder blocks no GELU, mean or sum over a whole map outside the
+    :func:`eval_step_report`: the step must run 1 K1, 12 K3 through the
+    wgmma kernel (three with statistics, each its two channel sums and its
+    group sum), 6 K4 (the decoder's 5 each with its pooled-sum pass, the
+    encoder's with statistics), the group chain's statistics pass (one
+    partial pass, one group sum), pooled-sum pass (with its channel sum)
+    and apply, in_conv's one-pass K6 (no statistics pass, no per-slot math
+    of its own), no K7 and no ATen reflection_pad kernel, and the five
+    fused decoder blocks no GELU, mean or sum over a whole map outside the
     kernels."""
     found, eager = eval_step_report(step, model, batch, step_ms)
-    want = {"att_group_": 1, "ngm_wg_kernel": 10, "ngm_kernel": 0, "ngd_tile_kernel": 5,
-            "channel_sum_kernel": 5, "group_stats_kernel": 0,
-            "norm_part_kernel": 0, "norm_finalize_kernel": 0,
-            "norm_apply_kernel": K6_EVAL, "norm_apply_kernel_onchip": K6_ONCHIP,
-            "reflect_pad_nhwc_kernel": K7_EVAL, "reflection_pad": 0}
+    want = {"att_group_": 1, "ngm_wg_kernel": K3_EVAL, "ngm_kernel": 0,
+            "ngd_tile_kernel": K4_EVAL, "channel_sum_kernel": 5 + 3 * 2 + 1,
+            "group_stats_kernel": 3 + 1, "norm_part_kernel": 1, "norm_finalize_kernel": 0,
+            "norm_apply_kernel": K6_EVAL + 1, "norm_apply_kernel_onchip": K6_ONCHIP_EVAL,
+            "gelu_pool_part_kernel": 1, "reflect_pad_nhwc_kernel": K7_EVAL,
+            "reflection_pad": 0}
     check(found == want,
-          f"the eval step's kernels {found}, expected {want} (1 K1, 10 K3 through "
-          "the wgmma kernel, 5 K4 each with its pooled-sum pass and none with statistics, "
-          "the encoder's 5 group norms one pass each, the encoder's pad K7's)")
+          f"the eval step's kernels {found}, expected {want} (1 K1, 12 K3 through "
+          "the wgmma kernel, 6 K4, the decoder's 5 with their pooled-sum passes, the group "
+          "chain's statistics, pooled-sum and apply passes, in_conv's one-pass norm, no pad)")
     check(not eager, "a fused decoder block ran an eager GELU or reduction over a whole map")
 
 
@@ -1628,12 +1857,13 @@ def eval_step_report(step, model, batch, step_ms):
     found = {f: count(f) for f in ("att_group_", "ngm_wg_kernel", "ngm_kernel", "ngd_tile_kernel",
                                    "channel_sum_kernel", "group_stats_kernel", "norm_part_kernel",
                                    "norm_finalize_kernel", "norm_apply_kernel",
-                                   "norm_apply_kernel_onchip", "reflect_pad_nhwc_kernel",
-                                   "reflection_pad")}
+                                   "norm_apply_kernel_onchip", "gelu_pool_part_kernel",
+                                   "reflect_pad_nhwc_kernel", "reflection_pad")}
     print(f"    kernels by name: {found}")
     # the hand-written kernels one by one (template arguments tell the two K3 shapes apart)
     for key, (n, ms) in sorted(names.items()):
-        if any(f in key for f in ("ngm_", "ngd_", "channel_sum_kernel", "att_group_", "norm_")):
+        if any(f in key for f in ("ngm_", "ngd_", "channel_sum_kernel", "att_group_", "norm_",
+                                  "gelu_pool_")):
             short = key[key.find("ng"):] if "::ng" in key else key
             print(f"      {short[:70]}: {n} launches, {ms / n:.4f} ms each")
 
@@ -1675,12 +1905,8 @@ def phase3_references(dev, cfg, model, batch):
     std = step(off, batch)
     check((mbconv.norm_gelu_matmul.launches, mbconv.norm_gelu_dwconv3x3.launches) == n,
           "fused_eval=off launched K3 or K4")
-    for k in ("pred", "var"):
-        gap = gap_ok(fused[k], std[k])
-        print(f"phase 3: fused vs standard eval on the card, {k}: max {gap['max']:.4g} (<= "
-              f"{0.02 * gap['max_ref']:.4g}), RMSE {gap['rmse']:.4g} (<= "
-              f"{5e-3 * gap['max_ref']:.4g})")
-        check(gap["ok"], f"fused/standard gap in {k}")
+    step32 = make_eval_step(cfg.replace(compute_dtype="float32"))
+    fused_gate("phase 3: eval on the card", fused, std, step32(model, batch), step32(off, batch))
 
     # the card (kernels) against the CPU (their plain versions), fp32
     # compute, fused eval on both, widths 128 so the fused body runs; both
@@ -1758,8 +1984,7 @@ def phase_scene(dev, cfg, model, off):
           f"launches {counts}")
     print(f"  {sec * 1e3:.1f} ms for the scene (host tiling and blend included): "
           f"{n_win / sec:.2f} windows/s, {S * S / sec / 1e6:.3f} Mpixel/s")
-    want = {"K1": n_fwd, "K3": 10 * n_fwd, "K4": 5 * n_fwd, "K1-bwd": 0, "K5": 0, "K2": 0,
-            "K6": K6_EVAL * n_fwd, "K6-bwd": 0, "K7": K7_EVAL * n_fwd, "K7-adj": 0}
+    want = chain_launches(0, n_fwd)
     check(counts == want, f"scene launches {counts}, expected {want}")
     check(mbconv.norm_gelu_matmul.wgmma_launches == counts["K3"],
           "a K3 launch of the scene did not run the wgmma kernel")
@@ -1781,12 +2006,11 @@ def phase_scene(dev, cfg, model, off):
         check(gap <= 1e-6, f"single-window scene differs from the eval step in {k}")
 
     std = predict_scene(off, cfg, scene, dates, **kw)
-    for k in ("pred", "var"):
-        gap = gap_ok(torch.from_numpy(out[k]), torch.from_numpy(std[k]))
-        print(f"  fused vs standard scene, {k}: max {gap['max']:.4g} (<= "
-              f"{0.02 * gap['max_ref']:.4g}), RMSE {gap['rmse']:.4g} (<= "
-              f"{5e-3 * gap['max_ref']:.4g})")
-        check(gap["ok"], f"fused/standard scene gap in {k}")
+    cfg32 = cfg.replace(compute_dtype="float32")
+    as_t = lambda r: {k: torch.from_numpy(v) for k, v in r.items() if k in ("pred", "var")}
+    fused_gate("  the scene", as_t(out), as_t(std),
+               as_t(predict_scene(model, cfg32, scene, dates, **kw)),
+               as_t(predict_scene(off, cfg32, scene, dates, **kw)))
     return counts
 
 
@@ -1823,8 +2047,7 @@ def phase4_train(dev, batches):
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"phase 4: paper recipe train step (bf16, Adam lr {cfg.lr}), {TRAIN_STEPS} steps of "
           f"B={B}, T={T}, {PATCH}x{PATCH}: launches {counts}")
-    per_step = {"K1": 1, "K1-bwd": 1, "K5": 12, "K2": 6, "K3": 0, "K4": 0, "K6": K6_TRAIN,
-                "K6-bwd": K6_TRAIN, "K7": 0, "K7-adj": 0}
+    per_step = chain_launches(1, 0)
     for k, n in per_step.items():
         check(counts[k] == n * TRAIN_STEPS,
               f"{k} launched {counts[k]} times in {TRAIN_STEPS} train steps ({n} each expected)")
@@ -1936,9 +2159,8 @@ def phase_remat(dev):
                   f"remat {remat}: peak device memory {r['peak'] / 2**30:.3f} GiB ({r['peak']} "
                   f"bytes), step {r['ms']:.2f} ms (median of {REMAT_STEPS}), device busy "
                   f"{r['busy']:.2f} ms (one step under the profiler), launches a step {per}")
-            want = {"K5": 18 if remat else 12, "K2": 6, "K1": 1, "K1-bwd": 1, "K3": 0, "K4": 0,
-                    "K6": K6_REMAT if remat else K6_TRAIN, "K6-bwd": K6_TRAIN, "K7": 0,
-                    "K7-adj": 0}
+            want = {**chain_launches(1, 0), "K5": 18 if remat else 12,
+                    "K6": K6_REMAT if remat else K6_TRAIN}
             check(r["counts"] == {k: n * REMAT_STEPS for k, n in want.items()},
                   f"B={nb} remat {remat}: launches {r['counts']} in {REMAT_STEPS} steps, "
                   f"expected {want} a step")
@@ -2101,9 +2323,11 @@ def native_vs_numpy(label, ds, cfg, native):
 def chain_launches(train_steps, eval_forwards):
     """The launches a run of that many train steps and eval forwards makes."""
     return {"K1": train_steps + eval_forwards, "K1-bwd": train_steps, "K5": 12 * train_steps,
-            "K2": 6 * train_steps, "K3": 10 * eval_forwards, "K4": 5 * eval_forwards,
+            "K2": 6 * train_steps, "K3": K3_EVAL * eval_forwards,
+            "K4": K4_EVAL * eval_forwards,
             "K6": K6_TRAIN * train_steps + K6_EVAL * eval_forwards,
-            "K6-bwd": K6_TRAIN * train_steps, "K7": K7_EVAL * eval_forwards, "K7-adj": 0}
+            "K6-bwd": K6_TRAIN * train_steps, "K7": K7_EVAL * eval_forwards, "K7-adj": 0,
+            **dict.fromkeys(GN_PASSES, GN_PASSES_EVAL * eval_forwards)}
 
 
 def phase6_cli(dev, eval_ms, train_ms, tmp, native):
@@ -2624,7 +2848,8 @@ def phase8_utae(dev, tmp):
     evals = 3 * steps  # val and test in cli.train, cli.test
     want = {"K1": 3 * (steps + evals), "K1-bwd": 3 * steps, "K5": 0, "K2": 0, "K3": 0, "K4": 0,
             "K6": K6_UTAE * (steps + evals), "K6-bwd": K6_UTAE * steps,
-            "K7": K7_UTAE * (steps + evals), "K7-adj": K7_UTAE * steps}
+            "K7": K7_UTAE * (steps + evals), "K7-adj": K7_UTAE * steps,
+            **dict.fromkeys(GN_PASSES, 0)}
     print(f"phase 8: U-TAE (encoder [64,64,64,128], decoder [32,32,64,128], 16 heads, d_model "
           f"256; bf16, B={B}, T={T}, {PATCH}x{PATCH}): cli.train 1 epoch and cli.test, "
           f"{chain_s:.1f} s, {steps} train steps and {evals} eval forwards, launches {counts}")
@@ -2678,10 +2903,11 @@ def phase8_utae(dev, tmp):
     all_counts = {k: f.launches for k, f in kernels.items()}
     tr_counts = {k: all_counts[k] - ev_counts[k] for k in all_counts}
     check(ev_counts == {"K1": 18, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 0, "K4": 0,
-                        "K6": 6 * K6_UTAE, "K6-bwd": 0, "K7": 6 * K7_UTAE, "K7-adj": 0}
+                        "K6": 6 * K6_UTAE, "K6-bwd": 0, "K7": 6 * K7_UTAE, "K7-adj": 0,
+                        **dict.fromkeys(GN_PASSES, 0)}
           and tr_counts == {"K1": 12, "K1-bwd": 12, "K5": 0, "K2": 0, "K3": 0, "K4": 0,
                             "K6": 4 * K6_UTAE, "K6-bwd": 4 * K6_UTAE, "K7": 4 * K7_UTAE,
-                            "K7-adj": 4 * K7_UTAE},
+                            "K7-adj": 4 * K7_UTAE, **dict.fromkeys(GN_PASSES, 0)},
           f"U-TAE bare steps launched {ev_counts} in 6 eval forwards and {tr_counts} in 4 train "
           f"steps (3 K1, {K6_UTAE} K6 and {K7_UTAE} K7 a forward, 3 K1-bwd, {K6_UTAE} K6-bwd "
           f"and {K7_UTAE} K7 adjoints a train step)")
@@ -2955,8 +3181,7 @@ def phase9_modules(dev, tmp, native):
     serve(x, dates)
     sync()
     one = counts()
-    want = {"K1": 1, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 10, "K4": 5, "K6": K6_EVAL,
-            "K6-bwd": 0, "K7": K7_EVAL, "K7-adj": 0}
+    want = chain_launches(0, 1)
     check(one == want, f"one exported call launched {one}, expected {want}")
     gaps = {k: float((got[k] - ref[k]).abs().max()) for k in ("pred", "var")}
     same = all(torch.equal(got[k], ref[k]) for k in ("pred", "var"))
@@ -3569,17 +3794,13 @@ def spatial_report(one, got, batch, n_data, n_spatial, label):
     # launches: every rank runs the whole forward on its band, through the
     # halo modes; a band pads at the scene's edge only (layers.band_pad), not
     # through K7
-    k7 = K7_EVAL if ns == 1 else 0
-    fwd = {"K1": 1, "K1-bwd": 0, "K5": 0, "K2": 0, "K3": 10, "K4": 5, "K6": K6_EVAL, "K6-bwd": 0,
-           "K7": k7, "K7-adj": 0}
-    trn = {"K1": 1, "K1-bwd": 1, "K5": 12, "K2": 6, "K3": 0, "K4": 0, "K6": K6_TRAIN,
-           "K6-bwd": K6_TRAIN, "K7": 0, "K7-adj": 0}
+    fwd, trn = chain_launches(0, 1), chain_launches(1, 0)
     n_scene = -(-one["scene counts"]["K1"] // n_data)  # rounds of one batch a data rank
     for r, g in enumerate(got):
         print(f"  rank {r}: eval launches {g['eval counts']} (halo mode {g['eval halo']}), "
               f"train step {g['train counts']} (halo mode {g['train halo']}), scene "
               f"{g['scene counts']}")
-        check(g["eval counts"] == fwd and g["eval halo"] == {"K5": 0, "K2": 0, "K4": 5},
+        check(g["eval counts"] == fwd and g["eval halo"] == {"K5": 0, "K2": 0, "K4": K4_EVAL},
               f"rank {r}'s eval forward launched {g['eval counts']} {g['eval halo']}")
         check(g["train counts"] == trn and g["train halo"] == {"K5": 12, "K2": 6, "K4": 0},
               f"rank {r}'s train step launched {g['train counts']} {g['train halo']}")
@@ -3674,7 +3895,7 @@ def main():
         clock.append(time.perf_counter())
         print(f"[{what} took {clock[-1] - clock[-2]:.1f} s]")
 
-    kern = phase1_kernels(dev)
+    kern = {**phase1_kernels(dev), **phase1_group_chain(dev)}
     took("phase 1")
     cfg, model, batches, evalc, eval_ms = phase2_slice(dev)
     took("phase 2")
@@ -3734,6 +3955,11 @@ def main():
         # no Pallas kernel: jnp.pad, fused by XLA into the convolution
         "reflect_pad": ("pad.cu", "models/layers.py:Conv2d", "K7"),
         "reflect_pad_adjoint": ("pad.cu", "models/layers.py:Conv2d", "K7-adj"),
+        # the eval group-norm MBConv's passes around K3 -> K4 -> K3: K6's
+        # statistics and apply kernels, and the SE's pooled sum
+        "norm_stats": ("norm.cu", "models/layers.py:734", "GN-stats"),
+        "norm_gelu_pool": ("norm.cu", "models/blocks.py:SE", "GN-pool"),
+        "norm_apply": ("norm.cu", "models/layers.py:734", "GN-apply"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"uncrtaints_tpu_torch/csrc/{src}",

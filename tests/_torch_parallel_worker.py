@@ -239,6 +239,32 @@ def run_layer(name, mesh=None):
     return y.detach(), xb.grad, {n: p.grad for n, p in params}
 
 
+CHAIN_NORMS = ("batch", "group")
+
+
+def run_chain(norm, mesh=None):
+    """An eval MBConv at widths of 128 on its kernel chain (fused_eval on;
+    here the kernels' plain versions), seeded, its norms' affines drawn: the
+    output of the whole input [2,16,9,128], or of this rank's band of rows
+    under ``mesh``."""
+    from uncrtaints_tpu_torch.models.blocks import MBConv
+    from uncrtaints_tpu_torch.models.layers import Norm2d, init_weights
+    gen = torch.Generator().manual_seed(11)
+    blk = MBConv(128, 128, expansion=2, norm=norm, fused_eval=True)
+    init_weights(blk, gen)
+    with torch.no_grad():
+        for m in blk.modules():
+            if isinstance(m, Norm2d):
+                m.weight.copy_(1.0 + 0.3 * torch.randn(m.weight.shape, generator=gen))
+                m.bias.copy_(0.3 * torch.randn(m.bias.shape, generator=gen))
+    x = layer_inputs("chain " + norm, (2, 16, 9, 128))
+    if mesh is not None:
+        band = x.shape[1] // mesh.n_spatial
+        x = x.narrow(1, mesh.spatial_rank * band, band)
+    with torch.inference_mode():
+        return blk.eval()(x)
+
+
 def job_spatial(out_dir, rank, world):
     from uncrtaints_tpu_torch.infer import predict_scene
     from uncrtaints_tpu_torch.ops.dwconv import dw_stencil
@@ -283,6 +309,7 @@ def job_spatial(out_dir, rank, world):
     res["families"] = {name: run_family(name, inp["family_weights"].get(name), mesh)
                        for name in FAMILIES}
     res["layers"] = {name: run_layer(name, mesh) for name in layer_cases()}
+    res["chains"] = {norm: run_chain(norm, mesh) for norm in CHAIN_NORMS}
     torch.save(res, os.path.join(out_dir, f"spatial_rank{rank}.pt"))
 
 

@@ -160,15 +160,42 @@ def test_mbconv_variants_match_jax(expansion, downsample, norm, train):
 def test_mbconv_fused_eval_keeps_to_the_standard_block():
     """The fused eval chain serves only the standard block (no downsample,
     expansion above 1), as in the JAX package: the variants run their plain
-    body even with fused_eval on."""
+    body even with fused_eval on. Of the norms, batch takes the batch chain
+    and group norm at 128 channels (groups of whole 8-channel chunks) the
+    group chain, in eval only, also under a spatial split (a band each);
+    instance norm, ``none``, train mode and groups of 4 channels keep the
+    standard body."""
     from uncrtaints_tpu_torch.models.blocks import MBConv
+    from uncrtaints_tpu_torch.parallel.mesh import Mesh2D, use_mesh_2d
     x = torch.randn(1, 8, 8, 128)
-    for kw in (dict(expansion=1), dict(expansion=2, downsample=True)):
-        blk = MBConv(128, 128, fused_eval=True, **kw).eval()
+
+    def route(blk, train=False):
         called = []
-        blk._fused_body = lambda a: called.append(a)
+        for body in ("_body", "_fused_body", "_fused_group_body"):
+            setattr(blk, body, lambda a, body=body: called.append(body) or a)
+        blk.train(train)
         with torch.no_grad():
             blk(x)
-        assert not called, kw
+        return called
+
+    for kw in (dict(expansion=1), dict(expansion=2, downsample=True)):
+        for norm in ("batch", "group"):
+            assert route(MBConv(128, 128, fused_eval=True, norm=norm, **kw)) == ["_body"], kw
+    assert route(MBConv(128, 128, expansion=2, norm="batch", fused_eval=True)) == ["_fused_body"]
+    assert route(MBConv(128, 128, expansion=2, norm="group", fused_eval=True)) == [
+        "_fused_group_body"]
+    for norm in ("instance", "none"):
+        assert route(MBConv(128, 128, expansion=2, norm=norm, fused_eval=True)) == ["_body"]
+    for norm in ("batch", "group"):
+        assert route(MBConv(128, 128, expansion=2, norm=norm, fused_eval=True),
+                     train=True) == ["_body"]
+        assert route(MBConv(128, 128, expansion=2, norm=norm)) == ["_body"]  # fused_eval off
+    assert route(MBConv(128, 128, expansion=2, norm="group", n_groups=32,
+                        fused_eval=True)) == ["_body"]
+    with use_mesh_2d(Mesh2D(0, 1, 2)):
+        assert route(MBConv(128, 128, expansion=2, norm="group", fused_eval=True)) == [
+            "_fused_group_body"]
+        assert route(MBConv(128, 128, expansion=2, norm="batch", fused_eval=True)) == [
+            "_fused_body"]
     with pytest.raises(ValueError, match="inp == oup"):
         MBConv(8, 16)

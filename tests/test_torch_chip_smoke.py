@@ -1,5 +1,5 @@
 """``chip_smoke.py``'s helpers on the CPU: the kernel-kind tables sort a
-profile's kernels, and ``kernel_wrappers()`` names the ten counted kernel
+profile's kernels, and ``kernel_wrappers()`` names the thirteen counted kernel
 wrappers, whose counters a CPU call leaves at 0 (a CPU tensor runs the
 plain version, not the kernel)."""
 
@@ -13,7 +13,9 @@ WRAPPERS = {"K1": "aggregate.att_group_aggregate", "K1-bwd": "aggregate.att_grou
             "K5": "dwconv.dw_stencil", "K2": "dwgrad.dw_kernel_grad",
             "K3": "mbconv.norm_gelu_matmul", "K4": "mbconv.norm_gelu_dwconv3x3",
             "K6": "norm.norm_act", "K6-bwd": "norm.norm_act_bwd",
-            "K7": "pad.reflect_pad", "K7-adj": "pad.reflect_pad_adjoint"}
+            "K7": "pad.reflect_pad", "K7-adj": "pad.reflect_pad_adjoint",
+            "GN-stats": "norm.norm_stats", "GN-pool": "norm.norm_gelu_pool",
+            "GN-apply": "norm.norm_apply"}
 
 
 def _cpu_args(name):
@@ -37,7 +39,8 @@ def _cpu_args(name):
             "K3": (x.view(N, H * W, C), *stats, r(C, 2 * C).bfloat16()),
             "K4": (x, *stats, r(3, 3, C)),
             "K6": (x, "group", r(C), r(C), G, "gelu"),
-            "K7": (x, 1), "K7-adj": (r(N, H + 2, W + 2, C), 1)}[name]
+            "K7": (x, 1), "K7-adj": (r(N, H + 2, W + 2, C), 1),
+            "GN-stats": (x, G), "GN-pool": (x, *stats), "GN-apply": (x, r(N, C), r(N, C))}[name]
 
 
 @pytest.mark.parametrize("name", list(WRAPPERS))

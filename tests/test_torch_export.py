@@ -76,9 +76,10 @@ def test_round_trip_equals_the_live_eval_step_at_any_batch(artifact, B):
 def test_bf16_policy_and_pinned_batch(tmp_path):
     """The default compute dtype (bf16 parameters in the artifact, as the
     eval step casts them) through the fused MBConv operators K3 and K4 at
-    widths of 128 (the encoder's depthwise conv through K7's pad), with a
-    pinned batch: equal to the live step, and another batch size is
-    refused."""
+    widths of 128 (the encoder's group-norm block through the group chain:
+    K6's statistics pass, the pooled sum and K6's apply around K3 and K4,
+    no pad), with a pinned batch: equal to the live step, and another batch
+    size is refused."""
     cfg = derive(Config(use_sar=True, scale_by=10.0, encoder_widths=[128],
                         decoder_widths=[128], n_head=4, d_model=32, device="cpu",
                         fused_eval="on"))
@@ -88,7 +89,8 @@ def test_bf16_policy_and_pinned_batch(tmp_path):
              and isinstance(n.target, torch._ops.OpOverload)
              and n.target.namespace == "uncrtaints"}
     assert names == {"uncrtaints::att_group_aggregate", "uncrtaints::norm_gelu_matmul",
-                     "uncrtaints::norm_gelu_dwconv3x3", "uncrtaints::reflect_pad"}
+                     "uncrtaints::norm_gelu_dwconv3x3", "uncrtaints::norm_stats",
+                     "uncrtaints::norm_gelu_pool", "uncrtaints::norm_apply"}
     assert {p.dtype for k, p in ep.state_dict.items() if "running" not in k} == {torch.bfloat16}
     path = str(tmp_path / "pinned.pt2")
     torch.export.save(ep, path)

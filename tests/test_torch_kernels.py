@@ -493,31 +493,101 @@ def test_norm_gelu_dwconv_kernel_refuses_grad(cuda, rng):
 
 
 @pytest.mark.cuda
-def test_fused_mbconv_chain_on_card(cuda, rng):
+@pytest.mark.parametrize("norm", ["batch", "group"])
+def test_fused_mbconv_chain_on_card(cuda, rng, norm):
     """The eval MBConv on the card runs K3, K4, K3 and stays within the
-    fused-vs-standard gate of its own standard body."""
+    fused-vs-standard gate of its own standard body. With group norms (the
+    group chain) also one statistics pass, one pooled-sum pass and one
+    apply, no K7 and no K6 norm of its own; two calls bit-equal."""
     from uncrtaints_tpu_torch.models.blocks import MBConv
-    from uncrtaints_tpu_torch.models.layers import init_weights
-    tm = MBConv(128, 128, expansion=2, norm="batch").eval()
+    from uncrtaints_tpu_torch.models.layers import Norm2d, init_weights
+    from uncrtaints_tpu_torch.ops import norm as tn
+    tm = MBConv(128, 128, expansion=2, norm=norm).eval()
     init_weights(tm, torch.Generator().manual_seed(0))
     for b in tm.buffers():
         b.copy_(_t(np.abs(rng.standard_normal(b.shape) * 0.3) + 0.5, "cpu"))
+    with torch.no_grad():
+        for m in tm.modules():
+            if isinstance(m, Norm2d) and m.norm == "group":
+                m.weight.copy_(_t(1.0 + 0.3 * rng.standard_normal(m.weight.shape), "cpu"))
+                m.bias.copy_(_t(0.3 * rng.standard_normal(m.bias.shape), "cpu"))
     tm = tm.to(cuda)
     for p in tm.parameters():
         p.data = p.data.bfloat16()
     x = _t(rng.standard_normal((2, 3, 16, 16, 128)), cuda, torch.bfloat16)
+    passes = (tn.norm_stats, tn.norm_gelu_pool, tn.norm_apply, tn.norm_act, tops.reflect_pad)
     with torch.inference_mode():
         y0 = tm(x).float()
         tm.fused_eval = True
         n3, n4 = tops.norm_gelu_matmul.launches, tops.norm_gelu_dwconv3x3.launches
         nw = tops.norm_gelu_matmul.wgmma_launches
+        before = [f.launches for f in passes]
         y1 = tm(x).float()
-    assert tops.norm_gelu_matmul.launches == n3 + 2
-    assert tops.norm_gelu_matmul.wgmma_launches == nw + 2  # both GEMMs pipelined
-    assert tops.norm_gelu_dwconv3x3.launches == n4 + 1
+        after = [f.launches for f in passes]
+        again = tm(x).float()
+    assert tops.norm_gelu_matmul.launches == n3 + 4
+    assert tops.norm_gelu_matmul.wgmma_launches == nw + 4  # both GEMMs pipelined
+    assert tops.norm_gelu_dwconv3x3.launches == n4 + 2
+    chain = 1 if norm == "group" else 0
+    assert [b - a for a, b in zip(before, after)] == [chain, chain, chain, 0, 0]
+    assert torch.equal(y1, again)
     d = (y0 - y1).abs()
     assert d.max() <= 0.02 * y0.abs().max()
     assert d.square().mean().sqrt() <= 5e-3 * y0.abs().max()
+
+
+# the pooled-sum pass: the path's C of 256 (16-byte vectors, groups of 64
+# channels), fp32, groups that split a vector (C=24 in 4 groups of 6) and the
+# scalar path (C=20); (N, H, W, C, G, dtype)
+POOL_CASES = [(6, 64, 64, 256, 4, torch.bfloat16), (3, 16, 16, 128, 4, torch.float32),
+              (2, 5, 7, 24, 4, torch.bfloat16), (2, 9, 11, 20, 2, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,C,G,dtype", POOL_CASES)
+def test_norm_gelu_pool_kernel_matches_twin(cuda, N, H, W, C, G, dtype):
+    """The group chain's pooled-sum pass against its twin on the same
+    inputs: within 1e-5 of the sum of |terms| (the same fp32 terms summed in
+    another order); two calls bit-equal (no atomics); one launch a call."""
+    from uncrtaints_tpu_torch.ops import norm as tn
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rand = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    x = (rand(N, H, W, C) * 1.5 + 0.5).to(dtype)
+    mean, rstd = rand(N, G) * 0.3 + 0.5, rand(N, G).abs() + 0.5
+    scale, bias = rand(C) * 0.3 + 1.0, rand(C) * 0.3
+    n0 = tn.norm_gelu_pool.launches
+    got = tn.norm_gelu_pool(x, mean, rstd, scale, bias)
+    again = tn.norm_gelu_pool(x, mean, rstd, scale, bias)
+    assert tn.norm_gelu_pool.launches == n0 + 2
+    assert got.shape == (N, C) and got.dtype == torch.float32 and torch.equal(got, again)
+    x3 = x.view(N, H * W, C)
+    ref = tn.gelu_pool_twin(x3, mean, rstd, scale, bias)
+    m = mean.repeat_interleave(C // G, -1)[:, None, :]
+    r = rstd.repeat_interleave(C // G, -1)[:, None, :]
+    terms = torch.nn.functional.gelu((x3.float() - m) * r * scale + bias).abs().sum(dim=1)
+    assert float(((got - ref).abs() / terms.clamp_min(1e-30)).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_chain_passes_on_card(cuda, rng, dtype):
+    """The group chain's statistics pass (K6's, within 1e-5 of the sum of
+    |terms| of its twin) and its apply (bit-equal to the twin on the same
+    coef and off) at [6,64,64,128], each one launch."""
+    from uncrtaints_tpu_torch.ops import norm as tn
+    x = _t(rng.standard_normal((6, 64, 64, 128)) * 1.5 + 0.5, cuda, dtype)
+    w = _t(1.0 + 0.3 * rng.standard_normal(128), cuda, dtype)
+    b = _t(0.3 * rng.standard_normal(128), cuda, dtype)
+    n0, a0 = tn.norm_stats.launches, tn.norm_apply.launches
+    sums = tn.norm_stats(x, 4)
+    ref = tn.stats_twin(x.view(6, -1, 128), 4)
+    scale = torch.stack([x.float().abs().view(6, -1, 4, 32).sum(dim=(1, 3)),
+                         x.float().square().view(6, -1, 4, 32).sum(dim=(1, 3))])
+    assert float(((sums - ref).abs() / scale).max()) <= 1e-5
+    coef, off = tn.group_affine(*tn.group_moments(sums, 64 * 64 * 32), w, b, dtype)
+    y = tn.norm_apply(x, coef, off)
+    assert torch.equal(y, tn.apply_twin(x.view(6, -1, 128), coef, off, 0, 0).view(x.shape))
+    assert (tn.norm_stats.launches, tn.norm_apply.launches) == (n0 + 1, a0 + 1)
 
 
 # ------------------------------------------------------------ halo modes --

@@ -224,6 +224,11 @@ def _jax_mbconv(rng, C, norm, x, fused=False):
         v["batch_stats"] = jax.tree.map(
             lambda a: jnp.abs(jnp.asarray(rng.standard_normal(a.shape).astype(np.float32)) * 0.3) + 0.5,
             v["batch_stats"])
+    if norm == "group":  # non-trivial group-norm affines (flax starts them at 1 and 0)
+        draw = lambda a: jnp.asarray(rng.standard_normal(a.shape).astype(np.float32))
+        for k in [k for k in v["params"] if k.startswith("Norm2d")]:
+            p = v["params"][k]
+            v["params"][k] = {"scale": 1.0 + 0.3 * draw(p["scale"]), "bias": 0.3 * draw(p["bias"])}
     return jm, v
 
 
@@ -239,21 +244,22 @@ def test_mbconv_fp32(rng, norm):
     _close(tm(_t(x)), ref, atol=1e-4)
 
 
+@pytest.mark.parametrize("norm", ["batch", "group"])
 @pytest.mark.parametrize("fused", [False, True])
-def test_mbconv_bf16_against_jax(rng, fused):
+def test_mbconv_bf16_against_jax(rng, fused, norm):
     """C=128, 16x16 in bf16 (tests/test_pallas_kernels.py's fused-eval
-    case): the port's body against the JAX body of the same kind. Bound:
+    case): the port's body against the JAX body of the same kind (with
+    group norms the JAX package has no chain: its standard body). Bound:
     the JAX package's fused-vs-standard tolerance, max 0.02 and RMSE 5e-3 of
     max|y| (bf16 activations; JAX's bf16 GELU uses a tanh-form erf)."""
     from uncrtaints_tpu_torch.models.blocks import MBConv
     C = 128
     xb = jnp.asarray(rng.standard_normal((2, 3, 16, 16, C)).astype(np.float32)).astype(jnp.bfloat16)
-    jm, v = _jax_mbconv(rng, C, "batch", xb, fused=fused)
-    vb = {"params": jax.tree.map(lambda p: p.astype(jnp.bfloat16), v["params"]),
-          "batch_stats": v["batch_stats"]}
+    jm, v = _jax_mbconv(rng, C, norm, xb, fused=fused)
+    vb = {**v, "params": jax.tree.map(lambda p: p.astype(jnp.bfloat16), v["params"])}
     ref = np.asarray(jm.apply(vb, xb, False), np.float32)
-    tm = MBConv(C, C, expansion=2, norm="batch", fused_eval=fused).eval()
-    tm.load_state_dict(_mbconv_state(vb, "batch", C), strict=True)
+    tm = MBConv(C, C, expansion=2, norm=norm, fused_eval=fused).eval()
+    tm.load_state_dict(_mbconv_state(vb, norm, C), strict=True)
     for p in tm.parameters():
         p.data = p.data.bfloat16()
     got = _np(tm(_t(xb.astype(jnp.float32)).bfloat16()))
@@ -262,13 +268,16 @@ def test_mbconv_bf16_against_jax(rng, fused):
     assert np.sqrt((d ** 2).mean()) <= 5e-3 * np.abs(ref).max()
 
 
-def test_mbconv_fused_matches_standard_bf16(rng):
-    """The port's own fused and standard eval bodies, same weights, bf16."""
+@pytest.mark.parametrize("norm", ["batch", "group"])
+def test_mbconv_fused_matches_standard_bf16(rng, norm):
+    """The port's own fused and standard eval bodies, same weights, bf16
+    (group norms: the group chain, its norms' affines drawn)."""
     from uncrtaints_tpu_torch.models.blocks import MBConv
-    tm = MBConv(128, 128, expansion=2, norm="batch").eval()
+    tm = MBConv(128, 128, expansion=2, norm=norm).eval()
     tl.init_weights(tm, torch.Generator().manual_seed(0))
     for b in tm.buffers():
         b.copy_(_t(np.abs(rng.standard_normal(b.shape) * 0.3) + 0.5))
+    _draw_group_affines(rng, tm)
     for p in tm.parameters():
         p.data = p.data.bfloat16()
     x = _t(rng.standard_normal((2, 3, 16, 16, 128))).bfloat16()
@@ -278,6 +287,46 @@ def test_mbconv_fused_matches_standard_bf16(rng):
     d = (y0 - y1).abs()
     assert d.max() <= 0.02 * y0.abs().max()
     assert d.square().mean().sqrt() <= 5e-3 * y0.abs().max()
+
+
+def _draw_group_affines(rng, tm):
+    """Group norms' weights about 1 and biases about 0 (init_weights sets
+    them to exactly 1 and 0)."""
+    from uncrtaints_tpu_torch.models.layers import Norm2d
+    with torch.no_grad():
+        for m in tm.modules():
+            if isinstance(m, Norm2d) and m.norm == "group":
+                m.weight.copy_(_t(1.0 + 0.3 * rng.standard_normal(m.weight.shape)))
+                m.bias.copy_(_t(0.3 * rng.standard_normal(m.bias.shape)))
+
+
+def test_mbconv_group_chain_fp32_against_jax_standard(rng):
+    """The group chain (K6's statistics -> K3 -> K4 -> pooled sum -> K3 ->
+    K6's apply, through the plain versions) in fp32 at C=128, 8x8 over
+    [2,3] frames against the JAX package's standard group-norm body on the
+    same weights: the fused-vs-standard gate, max 0.02 and RMSE 5e-3 of
+    max|y| (K3 multiplies bf16 operands in fp32 as well); the depthwise
+    conv module and the eager norms are bypassed."""
+    from uncrtaints_tpu_torch.models.blocks import MBConv
+    from uncrtaints_tpu_torch.ops import norm as tn
+    C = 128
+    x = rng.standard_normal((2, 3, 8, 8, C)).astype(np.float32)
+    jm, v = _jax_mbconv(rng, C, "group", jnp.asarray(x))
+    ref = np.asarray(jm.apply(v, jnp.asarray(x), False), np.float32)
+    tm = MBConv(C, C, expansion=2, norm="group", fused_eval=True).eval()
+    tm.load_state_dict(_mbconv_state(v, "group", C), strict=True)
+    calls = []
+    hooks = [m.register_forward_hook(lambda *a: calls.append(1))
+             for m in (tm.conv.norm, tm.conv.fn[1], tm.conv.fn[3], tm.conv.fn[4], tm.conv.fn[8])]
+    with torch.no_grad():
+        got = _np(tm(_t(x)))
+    for h in hooks:
+        h.remove()
+    assert not calls  # the kernels and passes do the norms' and the conv's work
+    d = np.abs(got - ref)
+    assert d.max() <= 0.02 * np.abs(ref).max()
+    assert np.sqrt((d ** 2).mean()) <= 5e-3 * np.abs(ref).max()
+    assert tn.norm_stats.launches == tn.norm_gelu_pool.launches == 0  # CPU: the twins
 
 
 def test_mbconv_fused_chain_against_jax_standard(rng):

@@ -439,3 +439,90 @@ def test_onchip_plan_budget_edge(bwd):
                           **small, backward=bwd) is not None
     assert tn.onchip_plan("group", 1, cap * H100["sms"], C, 1, BF, tn.REDUCE_NONE, **small,
                           backward=bwd) is None
+
+
+# ------------------------------------- the group-norm MBConv's passes --
+
+def _gn_inputs(rng, Fr=3, H=5, W=6, C=16, G=4, dtype=torch.float32):
+    x = _t(rng.standard_normal((Fr, H, W, C)) * 1.5 + 0.5).to(dtype)
+    w = _t(1.0 + 0.3 * rng.standard_normal(C))
+    b = _t(0.3 * rng.standard_normal(C))
+    return x, w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_group_moments_and_affine_equal_k6s_finalize(rng, dtype):
+    """norm_stats, group_moments and group_affine (the chain's pieces of a
+    group norm) give K6's twins' coef and off, and with norm_apply K6's
+    group norm itself, bit for bit."""
+    x, w, b = _gn_inputs(rng, dtype=dtype)
+    w, b = w.to(dtype), b.to(dtype)  # the parameters in the compute dtype, as the eval step
+    Fr, H, W, C = x.shape
+    sums = tn.norm_stats(x, 4)
+    assert sums.shape == (2, Fr, 4) and sums.dtype == torch.float32
+    torch.testing.assert_close(sums, tn.stats_twin(x.view(Fr, H * W, C), 4), rtol=0, atol=0)
+    m, r = tn.group_moments(sums, H * W * C // 4)
+    coef, off = tn.group_affine(m, r, w, b, dtype)
+    cf, of, mvn = tn.finalize_twin(sums, H * W * C // 4, w, b, tn.KINDS["group"], C, dtype)
+    assert torch.equal(coef, cf) and torch.equal(off, of)
+    assert torch.equal(m.reshape(-1), mvn[:Fr * 4])
+    assert torch.equal(r, torch.rsqrt(mvn[Fr * 4:2 * Fr * 4].view(Fr, 4) + tn.EPS))
+    y = tn.norm_apply(x, coef, off)
+    want, _, _, _ = tn.norm_act_twin(x, w, b, tn.KINDS["group"], 4, tn.ACTS["none"])
+    assert y.dtype == dtype and torch.equal(y, want)
+
+
+@pytest.mark.parametrize("G", [4, 2])
+def test_gelu_pool_twin_matches_the_eager_formula(rng, G):
+    """The squeeze-and-excitation's pooled sum of the group chain, fp32:
+    the operator (on the CPU its twin, K3's prologue ((x - m) * r) * scale +
+    bias) against the eager formula gelu(x * coef + off).sum over the pixels
+    with the norm's folded per-(frame, channel) coef and off in fp32, within
+    1e-5 of the largest sum's scale; and the twin of the same fp32 terms
+    summed in another order."""
+    x, w, b = _gn_inputs(rng, G=G)
+    Fr, H, W, C = x.shape
+    m, r = tn.group_moments(tn.norm_stats(x, G), H * W * C // G)
+    got = tn.norm_gelu_pool(x, m, r, w, b)
+    assert got.shape == (Fr, C) and got.dtype == torch.float32
+    cg = C // G
+    cf = r.repeat_interleave(cg, -1) * w
+    of = b - m.repeat_interleave(cg, -1) * cf
+    want = torch.nn.functional.gelu(x * cf[:, None, None, :] + of[:, None, None, :]).sum(
+        dim=(1, 2))
+    scale = float(torch.nn.functional.gelu(x * cf[:, None, None, :]
+                                           + of[:, None, None, :]).abs().sum(dim=(1, 2)).max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5 * scale)
+    twin = tn.gelu_pool_twin(x.view(Fr, H * W, C), m, r, w, b)
+    assert torch.equal(got, twin)
+
+
+def test_group_chain_passes_refuse_bad_input(rng):
+    x, w, b = _gn_inputs(rng)
+    with pytest.raises(ValueError, match="groups"):
+        tn.norm_stats(x, 5)
+    with pytest.raises(ValueError, match=r"\[F, \.\.\., C\]"):
+        tn.norm_stats(x[0, 0], 4)
+    m, r = tn.group_moments(tn.norm_stats(x, 4), 5 * 6 * 4)
+    with pytest.raises(ValueError, match=r"\[3, 4\]"):
+        tn.norm_gelu_pool(x, m[:2], r[:2], w, b)
+    with pytest.raises(ValueError, match="coef and off"):
+        tn.norm_apply(x, w.expand(3, 16), b.expand(3, 16).bfloat16())
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_opcheck_group_chain_passes(rng, case):
+    """``torch.library.opcheck`` of the group chain's three passes on their
+    CPU implementations (the twins): schema, fake shapes, AOT dispatch; bf16
+    and fp32 maps."""
+    bf = torch.bfloat16
+    x32, w, b = _gn_inputs(rng)
+    x16 = x32.to(bf)
+    m, r = tn.group_moments(tn.stats_twin(x32.view(3, 30, 16), 4), 30 * 4)
+    coef, off = tn.group_affine(m, r, w, b, bf)
+    cases = [(U.norm_stats.default, (x16, 4)),
+             (U.norm_stats.default, (x32, 2)),
+             (U.norm_gelu_pool.default, (x16, m, r, w, b)),
+             (U.norm_apply.default, (x16, coef, off))]
+    op, args = cases[case]
+    torch.library.opcheck(op, args)

@@ -384,6 +384,7 @@ def spatial_run(tmp_path_factory):
         ref["families"] = {name: worker.run_family(name, family_weights.get(name))
                            for name in worker.FAMILIES}
         ref["layers"] = {name: worker.run_layer(name) for name in worker.layer_cases()}
+        ref["chains"] = {norm: worker.run_chain(norm) for norm in worker.CHAIN_NORMS}
     ref["jax families"] = jax_families
     return ranks, ref, jax_one, jax_mesh
 
@@ -571,6 +572,28 @@ def test_layer_bands_match_the_whole_scene(spatial_run, name):
             g.abs().max()), n
     for s in range(2):  # the data ranks repeat the bands
         assert torch.equal(ranks[2 + s]["layers"][name][1], bands[s][1])
+
+
+@pytest.mark.parametrize("norm", list(worker.CHAIN_NORMS))
+def test_eval_mbconv_chain_bands_match_the_whole_scene(spatial_run, norm):
+    """The eval MBConv's kernel chain band by band (batch norms: K4 in halo
+    mode, the pooled sum summed over the spatial group; group norms: the
+    group chain, also each norm's statistics summed over it), fp32 through
+    the kernels' plain versions: the bands stitch into the whole scene's
+    output within 1e-3 of its largest element, RMSE within 2e-5 of it (K3
+    rounds its normalised input to bf16, so a statistic summed in another
+    order may move an element by one bf16 step, and the pixel's outputs and
+    their neighbours' with it: 2.9e-4 and 5.2e-6 of the largest here, on 193
+    of 36864 elements; the batch chain, which sums no statistic, stitches
+    exactly); the data ranks repeat the bands."""
+    ranks, ref = spatial_run[:2]
+    want = ref["chains"][norm]
+    got = torch.cat([ranks[s]["chains"][norm] for s in range(2)], 1)
+    top = float(want.abs().max())
+    d = (got - want).abs()
+    assert float(d.max()) <= 1e-3 * top and float(d.square().mean().sqrt()) <= 2e-5 * top
+    for s in range(2):
+        assert torch.equal(ranks[2 + s]["chains"][norm], ranks[s]["chains"][norm])
 
 
 def _refusal_cases():

@@ -229,6 +229,29 @@ def test_counters_equal_the_shapes(monkeypatch):
             assert train_pads == eval_pads
 
 
+def test_gn_chain_counts_the_group_chains_input():
+    """``gn_chain``: the bytes of each eval group-norm MBConv's input that ran
+    as the kernel chain (the encoder's block on B*T frames, bf16), nothing in
+    a train step (train mode keeps the standard body) or with fused_eval
+    off; widths of 128, where the chain is taken."""
+    cfg = derive(Config(**dict(FAMILIES["paper"], encoder_widths=[128], decoder_widths=[128]),
+                        device="cpu", fused_eval="on"))
+    torch.manual_seed(0)
+    model = get_generator(cfg, device=torch.device("cpu"))
+    _, _, batch = _setup("paper")
+    state = create_train_state(cfg, model)
+    off = derive(Config(**dict(FAMILIES["paper"], encoder_widths=[128], decoder_widths=[128]),
+                        device="cpu", fused_eval="off"))
+    with profile(activities=[ProfilerActivity.CPU]):
+        make_eval_step(cfg)(model, batch)
+        make_train_step(cfg)(state, batch, torch.Generator().manual_seed(2))
+        make_eval_step(off)(get_generator(off, device=torch.device("cpu")), batch)
+    ev, tr, ev_off = tracing.take()
+    assert ev.counters["gn_chain"] == B * T * S * S * 128 * 2
+    assert "gn_chain" not in tr.counters and "gn_chain" not in ev_off.counters
+    assert "reflect_pad" not in ev.counters  # K4 folds the encoder's pad too
+
+
 def test_counters_need_a_profiler_and_a_step():
     tracing.count("cast", 10)
     with profile(activities=[ProfilerActivity.CPU]):
@@ -261,7 +284,7 @@ def test_counter_into_the_record_of_another_thread():
 def test_reader_names():
     """Every new metric resolves to ``device_ms.py`` or ``mb.py``; every other
     name in BENCHMARK.json to the file it resolves to without them."""
-    assert len(NEW_METRICS) == 24
+    assert len(NEW_METRICS) == 25
     for m in NEW_METRICS:
         want = "mb" if m["name"].split(".")[0].endswith("_mb") else "device_ms"
         assert harness.reader(m["name"]).__module__ == f"bench_h100.metrics.{want}"
@@ -274,7 +297,7 @@ def test_existing_names_resolve_as_before(tmp_path):
                     ignore=shutil.ignore_patterns("device_ms.py", "mb.py", "__pycache__"))
     names = [m["name"] for m in spec["end_to_end"] + spec["per_layer"]
              if m not in NEW_METRICS]
-    assert len(names) == 25
+    assert len(names) == 26
     for name in names:
         assert (harness.reader(name).__module__
                 == harness.reader(name, root=tmp_path).__module__), name

@@ -74,6 +74,12 @@
 // buffers by wave, so one barrier a wave suffices. The backward's dweight
 // and dbias add the per-slot sums over the frames in order after one last
 // barrier.
+//
+// The group-norm MBConv's eval chain (K6's statistics -> K3 -> K4 -> K3 ->
+// K6's apply) takes the passes above one by one, and one more of this
+// family: gelu_pool_part_kernel, the squeeze-and-excitation's pooled sum of
+// gelu(gn2(h2)), read-only, its per-block partials added by common.cuh's
+// channel_sum_kernel in a fixed order.
 #include <initializer_list>
 
 #include <cooperative_groups.h>
@@ -1011,6 +1017,85 @@ __global__ void __launch_bounds__(OC_THREADS, 1)
   }
 }
 
+// The squeeze-and-excitation's pooled sum of the group-norm MBConv's eval
+// chain (models/blocks.py: MBConv._fused_group_body), pass 1: per channel,
+// the sum over the block's rows of gelu(((x - m) * r) * scale + bias), m and
+// r the (frame, group) mean and rsqrt(var + eps) of the row's frame, each
+// operation rounded as K3's prologue rounds it (csrc/norm_gelu_matmul.cu),
+// so the gate sees the values the GEMM reads. The grid and the row lanes are
+// norm_part_kernel's; a block adds its row lanes in lane order into one
+// partial row, part [F * bpf][C]. The second pass is common.cuh's
+// channel_sum_kernel: a fixed order, no atomics.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(NORM_THREADS)
+    gelu_pool_part_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                          const float* __restrict__ coef, const float* __restrict__ scale,
+                          const float* __restrict__ bias, long long P, int C, int G, int bpf,
+                          long long rows_per_block, float* __restrict__ part) {
+  __shared__ float sh[NORM_THREADS * VEC];
+  const int cvec = C / VEC;
+  const int cl = min(cvec, NORM_THREADS), RL = NORM_THREADS / cl;
+  const int tid = threadIdx.x, lane = tid % cl, rl = tid / cl;
+  const int chunk = blockIdx.y * cl + lane;
+  const bool active = rl < RL && chunk < cvec;
+  const int f = blockIdx.x / bpf, j = blockIdx.x % bpf;
+  const long long fr0 = static_cast<long long>(f) * P;
+  const long long r0 = fr0 + j * rows_per_block;
+  const long long r1 = min(r0 + rows_per_block, fr0 + P);
+  const int c0 = chunk * VEC;
+
+  float s[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) s[k] = 0.0f;
+  if (active) {
+    float m[VEC], r[VEC], sc[VEC], bi[VEC];
+    const int cg = C / G;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const long long fg = static_cast<long long>(f) * G + (c0 + k) / cg;
+      m[k] = mean[fg];
+      r[k] = coef[fg];
+      sc[k] = scale[c0 + k];
+      bi[k] = bias[c0 + k];
+    }
+    constexpr int U = 4;
+    long long row = r0 + rl;
+    for (; row + (U - 1) * RL < r1; row += U * RL) {
+      float v[U][VEC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) load_f32<T, VEC>(x + (row + u * RL) * C + c0, v[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          s[k] += gelu_exact(
+              __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[u][k], m[k]), r[k]), sc[k]), bi[k]));
+    }
+    for (; row < r1; row += RL) {
+      float v[VEC];
+      load_f32<T, VEC>(x + row * C + c0, v);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        s[k] += gelu_exact(
+            __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[k], m[k]), r[k]), sc[k]), bi[k]));
+    }
+  }
+  // the row lanes in lane order: lane layout [RL][cl * VEC]
+  const int width = cl * VEC;
+  if (rl < RL) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) sh[rl * width + lane * VEC + k] = s[k];
+  }
+  __syncthreads();
+  for (int cc = tid; cc < width; cc += NORM_THREADS) {
+    const int c = blockIdx.y * width + cc;
+    if (c >= C) continue;
+    float t = 0.0f;
+    for (int l = 0; l < RL; ++l) t += sh[l * width + cc];
+    part[static_cast<long long>(blockIdx.x) * C + c] = t;
+  }
+}
+
 // ----------------------------------------------------------- launches --
 //
 // The slot arrays coef / off are in x's dtype T for forms 0 and 1 and in
@@ -1266,6 +1351,42 @@ int run_dx(const void* g, const void* x, const void* coef, const void* off, Affi
   return err ? err : static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+void launch_gelu_pool(const void* x, long long F, long long P, int C, int G, const float* mean,
+                      const float* coef, const float* scale, const float* bias, int bpf,
+                      float* part, float* out, cudaStream_t s) {
+  const long long rpb = (P + bpf - 1) / bpf;
+  if (vec_ok(C, vec_of<T>(), {x})) {
+    constexpr int V = vec_of<T>();
+    const int cvec = C / V, cl = cvec < NORM_THREADS ? cvec : NORM_THREADS;
+    const dim3 grid(static_cast<unsigned>(F * bpf), static_cast<unsigned>((cvec + cl - 1) / cl));
+    gelu_pool_part_kernel<T, V><<<grid, NORM_THREADS, 0, s>>>(
+        static_cast<const T*>(x), mean, coef, scale, bias, P, C, G, bpf, rpb, part);
+  } else {
+    const int cl = C < NORM_THREADS ? C : NORM_THREADS;
+    const dim3 grid(static_cast<unsigned>(F * bpf), static_cast<unsigned>((C + cl - 1) / cl));
+    gelu_pool_part_kernel<T, 1><<<grid, NORM_THREADS, 0, s>>>(
+        static_cast<const T*>(x), mean, coef, scale, bias, P, C, G, bpf, rpb, part);
+  }
+  channel_sum_kernel<512><<<static_cast<unsigned>(F * ((C + 31) / 32)), 512, 0, s>>>(
+      part, out, bpf, C);
+}
+
+int run_gelu_pool(const void* x, int dtype, long long F, long long P, int C, int G,
+                  const float* mean, const float* coef, const float* scale, const float* bias,
+                  int bpf, float* part, float* out, cudaStream_t s) {
+  if (!shape_ok(F, P, C, G) || bpf <= 0 || F * bpf > (1LL << 31) - 1 || !mean || !coef ||
+      !scale || !bias || !part || !out)
+    return kBad;
+  if (dtype == kBFloat16)
+    launch_gelu_pool<__nv_bfloat16>(x, F, P, C, G, mean, coef, scale, bias, bpf, part, out, s);
+  else if (dtype == kFloat32)
+    launch_gelu_pool<float>(x, F, P, C, G, mean, coef, scale, bias, bpf, part, out, s);
+  else
+    return kBad;
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The one-pass launches: the plan checked against the kernels' assumptions
 // (whole groups a slab, 16-byte row pieces, a channel a thread in the
 // reductions, every row covered), then one cooperative launch of K * bps
@@ -1503,6 +1624,19 @@ extern "C" int uncr_norm_backward_onchip(const void* g, const void* x, const voi
   const OnchipPlan pl{F, P, rpb, C, G, W, K, bps};
   return run_onchip_backward(g, x, w, wcode, coef, off, mvn, kind, dtype, pl, act, part, S, dw,
                              db, dx, static_cast<cudaStream_t>(stream));
+}
+
+// The squeeze-and-excitation's pooled sum of the group-norm MBConv's eval
+// chain: out [F][C] fp32, per frame and channel the sum over the frame's P
+// rows of x of gelu(((x - m) * r) * scale + bias); mean and coef [F][G] fp32
+// (each group's mean and rsqrt(var + eps)), scale and bias [C] fp32; part
+// [F * bpf][C] fp32 scratch (bpf: blocks a frame).
+extern "C" int uncr_norm_gelu_pool(const void* x, int dtype, long long F, long long P, int C,
+                                   int G, const float* mean, const float* coef,
+                                   const float* scale, const float* bias, int bpf, float* part,
+                                   float* out, void* stream) {
+  return run_gelu_pool(x, dtype, F, P, C, G, mean, coef, scale, bias, bpf, part, out,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // The current device's SM count and the shared memory a block may opt into

@@ -17,9 +17,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from uncrtaints_tpu_torch import tracing
 from uncrtaints_tpu_torch.models.layers import (
     Conv2d, ConvLayer, Linear, Norm2d, gelu, smart_apply)
 from uncrtaints_tpu_torch.ops.mbconv import norm_gelu_dwconv3x3, norm_gelu_matmul
+from uncrtaints_tpu_torch.ops.norm import (
+    group_affine, group_moments, norm_apply, norm_gelu_pool, norm_stats)
 from uncrtaints_tpu_torch.parallel import mesh
 
 
@@ -96,11 +99,16 @@ class MBConv(nn.Module):
     two variants; they complete the reference block. Under a spatial split
     the strided convs and the pool read the rows above a band (even bands).
 
-    ``fused_eval`` runs the eval-mode batch-norm body as the kernel chain
-    K3 -> K4 -> K3 (:func:`norm_gelu_matmul`, :func:`norm_gelu_dwconv3x3`)
-    when the widths allow it (inp and hidden multiples of 128, as in the
-    JAX package), for the standard block only (no downsample, expansion
-    above 1), as the JAX package."""
+    ``fused_eval`` runs the eval-mode body as the kernel chain K3 -> K4 ->
+    K3 (:func:`norm_gelu_matmul`, :func:`norm_gelu_dwconv3x3`) when the
+    widths allow it (inp and hidden multiples of 128, as in the JAX
+    package), for the standard block only (no downsample, expansion above
+    1), as the JAX package: with batch norms (``_fused_body``), whose folded
+    affines the kernels take, and with group norms (``_fused_group_body``;
+    the JAX package has no such chain) where a group is whole 8-channel
+    chunks, the kernels taking each norm's per-(frame, group) statistics
+    from the kernel before. Instance norm, ``none`` and train mode keep the
+    standard body."""
 
     def __init__(self, inp: int, oup: int, expansion: int = 4,
                  norm: str = "batch", n_groups: int = 4,
@@ -109,7 +117,7 @@ class MBConv(nn.Module):
         super().__init__()
         if inp != oup and not downsample:
             raise ValueError("MBConv needs inp == oup for its residual add (or downsample)")
-        self.inp, self.oup, self.norm = inp, oup, norm
+        self.inp, self.oup, self.norm, self.n_groups = inp, oup, norm, n_groups
         self.hidden = int(inp * expansion)
         self.expansion, self.downsample = expansion, downsample
         self.pad_value, self.fused_eval = pad_value, fused_eval
@@ -137,10 +145,13 @@ class MBConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N,H,W,C] or [B,T,H,W,C] (time folded into the batch)."""
-        if (self.fused_eval and not self.training and self.norm == "batch"
-                and not self.downsample and self.expansion != 1
-                and self.inp % 128 == 0 and self.hidden % 128 == 0):
-            return smart_apply(self._fused_body, x, self.pad_value)
+        if (self.fused_eval and not self.training and not self.downsample
+                and self.expansion != 1 and self.inp % 128 == 0 and self.hidden % 128 == 0):
+            if self.norm == "batch":
+                return smart_apply(self._fused_body, x, self.pad_value)
+            # K3's pipelined kernel takes input groups of whole 8-channel chunks
+            if self.norm == "group" and self.inp % (8 * self.n_groups) == 0:
+                return smart_apply(self._fused_group_body, x, self.pad_value)
         return smart_apply(self._body, x, self.pad_value)
 
     def _body(self, a: torch.Tensor) -> torch.Tensor:
@@ -170,8 +181,9 @@ class MBConv(nn.Module):
         is the fp32 mean of gelu(bn2(h2)): K4 sums it per channel in the
         pass that writes h2 (``pool_affine``), so h2 is not read again. The
         GEMM weights go to K3 as bf16 [C,C2]; K4 takes the depthwise weight
-        as [3,3,C]. K4's group statistics are not asked for (batch norm
-        needs none). The small weight transforms and folds are redone every
+        as [3,3,C]. The kernels' group statistics are not asked for (batch
+        norm needs none; ``_fused_group_body`` asks for them). The small
+        weight transforms and folds are redone every
         forward: the eval step hands the module fresh casts of its
         parameters each time, so there is nothing stable to key a cache on.
 
@@ -209,6 +221,60 @@ class MBConv(nn.Module):
             h2.view(NF, P, hidden), zero, one, c2, o2, w2, se=s, groups_in=1,
             do_gelu=True, out_affine=fn[8].fold(), do_stats=False)
         return a + y.view(NF, H, W, self.oup)
+
+    def _fused_group_body(self, a: torch.Tensor) -> torch.Tensor:
+        """Eval body with group norms as the kernel chain of ``_fused_body``,
+        each norm's per-(frame, group) mean and rsqrt(var + eps) computed
+        from sums the pass before took (K6's formula, :func:`group_moments`):
+        K6's statistics pass over a; pw1(gn0(a)) with gn0 as K3's prologue,
+        gn1's sums in its epilogue; gelu(gn1(h1)) and the reflect depthwise
+        3x3 in one K4 launch, gn2's sums in it; the SE pooled vector, the
+        fp32 mean of gelu(gn2(h2)), in a read-only pass
+        (:func:`norm_gelu_pool`: gn2's statistics exist only once h2 is
+        written); pw2(se * gelu(gn2(h2))) with gn2 + GELU + the gate as
+        K3's prologue, gn3's sums in its epilogue; gn3 applied by K6's apply
+        pass; the residual add. Counted in the step's ``gn_chain`` counter
+        (a's bytes).
+
+        Under a spatial split ``a`` is a band of the scene, as in
+        ``_fused_body``: K4 runs in halo mode, and each pass's sums, the
+        band's, are summed over the spatial group before they are used (an
+        all-reduce each: the four norms' statistics and the pooled vector)."""
+        fn = self.conv.fn
+        NF, H, W, C = a.shape
+        P, hidden, G = H * W, self.hidden, self.n_groups
+        if tracing.recording():
+            tracing.count("gn_chain", tracing.nbytes(a))
+        sp = mesh.spatial()
+        # a band's sums -> the scene's; the scene's pixels a frame
+        scene = lambda t: t if sp is None else mesh.spatial_sum(t, sp)
+        Ps = P * (1 if sp is None else sp.n_spatial)
+        a3 = a.contiguous().view(NF, P, C)
+        gn0, gn1, gn2, gn3 = self.conv.norm, fn[1], fn[4], fn[8]
+
+        m0, r0 = group_moments(scene(norm_stats(a3, G)), Ps * C // G)
+        w1 = fn[0].weight[:, :, 0, 0].t().to(torch.bfloat16).contiguous()
+        h1, s1, q1 = norm_gelu_matmul(a3, m0, r0, gn0.weight, gn0.bias, w1, groups_in=G,
+                                      groups_out=G, do_gelu=False, do_stats=True)
+
+        m1, r1 = group_moments(scene(torch.stack([s1, q1])), Ps * hidden // G)
+        wd = fn[3].weight[:, 0].permute(1, 2, 0)  # [C,1,3,3] -> [3,3,C]
+        h1 = h1.view(NF, H, W, hidden)
+        h2, s2, q2 = norm_gelu_dwconv3x3(
+            h1, m1, r1, gn1.weight, gn1.bias, wd, groups_in=G, groups_out=G, do_stats=True,
+            halo=None if sp is None else mesh.halo_exchange(h1, 1, 1, sp))
+
+        m2, r2 = group_moments(scene(torch.stack([s2, q2])), Ps * hidden // G)
+        pool = scene(norm_gelu_pool(h2, m2, r2, gn2.weight, gn2.bias))
+        s = fn[6](h2, mean=pool / Ps, scale_only=True)
+        w2 = fn[7].weight[:, :, 0, 0].t().to(torch.bfloat16).contiguous()
+        y, s3, q3 = norm_gelu_matmul(h2.view(NF, P, hidden), m2, r2, gn2.weight, gn2.bias, w2,
+                                     se=s, groups_in=G, groups_out=G, do_gelu=True,
+                                     do_stats=True)
+
+        m3, r3 = group_moments(scene(torch.stack([s3, q3])), Ps * self.oup // G)
+        coef, off = group_affine(m3, r3, gn3.weight, gn3.bias, y.dtype)
+        return a + norm_apply(y, coef, off).view(NF, H, W, self.oup)
 
 
 class ResidualConvBlock(nn.Module):

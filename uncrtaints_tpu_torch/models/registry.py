@@ -25,10 +25,12 @@ def mean_vars_idx(cfg: Config):
 def _resolve_fused_eval(cfg: Config, device: torch.device) -> bool:
     """``fused_eval``: 'on', 'off', or 'auto'.
 
-    'auto' is on for a CUDA device, where the fused eval MBConv runs as the
-    hand-written kernel chain K3 -> K4 -> K3; that is the path the port
-    brings up and measures. On the CPU it is off: the kernels' plain
-    versions there only add work to the standard body."""
+    'auto' is on for a CUDA device, where the eval MBConvs at widths of 128
+    run as the hand-written kernel chain K3 -> K4 -> K3: with batch norms
+    (the paper decoder's) and with group norms (the paper encoder's, K6's
+    statistics and apply passes and the pooled-sum pass around the chain);
+    that is the path the port brings up and measures. On the CPU it is off:
+    the kernels' plain versions there only add work to the standard body."""
     mode = getattr(cfg, "fused_eval", "auto")
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"fused_eval must be auto, on or off, not {mode!r}")

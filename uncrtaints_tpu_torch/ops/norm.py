@@ -25,7 +25,10 @@ per-channel affine: the eval-mode batch norm) with
 the operator, between the reduction and the elementwise pass, in both
 directions (as torch's SyncBatchNorm): the batch norms' sums over every rank
 (a process group is up), the group and instance norms' over the spatial
-group (a spatial split is on).
+group (a spatial split is on). The eval group-norm MBConv's kernel chain
+takes a norm's passes apart through three more operators (eval only):
+``uncrtaints::norm_stats``, ``uncrtaints::norm_apply`` and
+``uncrtaints::norm_gelu_pool`` (its squeeze-and-excitation sum).
 
 The wrappers :func:`norm_act` and :func:`affine_act` take a CPU tensor
 through the plain version, which is the eager formula the port ran before
@@ -395,10 +398,10 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _bpf(x: torch.Tensor, Fr: int, P: int) -> int:
-    """Blocks a frame of the sums' first pass: about _BLOCKS_PER_SM blocks an
-    SM in all, at least _MIN_ROWS rows a block."""
-    want = -(-_BLOCKS_PER_SM * _sm_count(x.device.index or 0) // Fr)
+def _bpf(x: torch.Tensor, Fr: int, P: int, per_sm: int = _BLOCKS_PER_SM) -> int:
+    """Blocks a frame of the sums' first pass: about ``per_sm`` blocks an SM
+    in all, at least _MIN_ROWS rows a block."""
+    want = -(-per_sm * _sm_count(x.device.index or 0) // Fr)
     return max(1, min(want, -(-P // _MIN_ROWS)))
 
 
@@ -423,6 +426,8 @@ _ENTRIES = {
                                  _CI, _CLL, _CI, _CF, _VP, _VP, _VP, _VP, _VP, _VP],
     "uncr_norm_backward_onchip": [_VP, _VP, _VP, _CI, _VP, _VP, _VP, _CI, _CI, _CLL, _CLL, _CI,
                                   _CI, _CI, _CI, _CI, _CLL, _CI, _VP, _VP, _VP, _VP, _VP, _VP],
+    "uncr_norm_gelu_pool": [_VP, _CI, _CLL, _CLL, _CI, _CI, _VP, _VP, _VP, _VP, _CI, _VP, _VP,
+                            _VP],
     "uncr_device_limits": [_VP],
 }
 
@@ -950,6 +955,118 @@ def _k6a_backward(ctx, gy):
 _k6a.register_autograd(_k6a_backward, setup_context=_k6a_setup)
 
 
+# ------------------------------------- the group-norm MBConv's passes --
+#
+# The eval MBConv with group norms (models/blocks.py:
+# MBConv._fused_group_body) runs K3 -> K4 -> K3 with a norm's passes taken
+# apart around it: the statistics of the block's input ahead of the chain
+# (K3's prologue normalises), the squeeze-and-excitation's pooled vector
+# between K4 and the second K3, and after it the apply of the last norm,
+# whose statistics that K3 takes. Eval only, as K3 and K4: no backward. x is
+# [F, ..., C], F frames.
+
+def _frames(x: torch.Tensor) -> torch.Tensor:
+    return x.view(x.shape[0], -1, x.shape[-1])
+
+
+def group_moments(sums: torch.Tensor, count: int):
+    """(mean, rsqrt(var + eps)), each [F, G] fp32, from sums [2, F, G] (of x,
+    of x^2) over ``count`` elements a group: K6's formula
+    (norm_finalize_kernel), var = E[x^2] - E[x]^2 clamped at 0."""
+    mean, sq = sums / count
+    return mean, torch.rsqrt(torch.clamp(sq - mean * mean, min=0.0) + EPS)
+
+
+def group_affine(mean: torch.Tensor, rstd: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor, dtype: torch.dtype):
+    """A group norm's coef, off [F, C] in ``dtype`` from its (mean, rstd)
+    [F, G]: rstd * weight and bias - mean * coef in fp32, rounded once
+    (:func:`finalize_twin`'s group norm)."""
+    cg = weight.shape[0] // mean.shape[1]
+    cf = rstd.repeat_interleave(cg, -1) * weight.float()
+    of = bias.float() - mean.repeat_interleave(cg, -1) * cf
+    return cf.to(dtype), of.to(dtype)
+
+
+def gelu_pool_twin(x3: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
+                   scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """[F, C] fp32: per frame and channel the sum over the rows of
+    gelu(((x - m) * r) * scale + bias) in fp32, m and r = ``mean``, ``coef``
+    [F, G] of the channel's group (K3's prologue)."""
+    C, G = x3.shape[-1], mean.shape[1]
+    m = mean.float().repeat_interleave(C // G, -1)[:, None, :]
+    r = coef.float().repeat_interleave(C // G, -1)[:, None, :]
+    return F.gelu((x3.float() - m) * r * scale.float() + bias.float()).sum(dim=1)
+
+
+def gelu_pool_kernel(x3: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
+                     scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The kernel of :func:`gelu_pool_twin`: per-block partial rows (twice
+    the statistics' blocks a frame: an erf an element), then their fixed-order
+    sum."""
+    Fr, P, C = x3.shape
+    G = mean.shape[1]
+    bpf = _bpf(x3, Fr, P, 2 * _BLOCKS_PER_SM)
+    part = torch.empty(Fr * bpf * C, dtype=torch.float32, device=x3.device)
+    out = torch.empty((Fr, C), dtype=torch.float32, device=x3.device)
+    _call("uncr_norm_gelu_pool", x3.device, x3.data_ptr(), _code(x3), Fr, P, C, G,
+          mean.data_ptr(), coef.data_ptr(), scale.data_ptr(), bias.data_ptr(), bpf,
+          part.data_ptr(), out.data_ptr())
+    return out
+
+
+@torch.library.custom_op("uncrtaints::norm_stats", mutates_args=(), device_types="cuda")
+def _k6_stats(x: torch.Tensor, groups: int) -> torch.Tensor:
+    out = stats_kernel(_frames(x), groups).view(2, x.shape[0], groups)
+    norm_stats.launches += 1
+    return out
+
+
+@_k6_stats.register_kernel("cpu")
+def _k6_stats_cpu(x, groups):
+    return stats_twin(_frames(x), groups)
+
+
+@_k6_stats.register_fake
+def _k6_stats_fake(x, groups):
+    return x.new_empty((2, x.shape[0], groups), dtype=torch.float32)
+
+
+@torch.library.custom_op("uncrtaints::norm_apply", mutates_args=(), device_types="cuda")
+def _k6_apply(x: torch.Tensor, coef: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    y = apply_kernel(_frames(x), coef, off, 0, ACTS["none"]).view(x.shape)
+    norm_apply.launches += 1
+    return y
+
+
+@_k6_apply.register_kernel("cpu")
+def _k6_apply_cpu(x, coef, off):
+    return apply_twin(_frames(x), coef, off, 0, ACTS["none"]).view(x.shape)
+
+
+@_k6_apply.register_fake
+def _k6_apply_fake(x, coef, off):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("uncrtaints::norm_gelu_pool", mutates_args=(), device_types="cuda")
+def _k6_pool(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor, scale: torch.Tensor,
+             bias: torch.Tensor) -> torch.Tensor:
+    out = gelu_pool_kernel(_frames(x), mean, coef, scale, bias)
+    norm_gelu_pool.launches += 1
+    return out
+
+
+@_k6_pool.register_kernel("cpu")
+def _k6_pool_cpu(x, mean, coef, scale, bias):
+    return gelu_pool_twin(_frames(x), mean, coef, scale, bias)
+
+
+@_k6_pool.register_fake
+def _k6_pool_fake(x, mean, coef, scale, bias):
+    return x.new_empty((x.shape[0], x.shape[-1]), dtype=torch.float32)
+
+
 # --------------------------------------------------------- the wrappers --
 
 def _check(name: str, x: torch.Tensor, C: int, *small) -> None:
@@ -1076,8 +1193,80 @@ def norm_act_bwd(g: torch.Tensor, x: torch.Tensor, weight: Optional[torch.Tensor
                                              REDUCE_NONE)
 
 
+def _check_frames(name: str, x: torch.Tensor, *small: torch.Tensor) -> None:
+    """x [F, ..., C] on the CPU or the card; on the card no input may ask for
+    a gradient (the passes have none, as K3 and K4)."""
+    _check(name, x, x.shape[-1])
+    if x.dim() < 3 or x.numel() == 0:
+        raise ValueError(f"{name}: x [F, ..., C] of frames of rows expected, got {tuple(x.shape)}")
+    if (x.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, *small))):
+        raise RuntimeError(f"{name}: the eval pass has no backward; call it under "
+                           "torch.no_grad() or torch.inference_mode()")
+
+
+def _per_group(name: str, x: torch.Tensor, groups: int, *small: torch.Tensor):
+    """The [F, G] vectors as the kernels read them: fp32, contiguous, on x's
+    device."""
+    if groups < 1 or x.shape[-1] % groups:
+        raise ValueError(f"{name}: {x.shape[-1]} channels in {groups} groups is not whole")
+    for t in small:
+        if tuple(t.shape) != (x.shape[0], groups) or t.device != x.device:
+            raise ValueError(f"{name}: [{x.shape[0]}, {groups}] on {x.device} expected, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    return [t.float().contiguous() for t in small]
+
+
+def norm_stats(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """[2, F, G] fp32: the sums of x and of x^2 per frame and group of x [F,
+    ..., C] (``torch.ops.uncrtaints.norm_stats``: on the card K6's statistics
+    pass, per-block partials and their fixed-order sum; on the CPU
+    :func:`stats_twin`). ``norm_stats.launches`` counts the card's calls."""
+    _check_frames("norm_stats", x)
+    _per_group("norm_stats", x, groups)
+    return torch.ops.uncrtaints.norm_stats(x.contiguous(), groups)
+
+
+def norm_apply(x: torch.Tensor, coef: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    """x * coef + off, each operation in x's dtype, for x [F, ..., C] and
+    coef, off [F, C] in x's dtype (a group norm's apply with its (frame,
+    channel) affine, :func:`group_affine`; on the card K6's apply pass, on
+    the CPU :func:`apply_twin`). ``norm_apply.launches`` counts the card's
+    calls."""
+    _check_frames("norm_apply", x, coef, off)
+    want = (x.shape[0], x.shape[-1])
+    if any(tuple(t.shape) != want or t.dtype != x.dtype or t.device != x.device
+           for t in (coef, off)):
+        raise ValueError(f"norm_apply: coef and off {list(want)} in {x.dtype} on {x.device} "
+                         f"expected, got {tuple(coef.shape)} {coef.dtype}, {tuple(off.shape)} "
+                         f"{off.dtype}")
+    return torch.ops.uncrtaints.norm_apply(x.contiguous(), coef.contiguous(), off.contiguous())
+
+
+def norm_gelu_pool(x: torch.Tensor, mean: torch.Tensor, coef: torch.Tensor,
+                   scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """[F, C] fp32: per frame and channel of x [F, ..., C] the sum over the
+    frame's pixels of gelu(((x - m) * r) * scale + bias), m and r = ``mean``,
+    ``coef`` [F, G] of the channel's group, scale and bias [C] (the eval
+    group-norm MBConv's squeeze-and-excitation sum, with K3's prologue). On
+    the card the read-only pass ``uncr_norm_gelu_pool`` of csrc/norm.cu, its
+    partials summed in a fixed order (no atomics: two calls give the same
+    bits); on the CPU :func:`gelu_pool_twin`. ``norm_gelu_pool.launches``
+    counts the card's calls."""
+    _check_frames("norm_gelu_pool", x, mean, coef, scale, bias)
+    C = x.shape[-1]
+    _check("norm_gelu_pool", x, C, scale, bias)
+    mean, coef = _per_group("norm_gelu_pool", x, mean.shape[-1], mean, coef)
+    return torch.ops.uncrtaints.norm_gelu_pool(x.contiguous(), mean, coef,
+                                               scale.float().contiguous(),
+                                               bias.float().contiguous())
+
+
 norm_act.launches = 0
 norm_act_bwd.launches = 0
 norm_act.onchip = 0
 norm_act_bwd.onchip = 0
+norm_stats.launches = 0
+norm_apply.launches = 0
+norm_gelu_pool.launches = 0
 

@@ -29,7 +29,9 @@ counter of the open step record (``cast``: what the dtype conversions and
 scale_by multiplies write; ``reflect_pad``: the padded tensors of the eager
 reflect pad; ``convlstm``: the [x, h] concatenations and the gates'
 pre-activations a ConvLSTM writes each time step; ``norm_onchip``: what the
-one-pass norms did not read a second time, x forward, g and x backward).
+one-pass norms did not read a second time, x forward, g and x backward;
+``gn_chain``: the input of each eval group-norm MBConv that ran as the
+kernel chain, ``models/blocks.py:MBConv._fused_group_body``).
 
 The spans leave ``torch.export`` and ``FlopCounterMode`` alone: neither runs
 a profiler, so the spans are empty contexts under them.
